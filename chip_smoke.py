@@ -1,0 +1,460 @@
+"""Chip smoke test of the PyTorch/CUDA port (``lightgbm_tpu_torch``).
+
+Run from the root of a checkout on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` and
+drives the port only (nothing of JAX or of ``lightgbm_tpu``):
+
+1. prints the card (name and power limit, from nvidia-smi) and builds the
+   kernels;
+2. holds every kernel against its plain PyTorch version on the same CUDA
+   tensors, at the main path's full-width shapes and at one ragged shape,
+   and times kernel, plain version and, where one exists, the one-call
+   PyTorch equivalent (CUDA events, median);
+3. trains the Higgs-shaped configuration at full width (10.5M x 28,
+   num_leaves=255, max_bin=255, learning_rate=0.1,
+   min_sum_hessian_in_leaf=100) for 1 warm-up + 5 measured iterations
+   with the launch counters reset just before, and predicts a 500k-row
+   holdout;
+4. trains a reduced copy (50k rows with missing values, 31 leaves, 10
+   iterations) on the card and on the CPU and requires identical trees.
+
+Every phase passes or the script exits non-zero.  The last line is
+``{"ok": true, "device": {...}}``; the line before it is the per-kernel
+JSON record.  Without a card, or without the rest of the repository, it
+exits non-zero and prints no result.
+"""
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
+FP32_FLOPS_PER_S = 67e12           # H100 SXM float32 outside tensor cores
+DEVICE = "cuda"
+N_ROWS = 10_500_000
+N_FEATURES = 28
+N_HOLDOUT = 500_000
+TRAIN_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+                "learning_rate": 0.1, "min_sum_hessian_in_leaf": 100,
+                "verbose": -1}
+
+
+def make_higgs_shaped(n_rows, n_features, seed=0):
+    """The benchmark's Higgs-shaped generator (bench.py:58), copied."""
+    rng = np.random.RandomState(seed)
+    # mixture of unit-scale kinematic-like features, chunked to bound
+    # peak host memory
+    X = np.empty((n_rows, n_features), dtype=np.float32)
+    chunk = 1_000_000
+    w = rng.randn(n_features).astype(np.float32)
+    y = np.empty(n_rows, dtype=np.float32)
+    for lo in range(0, n_rows, chunk):
+        hi = min(lo + chunk, n_rows)
+        Xc = rng.randn(hi - lo, n_features).astype(np.float32)
+        Xc[:, ::3] = np.abs(Xc[:, ::3])          # momentum-like positives
+        X[lo:hi] = Xc
+        logits = Xc @ w * 0.5 + 0.3 * Xc[:, 0] * Xc[:, 1] - 0.1
+        p = 1.0 / (1.0 + np.exp(-logits))
+        y[lo:hi] = (rng.random_sample(hi - lo) < p).astype(np.float32)
+    return X, y
+
+
+def fail(msg):
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def cuda_ms(fn, reps, warmup=1):
+    """Median milliseconds of ``fn`` over ``reps`` timed launches."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        return "nvidia-smi unavailable"
+    return smi.stdout.strip().splitlines()[0]
+
+
+def bound(nbytes, flops):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the float32 operations over the card's peak."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def check_histogram(th, torch, dev, F, N, B, leaf_mode, integer, seed):
+    """Kernel H vs its plain version; returns (max abs diff, max rel
+    diff, inputs)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bins = torch.randint(0, B - 1, (F, N), generator=g, device=dev,
+                         dtype=torch.int32).to(torch.uint8)
+    if integer:
+        grad = torch.randint(-8, 9, (N,), generator=g, device=dev).float()
+        hess = torch.randint(1, 5, (N,), generator=g, device=dev).float()
+    else:
+        grad = torch.randn(N, generator=g, device=dev)
+        hess = torch.rand(N, generator=g, device=dev) + 0.05
+    mask = torch.ones(N, device=dev)
+    if leaf_mode == "root":
+        leaf_idx = torch.zeros(N, dtype=torch.uint8, device=dev)
+    else:
+        leaf_idx = torch.randint(0, 255, (N,), generator=g, device=dev,
+                                 dtype=torch.int32).to(torch.uint8)
+    leaf_id = torch.zeros((), dtype=torch.int32, device=dev)
+    args = (bins, grad, hess, mask, leaf_idx, leaf_id, B)
+    k = th.masked_histogram(*args)
+    p = th.masked_histogram_plain(*args)
+    torch.cuda.synchronize()
+    diff = (k - p).abs()
+    rel = diff / p.abs().clamp_min(1e-30)
+    rel = torch.where(diff == 0, torch.zeros_like(rel), rel)
+    if integer and float(diff.max()) != 0.0:
+        fail(f"kernel H is not exact on integer inputs ({leaf_mode}, "
+             f"F={F}, N={N}, B={B}): max diff {float(diff.max())}")
+    if float(rel.max()) > 1e-5:
+        fail(f"kernel H differs from plain ({leaf_mode}, F={F}, N={N}, "
+             f"B={B}): max rel diff {float(rel.max())}")
+    return float(diff.max()), float(rel.max()), args
+
+
+def check_split(torch, ts, hist, parent, nb, mt, fm, p, ctx):
+    k = ts.find_best_split(hist, parent, nb, mt, fm, p)
+    q = ts.find_best_split_plain(hist, parent, nb, mt, fm, p)
+    torch.cuda.synchronize()
+    for key in ("feature", "threshold", "default_left", "left_mask"):
+        if not torch.equal(k[key], q[key]):
+            fail(f"kernel S {key} differs from plain ({ctx}): "
+                 f"{k[key].tolist() if k[key].dim() < 2 else ''} vs "
+                 f"{q[key].tolist() if q[key].dim() < 2 else ''}")
+    gd = (k["gain"] - q["gain"]).abs()
+    if bool((gd > 1e-6 * q["gain"].abs()).any()):
+        fail(f"kernel S gain differs from plain ({ctx}): "
+             f"{k['gain'].tolist()} vs {q['gain'].tolist()}")
+    if not torch.allclose(k["left_stats"], q["left_stats"], rtol=1e-6,
+                          atol=0):
+        fail(f"kernel S left_stats differ from plain ({ctx})")
+    return float(gd.max())
+
+
+def check_lookup(torch, tl, dev, N, idx_dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    vals = torch.randn(255, generator=g, device=dev)
+    idx = torch.randint(0, 255, (N,), generator=g, device=dev,
+                        dtype=torch.int32).to(idx_dtype)
+    score = torch.randn(N, generator=g, device=dev)
+    k = tl.take_small_add(score.clone(), vals, idx)
+    q = tl.take_small_add_plain(score.clone(), vals, idx)
+    torch.cuda.synchronize()
+    if not torch.equal(k, q):
+        fail(f"kernel L differs from plain (N={N}, {idx_dtype})")
+    return 0.0, (score, vals, idx)
+
+
+def phase_kernels(torch, dev):
+    """Phase 2: each kernel against its plain version, and its timings."""
+    from lightgbm_tpu_torch.ops import histogram as th
+    from lightgbm_tpu_torch.ops import lookup as tl
+    from lightgbm_tpu_torch.ops import split as ts
+    F, N, B = N_FEATURES, N_ROWS, 256
+    out = {}
+
+    # ---- kernel H ---------------------------------------------------
+    check_histogram(th, torch, dev, 3, 100_003, 64, "leaf", False, 1)
+    check_histogram(th, torch, dev, 3, 100_003, 64, "root", True, 2)
+    check_histogram(th, torch, dev, F, N, B, "leaf", True, 3)
+    err_h, rel_h, args = check_histogram(th, torch, dev, F, N, B, "root",
+                                         False, 4)
+    bins, grad, hess, mask, leaf_idx, leaf_id, _ = args
+    ms_h = cuda_ms(lambda: th.masked_histogram(*args), reps=10)
+    plain_h = cuda_ms(lambda: th.masked_histogram_plain(*args), reps=3)
+    flat_ids = (bins.to(torch.int64) +
+                torch.arange(F, device=dev)[:, None] * B).reshape(-1)
+    flat_vals = torch.stack([grad, hess, mask], -1).repeat(F, 1)
+    lib_out = torch.zeros(F * B, 3, device=dev)
+    lib_h = cuda_ms(lambda: lib_out.zero_().index_add_(0, flat_ids,
+                                                       flat_vals), reps=3)
+    del flat_ids, flat_vals, lib_out
+    # root pass: every row is in the leaf, so every input byte is needed
+    # and each row adds [g*m, h*m, m] (2 multiplies) into F cells
+    b_h = bound(N * F + N * 4 * 3 + N * 1 + F * B * 3 * 4, N * (2 + 3 * F))
+    out["histogram"] = dict(max_abs_err=err_h, ms=ms_h, plain_ms=plain_h,
+                            bound_ms=b_h[0], bound_by=b_h[1],
+                            library_ms=lib_h)
+    print(f"kernel H: max abs {err_h:.3g} max rel {rel_h:.3g}; "
+          f"{ms_h:.4f} ms (plain {plain_h:.3f}, index_add_ {lib_h:.3f}, "
+          f"bound {b_h[0]:.4f} by {b_h[1]}) at F={F} N={N} B={B}",
+          flush=True)
+
+    # ---- kernel S: the two children of a split at full width ---------
+    # two leaf histograms of the full-width matrix, as the loop builds
+    lidx = torch.randint(0, 2, (N,), device=dev,
+                         dtype=torch.int32).to(torch.uint8)
+    h0 = th.masked_histogram(bins, grad, hess, mask, lidx,
+                             torch.zeros((), dtype=torch.int32, device=dev),
+                             B)
+    h1 = th.masked_histogram(bins, grad, hess, mask, lidx,
+                             torch.ones((), dtype=torch.int32, device=dev),
+                             B)
+    hist = torch.stack([h0, h1]).contiguous()
+    parent = hist[:, 0].sum(dim=1).contiguous()
+    nb = torch.full((F,), B - 1, dtype=torch.int32, device=dev)
+    mt = torch.zeros(F, dtype=torch.int32, device=dev)
+    mt[::4] = 2                   # a missing bin on every fourth feature
+    fm = torch.ones(F, dtype=torch.bool, device=dev)
+    p = ts.SplitParams(max_bin=B, min_data_in_leaf=20,
+                       min_sum_hessian_in_leaf=100.0, any_missing=True)
+    err_s = check_split(torch, ts, hist, parent, nb, mt, fm, p, "full")
+    # ragged: F=3, B=64, missing values, l1/l2/max_delta
+    g = torch.Generator(device=dev).manual_seed(5)
+    rb = torch.randint(0, 63, (3, 100_003), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.uint8)
+    rg = torch.randn(100_003, generator=g, device=dev)
+    rh = torch.rand(100_003, generator=g, device=dev) + 0.05
+    rl = torch.randint(0, 3, (100_003,), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.uint8)
+    rhist = torch.stack([
+        th.masked_histogram(rb, rg, rh, torch.ones_like(rg), rl,
+                            torch.tensor(i, dtype=torch.int32, device=dev),
+                            64) for i in range(3)]).contiguous()
+    rpar = rhist[:, 0].sum(dim=1).contiguous()
+    rp = ts.SplitParams(max_bin=64, min_data_in_leaf=5, lambda_l1=0.1,
+                        lambda_l2=1.0, max_delta_step=0.5, any_missing=True)
+    check_split(torch, ts, rhist, rpar,
+                torch.tensor([64, 40, 63], dtype=torch.int32, device=dev),
+                torch.tensor([2, 0, 2], dtype=torch.int32, device=dev),
+                torch.ones(3, dtype=torch.bool, device=dev), rp, "ragged")
+    ms_s = cuda_ms(lambda: ts.find_best_split(hist, parent, nb, mt, fm, p),
+                   reps=50)
+    plain_s = cuda_ms(lambda: ts.find_best_split_plain(hist, parent, nb, mt,
+                                                       fm, p), reps=10)
+    # reads: hist, parent, per-feature descriptors; writes: the record.
+    # Per (lane, feature, bin): 3 scan adds, and per default direction the
+    # right-side stats (3), two leaf outputs (4 each) and gains given
+    # output (6 each), their sum and the gain shift (2): 3 + 2 * 25.
+    b_s = bound(hist.numel() * 4 + parent.numel() * 4 + F * 9 +
+                2 * (4 * 3 + 1 + 12 + B), hist.numel() // 3 * 53)
+    out["best_split"] = dict(max_abs_err=err_s, ms=ms_s, plain_ms=plain_s,
+                             bound_ms=b_s[0], bound_by=b_s[1],
+                             library_ms=None)
+    print(f"kernel S: max gain diff {err_s:.3g}; {ms_s:.4f} ms (plain "
+          f"{plain_s:.3f}, bound {b_s[0]:.5f} by {b_s[1]}) at W=2 F={F} "
+          f"B={B}", flush=True)
+
+    # ---- kernel L ---------------------------------------------------
+    check_lookup(torch, tl, dev, 100_003, torch.int32, 6)
+    check_lookup(torch, tl, dev, 100_003, torch.uint8, 7)
+    err_l, (score, vals, idx) = check_lookup(torch, tl, dev, N, torch.uint8,
+                                             8)
+    ms_l = cuda_ms(lambda: tl.take_small_add(score, vals, idx), reps=20)
+    plain_l = cuda_ms(lambda: tl.take_small_add_plain(score, vals, idx),
+                      reps=10)
+    idx64 = idx.to(torch.int64)
+    lib_l = cuda_ms(lambda: vals[idx64], reps=10)
+    b_l = bound(N * (1 + 4 + 4) + vals.numel() * 4, N)
+    out["leaf_lookup"] = dict(max_abs_err=err_l, ms=ms_l, plain_ms=plain_l,
+                              bound_ms=b_l[0], bound_by=b_l[1],
+                              library_ms=lib_l)
+    print(f"kernel L: exact; {ms_l:.4f} ms (plain {plain_l:.3f}, vals[idx] "
+          f"{lib_l:.3f}, bound {b_l[0]:.4f} by {b_l[1]}) at N={N}",
+          flush=True)
+    return out
+
+
+def reset_counts():
+    from lightgbm_tpu_torch.ops import histogram, lookup, split
+    for mod in (histogram, split, lookup):
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
+
+
+def read_counts():
+    from lightgbm_tpu_torch.ops import histogram, lookup, split
+    return {**histogram.LAUNCHES, **split.LAUNCHES, **lookup.LAUNCHES}
+
+
+def phase_full_width(torch, ltt):
+    """Phase 3: the slice end to end at the Higgs shape."""
+    from lightgbm_tpu_torch.metrics import auc
+    t0 = time.perf_counter()
+    X, y = make_higgs_shaped(N_ROWS + N_HOLDOUT, N_FEATURES, seed=0)
+    Xh, yh = X[N_ROWS:], y[N_ROWS:]
+    X, y = X[:N_ROWS], y[:N_ROWS]
+    print(f"data generation: {time.perf_counter() - t0:.1f} s", flush=True)
+    params = dict(TRAIN_PARAMS, device_type=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = ltt.Dataset(X, label=y, params=params).construct()
+    torch.cuda.synchronize()
+    ds_s = time.perf_counter() - t0
+    print(f"Dataset construction: {ds_s:.2f} s "
+          f"(binned {tuple(ds._constructed.binned.shape)} "
+          f"{ds._constructed.binned.dtype})", flush=True)
+
+    reset_counts()
+    booster = ltt.Booster(params=params, train_set=ds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    booster.update()                                    # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    iter_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        stop = booster.update()
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - t0)
+        if stop:
+            fail("full-width training stopped early")
+    t0 = time.perf_counter()
+    prob = booster.predict(Xh)
+    predict_s = time.perf_counter() - t0
+    counts = read_counts()
+    if prob.shape != (N_HOLDOUT,) or not np.all(np.isfinite(prob)):
+        fail("holdout predictions are not finite of the expected shape")
+    score = auc(yh, prob)
+    train_auc = auc(y[:N_HOLDOUT], booster.predict(X[:N_HOLDOUT]))
+    print(f"full width: warm-up {warm_s:.3f} s, seconds per iteration "
+          f"{statistics.median(iter_s):.3f} (runs {[round(s, 3) for s in iter_s]}), "
+          f"holdout predict {predict_s:.3f} s, holdout AUC {score:.5f}, "
+          f"train-slice AUC {train_auc:.5f}, trees {booster.num_trees()} "
+          f"x {[t.num_leaves for t in booster.models]} leaves", flush=True)
+    print(f"launches on the main path: {counts} (per tree: "
+          f"{ {k: v / 6 for k, v in counts.items()} })", flush=True)
+    for name, n in counts.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched on the main path")
+    if not 0.6 < score <= 1.0:
+        fail(f"holdout AUC {score} is not that of a trained model")
+    return counts, dict(seconds_per_iteration=statistics.median(iter_s),
+                        iteration_seconds=iter_s, warmup_seconds=warm_s,
+                        dataset_seconds=ds_s, predict_seconds=predict_s,
+                        holdout_auc=score)
+
+
+def phase_device_vs_cpu(ltt):
+    """Phase 4: the reduced configuration on the card and on the CPU."""
+    X, y = make_higgs_shaped(50_000, N_FEATURES, seed=1)
+    rng = np.random.RandomState(2)
+    X[rng.rand(len(X)) < 0.05, 5] = np.nan      # exercise missing values
+    boosters = {}
+    for dev in (DEVICE, "cpu"):
+        p = dict(TRAIN_PARAMS, num_leaves=31, device_type=dev)
+        t0 = time.perf_counter()
+        boosters[dev] = ltt.train(p, ltt.Dataset(X, label=y, params=p),
+                                  num_boost_round=10)
+        print(f"reduced training on {dev}: "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    a, b = boosters[DEVICE], boosters["cpu"]
+    if a.num_trees() != b.num_trees() or a.num_trees() != 10:
+        fail(f"tree counts differ: {a.num_trees()} vs {b.num_trees()}")
+    worst = 0.0
+    for i, (ta, tb) in enumerate(zip(a.models, b.models)):
+        n = ta.num_leaves - 1
+        if ta.num_leaves != tb.num_leaves:
+            fail(f"tree {i}: {ta.num_leaves} vs {tb.num_leaves} leaves")
+        for k in ("split_feature", "threshold_bin", "decision_type"):
+            if not np.array_equal(getattr(ta, k)[:n], getattr(tb, k)[:n]):
+                fail(f"tree {i}: {k} differs between cuda and cpu")
+        va, vb = ta.leaf_value[:n + 1], tb.leaf_value[:n + 1]
+        if not np.allclose(va, vb, rtol=1e-5, atol=0):
+            fail(f"tree {i}: leaf values differ beyond rtol 1e-5")
+        worst = max(worst, float(np.max(np.abs(va - vb))))
+    pa, pb = a.predict(X), b.predict(X)
+    pdiff = float(np.max(np.abs(pa - pb)))
+    if pdiff > 1e-5:
+        fail(f"predictions differ between cuda and cpu by {pdiff}")
+    print(f"device vs cpu: 10 trees identical, max leaf value diff "
+          f"{worst:.3g}, max prediction diff {pdiff:.3g}", flush=True)
+
+
+def main():
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not importable")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a card")
+    try:
+        import lightgbm_tpu_torch as ltt
+        from lightgbm_tpu_torch.ops import kernels
+    except ImportError as e:
+        fail(f"the lightgbm_tpu_torch package is not beside this script: {e}")
+    card = card_line()
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}", flush=True)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # ---- phase 1: build ----------------------------------------------
+    kernels.load()
+    info = kernels.build_info()
+    print(f"kernel build: {info['seconds']:.1f} s "
+          f"(built={info['built']}) -> {info['path']}", flush=True)
+    for line in info["log"].splitlines():
+        if "registers" in line or "spill" in line or line.startswith("---"):
+            print("  " + line.strip(), flush=True)
+
+    # ---- phase 2: kernels vs plain -----------------------------------
+    stats = phase_kernels(torch, dev)
+    # ---- phase 3: the slice end to end at full width -----------------
+    counts, e2e = phase_full_width(torch, ltt)
+    # ---- phase 4: device vs cpu --------------------------------------
+    phase_device_vs_cpu(ltt)
+
+    meta = {
+        "histogram": ("cuda", "lightgbm_tpu_torch/csrc/histogram.cu",
+                      "lightgbm_tpu/ops/histogram.py:238"),
+        "best_split": ("cuda", "lightgbm_tpu_torch/csrc/split.cu",
+                       "lightgbm_tpu/ops/split.py:899"),
+        "leaf_lookup": ("cuda", "lightgbm_tpu_torch/csrc/lookup.cu",
+                        "lightgbm_tpu/ops/lookup.py:35"),
+    }
+    rows = []
+    for name, (route, src, repl) in meta.items():
+        s = stats[name]
+        rows.append({"name": name, "route": route, "source": src,
+                     "replaces": repl, "launches": counts[name],
+                     "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                     "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                     "bound_by": s["bound_by"],
+                     "library_ms": s["library_ms"]})
+    print(json.dumps({"card": card, "e2e": e2e}), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

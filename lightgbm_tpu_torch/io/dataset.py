@@ -1,0 +1,143 @@
+"""Constructed (binned) dataset + metadata, device-resident.
+
+Counterpart of ``lightgbm_tpu/io/dataset.py`` (``TpuDataset``,
+``Metadata``, ``bin_rows``).  The binned matrix is held feature-major,
+(F, N), on the chosen device: uint8 when every used feature has at most
+256 bins, int16 above.  Labels and weights ride along as float32 device
+tensors.  Bin mappers come from the numpy copy of the JAX package's
+binning (``io/binning.py``), and rows are binned on the device with
+``torch.searchsorted``, the same left-side search the numpy path does,
+so the matrix is byte-identical to ``TpuDataset.binned.T``.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..utils.log import Log
+from .binning import KZERO, MISSING_NAN, MISSING_ZERO, BinMapper, \
+    find_bin_mappers
+
+__all__ = ["Metadata", "TorchDataset", "bin_rows"]
+
+
+def _value_to_bin(col: torch.Tensor, m: BinMapper) -> torch.Tensor:
+    """``BinMapper.value_to_bin`` for one float64 column on the device."""
+    ub = torch.as_tensor(m.bin_upper_bound, dtype=torch.float64,
+                         device=col.device)
+    nan = torch.isnan(col)
+    if m.missing_type == MISSING_NAN:
+        out = torch.searchsorted(ub, torch.where(nan, 0.0, col))
+        out = torch.clamp(out, max=m.num_bin - 2)
+        return out.masked_fill(nan, m.num_bin - 1)
+    if m.missing_type == MISSING_ZERO:
+        zero = (torch.abs(col) <= KZERO) | nan
+        out = torch.searchsorted(ub, torch.where(zero, 0.0, col))
+        out = torch.clamp(out, max=m.num_bin - 2)
+        return out.masked_fill(zero, m.num_bin - 1)
+    out = torch.searchsorted(ub, torch.where(nan, 0.0, col))
+    return torch.clamp(out, max=m.num_bin - 1)
+
+
+def bin_rows(X: np.ndarray, mappers: List[BinMapper], used: Sequence[int],
+             dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Bin raw rows against fixed (numerical) mappers -> (len(used),
+    rows) on ``device``."""
+    Xd = torch.as_tensor(np.ascontiguousarray(X), device=device)
+    out = torch.empty(len(used), X.shape[0], dtype=dtype, device=device)
+    for j, f in enumerate(used):
+        col = Xd[:, f].to(torch.float64).contiguous()
+        out[j] = _value_to_bin(col, mappers[f]).to(dtype)
+    return out
+
+
+class Metadata:
+    """label / weight container (``dataset.h:36-248``)."""
+
+    def __init__(self, num_data: int):
+        self.num_data = int(num_data)
+        self.label = np.zeros(num_data, dtype=np.float32)
+        self.weight: Optional[np.ndarray] = None
+
+    def set_label(self, label) -> None:
+        label = np.asarray(label, dtype=np.float32).reshape(-1)
+        if len(label) != self.num_data:
+            Log.fatal("label length %d != num_data %d", len(label),
+                      self.num_data)
+        self.label = label
+
+    def set_weight(self, weight) -> None:
+        if weight is None:
+            self.weight = None
+            return
+        weight = np.asarray(weight, dtype=np.float32).reshape(-1)
+        if len(weight) != self.num_data:
+            Log.fatal("weight length %d != num_data %d", len(weight),
+                      self.num_data)
+        self.weight = weight
+
+
+class TorchDataset:
+    """Binned dataset ready for training, resident on ``device``."""
+
+    def __init__(self, mappers: List[BinMapper], binned: torch.Tensor,
+                 metadata: Metadata, device: torch.device,
+                 feature_names: Optional[Sequence[str]] = None):
+        self.mappers = mappers
+        self.device = device
+        self.num_total_features = len(mappers)
+        # features that carry information (>= 2 bins)
+        self.used_features = [i for i, m in enumerate(mappers)
+                              if not m.is_trivial]
+        if not self.used_features:
+            Log.warning("dataset has no informative features")
+        self.binned = binned  # (num_used_features, num_data) on device
+        self.metadata = metadata
+        self.num_data = metadata.num_data
+        self.feature_names = (list(feature_names) if feature_names else
+                              [f"Column_{i}" for i in
+                               range(self.num_total_features)])
+        self.num_bins = np.array(
+            [mappers[i].num_bin for i in self.used_features], dtype=np.int32)
+        self.max_bin_count = int(self.num_bins.max()) if len(self.num_bins) \
+            else 1
+        self.label = torch.as_tensor(metadata.label, dtype=torch.float32,
+                                     device=device)
+        self.weight = None if metadata.weight is None else torch.as_tensor(
+            metadata.weight, dtype=torch.float32, device=device)
+
+    @classmethod
+    def from_raw(cls, X: np.ndarray, label, config, device: torch.device,
+                 weight=None, feature_names=None,
+                 mappers: Optional[List[BinMapper]] = None
+                 ) -> "TorchDataset":
+        """Bin a raw dense matrix on ``device``.  Passing ``mappers``
+        aligns this dataset with a reference (train) dataset."""
+        X = np.ascontiguousarray(X)
+        num_data = X.shape[0]
+        if mappers is None:
+            mappers = find_bin_mappers(
+                X, max_bin=config.max_bin,
+                min_data_in_bin=config.min_data_in_bin,
+                sample_cnt=config.bin_construct_sample_cnt,
+                seed=config.data_random_seed,
+                use_missing=config.use_missing,
+                zero_as_missing=config.zero_as_missing)
+        used = [i for i, m in enumerate(mappers) if not m.is_trivial]
+        widest = max((mappers[i].num_bin for i in used), default=1)
+        if widest > 32767:
+            raise NotImplementedError("more than 32767 bins per feature")
+        dtype = torch.uint8 if widest <= 256 else torch.int16
+        binned = bin_rows(X, mappers, used, dtype, device)
+        meta = Metadata(num_data)
+        meta.set_label(label if label is not None else np.zeros(num_data))
+        meta.set_weight(weight)
+        return cls(mappers, binned, meta, device, feature_names)
+
+    def real_feature_index(self, inner: int) -> int:
+        return self.used_features[inner]
+
+    def feature_infos(self) -> List[str]:
+        return [m.feature_info() for m in self.mappers]

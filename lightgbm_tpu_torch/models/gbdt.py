@@ -1,0 +1,183 @@
+"""GBDT boosting loop.
+
+Counterpart of ``lightgbm_tpu/models/gbdt.py`` for this slice:
+``records_to_tree`` (:38) is copied; the serial, non-speculative subset
+of the tier resolution (:182-560) and one boosting iteration (:2245-2310:
+boost_from_average, gradients, tree build, score update) become a plain
+per-iteration loop.  The score update is the one the JAX package's
+pipelined iteration performs, from the build's own float32 leaf values:
+``score += leaf_values_final * learning_rate`` gathered by leaf id
+(kernel L on the card).  There is no fused super-step and no pipelining
+yet: each iteration fetches its tree's records in one copy.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..io.dataset import TorchDataset
+from ..objectives import Objective
+from ..ops.grow import GrowParams, build_tree
+from ..ops.lookup import take_small_add
+from ..ops.split import SplitParams
+from ..utils.log import Log
+from .tree import Tree
+
+__all__ = ["GBDT", "records_to_tree", "fetch_records"]
+
+_KEPS = 1e-15
+
+
+def records_to_tree(rec, config, train_set) -> Tree:
+    """Materialize one host :class:`Tree` from a fetched split-record
+    dict (numerical splits)."""
+    cfg = config
+    ds = train_set
+    tree = Tree(cfg.num_leaves)
+
+    def _thl1(s, l1):
+        return np.sign(s) * max(abs(s) - l1, 0.0) if l1 > 0 else s
+
+    def out(g, h):
+        o = -np.sign(_thl1(g, cfg.lambda_l1)) * abs(
+            _thl1(g, cfg.lambda_l1)) / (h + cfg.lambda_l2 + _KEPS)
+        if cfg.max_delta_step > 0:
+            o = np.clip(o, -cfg.max_delta_step, cfg.max_delta_step)
+        return float(o)
+
+    for i in range(cfg.num_leaves - 1):
+        if not bool(rec["valid"][i]):
+            break
+        leaf = int(rec["leaf"][i])
+        real_f = ds.real_feature_index(int(rec["feature"][i]))
+        mapper = ds.mappers[real_f]
+        ls = rec["left_stats"][i]
+        rs = rec["right_stats"][i]
+        lv, rv = out(ls[0], ls[1]), out(rs[0], rs[1])
+        thr_bin = int(rec["threshold"][i])
+        tree.split(leaf, real_f, thr_bin, mapper.bin_to_value(thr_bin), lv,
+                   rv, float(ls[1]), float(rs[1]), int(round(ls[2])),
+                   int(round(rs[2])), float(rec["gain"][i]),
+                   mapper.missing_type, bool(rec["default_left"][i]))
+        node = tree.num_leaves - 2
+        tree.internal_value[node] = out(ls[0] + rs[0], ls[1] + rs[1])
+    return tree
+
+
+def fetch_records(rec: dict) -> dict:
+    """One device->host copy for every record except the (N,) leaf
+    assignment: the records are packed into one float64 buffer (every
+    value — ids, bins, float32 stats, flags — is exact in float64)."""
+    keys = [k for k in sorted(rec) if k != "leaf_idx"]
+    flat = torch.cat([rec[k].to(torch.float64).reshape(-1) for k in keys])
+    flat = flat.cpu().numpy()
+    out, off = {}, 0
+    for k in keys:
+        shape = tuple(rec[k].shape)
+        size = int(np.prod(shape)) if shape else 1
+        vals = flat[off:off + size].reshape(shape)
+        if rec[k].dtype == torch.bool:
+            vals = vals > 0.5
+        elif rec[k].dtype == torch.float32:
+            vals = vals.astype(np.float32)
+        else:
+            vals = vals.astype(np.int64)
+        out[k] = vals
+        off += size
+    return out
+
+
+class GBDT:
+    """Gradient boosting loop of the port (serial learner, gbdt)."""
+
+    def __init__(self, config: Config, train_set: TorchDataset,
+                 objective: Objective):
+        config.check_supported()
+        self.config = config
+        self.train_set = train_set
+        self.objective = objective
+        self.device = train_set.device
+        self.models: List[Tree] = []
+        self.iter = 0
+        self.num_class = 1
+        self.num_tree_per_iteration = 1
+        self.shrinkage_rate = config.learning_rate
+        self.num_data = train_set.num_data
+        F = len(train_set.used_features)
+        self.num_features = F
+        mappers = [train_set.mappers[i] for i in train_set.used_features]
+        self.max_bin = int(2 ** np.ceil(np.log2(max(
+            train_set.max_bin_count, 2))))
+        dev = self.device
+        self._num_bins = torch.as_tensor([m.num_bin for m in mappers],
+                                         dtype=torch.int32, device=dev)
+        self._missing_type = torch.as_tensor(
+            [m.missing_type for m in mappers], dtype=torch.int32, device=dev)
+        any_missing = bool(any(m.missing_type != 0 for m in mappers))
+        self.grow_params = GrowParams(
+            split=SplitParams(
+                max_bin=self.max_bin,
+                lambda_l1=config.lambda_l1,
+                lambda_l2=config.lambda_l2,
+                min_data_in_leaf=config.min_data_in_leaf,
+                min_sum_hessian_in_leaf=config.min_sum_hessian_in_leaf,
+                min_gain_to_split=config.min_gain_to_split,
+                max_delta_step=config.max_delta_step,
+                any_missing=any_missing),
+            num_leaves=config.num_leaves,
+            max_depth=config.max_depth)
+        self._xt = train_set.binned
+        self._mask = torch.ones(self.num_data, dtype=torch.float32,
+                                device=dev)
+        self._score = torch.zeros(self.num_data, dtype=torch.float32,
+                                  device=dev)
+        self._rng_feature = np.random.RandomState(
+            config.feature_fraction_seed & 0x7FFFFFFF)
+        objective.init(train_set.metadata, self.num_data, dev)
+
+    def _feature_fraction_mask(self) -> torch.Tensor:
+        F = self.num_features
+        frac = self.config.feature_fraction
+        mask = np.zeros(F, bool)
+        if frac >= 1.0:
+            mask[:] = True
+        else:
+            k = max(1, int(frac * F))
+            mask[self._rng_feature.choice(F, size=k, replace=False)] = True
+        return torch.as_tensor(mask, device=self.device)
+
+    def train_one_iter(self) -> bool:
+        """One boosting iteration; returns True when the tree could not
+        split (training stops)."""
+        init_score = 0.0
+        if self.iter == 0 and self.config.boost_from_average and \
+                not self.models:
+            init = self.objective.boost_from_score()
+            if abs(init) > _KEPS:
+                init_score = init
+                self._score.add_(init)
+                Log.info("Start training from score %f", init)
+        grad, hess = self.objective.get_gradients(self._score)
+        rec = build_tree(self._xt, grad, hess, self._mask,
+                         self._feature_fraction_mask(), self._num_bins,
+                         self._missing_type, self.grow_params)
+        vals = rec["leaf_values_final"] * self.shrinkage_rate
+        take_small_add(self._score, vals, rec["leaf_idx"])
+        recs = fetch_records(rec)
+        if int(recs["n_leaves"]) <= 1:
+            tree = Tree(2)
+            tree.leaf_value[0] = init_score
+            self.models.append(tree)
+            Log.warning("Stopped training because there are no more leaves "
+                        "that meet the split requirements")
+            return True
+        tree = records_to_tree(recs, self.config, self.train_set)
+        tree.apply_shrinkage(self.shrinkage_rate)
+        if abs(init_score) > _KEPS:
+            tree.add_bias(init_score)
+        self.models.append(tree)
+        self.iter += 1
+        return False

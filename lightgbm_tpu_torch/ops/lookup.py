@@ -1,0 +1,68 @@
+"""Small-table row lookup fused with the score update.
+
+Counterpart of ``lightgbm_tpu/ops/lookup.py`` (``take_small`` :64 and
+the TPU kernel ``_take_small_pallas`` :35): :func:`take_small_plain` is
+the lookup ``vals[idx]``; kernel L (``csrc/lookup.cu``), called through
+:func:`take_small_add`, fuses it with the score add the JAX boosting
+loop performs right after it (``lightgbm_tpu/models/gbdt.py:2286-2290``):
+``score += vals[leaf_idx]`` in one pass over the rows.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import kernels
+
+__all__ = ["MAX_LOOKUP_TABLE", "take_small_plain", "take_small_add_plain",
+           "take_small_add", "LAUNCHES"]
+
+MAX_LOOKUP_TABLE = 512
+
+# launches of kernel L through :func:`take_small_add`, one per call
+LAUNCHES = {"leaf_lookup": 0}
+
+
+def take_small_plain(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``vals[idx]`` for a (L,) table and (N,) integer ids."""
+    return vals[idx.to(torch.int64)]
+
+
+def take_small_add_plain(score: torch.Tensor, vals: torch.Tensor,
+                         idx: torch.Tensor) -> torch.Tensor:
+    """``score += vals[idx]`` in place — plain PyTorch."""
+    score += take_small_plain(vals, idx)
+    return score
+
+
+def take_small_add(score: torch.Tensor, vals: torch.Tensor,
+                   idx: torch.Tensor) -> torch.Tensor:
+    """``score += vals[idx]`` in place: score (N,) float32, vals (L,)
+    float32 with L <= 512, idx (N,) uint8/int32.  CUDA tensors go to
+    kernel L; CPU tensors to :func:`take_small_add_plain`."""
+    if score.device.type == "cpu":
+        return take_small_add_plain(score, vals, idx)
+    n = score.shape[0]
+    if score.dtype != torch.float32 or score.dim() != 1 or \
+            not score.is_contiguous():
+        raise ValueError("score must be contiguous float32 (N,)")
+    if vals.dtype != torch.float32 or vals.dim() != 1 or \
+            not 0 < vals.shape[0] <= MAX_LOOKUP_TABLE:
+        raise ValueError(f"vals must be float32 (L,), L <= {MAX_LOOKUP_TABLE}")
+    if idx.dtype not in (torch.uint8, torch.int32) or idx.shape != (n,) or \
+            not idx.is_contiguous():
+        raise ValueError("idx must be contiguous uint8/int32 (N,)")
+    if idx.device != score.device or vals.device != score.device:
+        raise ValueError("all inputs must be on one device")
+    if score.data_ptr() % 16 or idx.data_ptr() % 16:
+        raise ValueError("score and idx must be 16-byte aligned")
+    lib = kernels.load()
+    vals = vals.contiguous()
+    sms = torch.cuda.get_device_properties(score.device).multi_processor_count
+    per_block = 256 * (16 // idx.element_size())
+    blocks = max(1, min(8 * sms, (n + per_block - 1) // per_block))
+    stream = torch.cuda.current_stream(score.device).cuda_stream
+    rc = lib.ltt_leaf_add(idx.data_ptr(), idx.element_size(), vals.data_ptr(),
+                          vals.shape[0], score.data_ptr(), n, blocks, stream)
+    kernels.check(rc, "kernel L (ltt_leaf_add)")
+    LAUNCHES["leaf_lookup"] += 1
+    return score

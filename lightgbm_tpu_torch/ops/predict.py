@@ -1,0 +1,110 @@
+"""Batch prediction over a forest on the device.
+
+Counterpart of ``lightgbm_tpu/ops/predict.py`` for numerical trees: the
+forest is flattened into padded per-tree node tables, every row walks
+all trees of a chunk at once (one gather per level, a fixed number of
+levels: the deepest leaf's depth, known on the host), and leaf values
+are summed in float64.  Decisions follow the JAX package's
+``Tree._decide`` (``lightgbm_tpu/models/tree.py``): missing type None or
+Zero treats NaN as 0, a
+missing value takes the node's default direction, else ``value <=
+threshold`` goes left.  No kernel: plain tensor ops, as the JAX engine
+is XLA.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from ..models.tree import Tree
+
+__all__ = ["FlatForest", "flatten_forest", "predict_raw"]
+
+_KZERO = 1e-35
+_TREES_PER_CHUNK = 64
+
+
+class FlatForest:
+    """Padded node tables of T trees (M = max internal nodes, Lm = max
+    leaves); a tree with one leaf has its root encoded as leaf 0."""
+
+    def __init__(self, trees: Sequence[Tree], device: torch.device):
+        T = len(trees)
+        M = max([max(t.num_leaves - 1, 1) for t in trees] + [1])
+        Lm = max([max(t.num_leaves, 1) for t in trees] + [1])
+        feat = np.zeros((T, M), np.int64)
+        thr = np.zeros((T, M), np.float64)
+        dtype = np.zeros((T, M), np.int64)
+        left = np.full((T, M), -1, np.int64)
+        right = np.full((T, M), -1, np.int64)
+        value = np.zeros((T, Lm), np.float64)
+        root = np.zeros(T, np.int64)
+        depth = 0
+        for i, t in enumerate(trees):
+            n_in = t.num_leaves - 1
+            value[i, :t.num_leaves] = t.leaf_value[:t.num_leaves]
+            if n_in <= 0:
+                root[i] = -1          # ~0: leaf 0
+                continue
+            if np.any(t.decision_type[:n_in] & 1):
+                raise NotImplementedError(
+                    "categorical splits are not implemented by "
+                    "lightgbm_tpu_torch yet")
+            feat[i, :n_in] = t.split_feature[:n_in]
+            thr[i, :n_in] = t.threshold[:n_in]
+            dtype[i, :n_in] = t.decision_type[:n_in]
+            left[i, :n_in] = t.left_child[:n_in]
+            right[i, :n_in] = t.right_child[:n_in]
+            depth = max(depth, int(t.leaf_depth[:t.num_leaves].max()))
+        as_t = lambda a: torch.as_tensor(a, device=device)
+        self.num_trees = T
+        self.depth = depth
+        self.feature, self.threshold = as_t(feat), as_t(thr)
+        self.decision_type, self.left, self.right = (as_t(dtype), as_t(left),
+                                                     as_t(right))
+        self.leaf_value, self.root = as_t(value), as_t(root)
+
+
+def flatten_forest(trees: List[Tree], device: torch.device) -> FlatForest:
+    return FlatForest(trees, device)
+
+
+def _leaves(ff: FlatForest, lo: int, hi: int, Xt: torch.Tensor
+            ) -> torch.Tensor:
+    """(hi-lo, N) leaf index of every row in trees [lo, hi)."""
+    N = Xt.shape[1]
+    node = ff.root[lo:hi, None].expand(hi - lo, N).contiguous()
+    feat, thr = ff.feature[lo:hi], ff.threshold[lo:hi]
+    dt, lc, rc = ff.decision_type[lo:hi], ff.left[lo:hi], ff.right[lo:hi]
+    for _ in range(ff.depth):
+        active = node >= 0
+        nd = node.clamp(min=0)
+        v = torch.gather(Xt, 0, torch.gather(feat, 1, nd))
+        t_node = torch.gather(thr, 1, nd)
+        d = torch.gather(dt, 1, nd)
+        mt = (d >> 2) & 3
+        default_left = (d & 2) != 0
+        nan = torch.isnan(v)
+        v = torch.where(nan & (mt != 2), torch.zeros_like(v), v)
+        miss = torch.where(mt == 2, nan,
+                           (mt == 1) & ((torch.abs(v) <= _KZERO) | nan))
+        go_left = torch.where(miss, default_left,
+                              ~torch.isnan(v) & (v <= t_node))
+        nxt = torch.where(go_left, torch.gather(lc, 1, nd),
+                          torch.gather(rc, 1, nd))
+        node = torch.where(active, nxt, node)
+    return ~node
+
+
+def predict_raw(ff: FlatForest, X, device: torch.device) -> torch.Tensor:
+    """(N,) float64 raw scores: the sum of every tree's leaf value."""
+    Xt = torch.as_tensor(np.asarray(X), device=device).to(
+        torch.float64).T.contiguous()
+    out = torch.zeros(Xt.shape[1], dtype=torch.float64, device=device)
+    for lo in range(0, ff.num_trees, _TREES_PER_CHUNK):
+        hi = min(lo + _TREES_PER_CHUNK, ff.num_trees)
+        leaf = _leaves(ff, lo, hi, Xt)
+        out += torch.gather(ff.leaf_value[lo:hi], 1, leaf).sum(dim=0)
+    return out

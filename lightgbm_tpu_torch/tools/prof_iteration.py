@@ -1,0 +1,148 @@
+"""Where one boosting iteration's time goes, at the Higgs shape on the card.
+
+Run from the root of a checkout on a machine with one NVIDIA card:
+
+    python3 -m lightgbm_tpu_torch.tools.prof_iteration [--rows N]
+
+It trains the configuration ``chip_smoke.py`` drives at full width
+(10.5M x 28, num_leaves=255, max_bin=255; data from the same generator)
+and reports, after one warm-up iteration:
+
+- ``iteration_s``: host clock around ``Booster.update()`` ending in a
+  synchronise (median of 3);
+- ``enqueue_s`` / ``tree_s``: one tree's ``build_tree`` call timed on the
+  host before and after a synchronise — when the two are close, the host
+  (Python and launch overhead) sets the pace and the card waits;
+- from ``torch.profiler`` over one more iteration: the device's busy time
+  (the union of kernel intervals), its idle share of the iteration's
+  wall time, kernel launches, and device time by kernel name.
+
+The JSON is the last line of standard output.  Without a card it exits
+non-zero.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+
+# kernels of this package, by the name of their __global__ function
+OWN_KERNELS = ("hist_masked_kernel", "hist_reduce_kernel", "split_scan_kernel",
+               "split_finish_kernel", "leaf_add_kernel")
+
+
+def _kernel_table(prof, torch):
+    """Kernel intervals from the profiler -> (busy us, launches, rows)."""
+    spans, by_name = [], {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = evt.time_range.start, evt.time_range.end
+        spans.append((start, end))
+        own = next((k for k in OWN_KERNELS if k in evt.name), None)
+        key = own or evt.name[:80]
+        row = by_name.setdefault(key, {"name": key, "own": own is not None,
+                                       "launches": 0, "us": 0.0})
+        row["launches"] += 1
+        row["us"] += end - start
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    rows = sorted(by_name.values(), key=lambda r: -r["us"])
+    return busy, len(spans), rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rows", type=int, default=10_500_000)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(ROOT))
+    import torch
+    if not torch.cuda.is_available():
+        print("prof_iteration: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke
+    import lightgbm_tpu_torch as ltt
+    from lightgbm_tpu_torch.ops.grow import build_tree
+
+    card = chip_smoke.card_line()
+    print(card, flush=True)
+    X, y = chip_smoke.make_higgs_shaped(args.rows, chip_smoke.N_FEATURES,
+                                        seed=0)
+    params = dict(chip_smoke.TRAIN_PARAMS, device_type="cuda")
+    booster = ltt.Booster(params=params,
+                          train_set=ltt.Dataset(X, label=y, params=params))
+    del X
+    sync = torch.cuda.synchronize
+    booster.update()                                     # warm-up
+    sync()
+    iters = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        booster.update()
+        sync()
+        iters.append(time.perf_counter() - t0)
+
+    g = booster._gbdt
+    grad, hess = g.objective.get_gradients(g._score)
+    sync()
+    t0 = time.perf_counter()
+    build_tree(g._xt, grad, hess, g._mask, g._feature_fraction_mask(),
+               g._num_bins, g._missing_type, g.grow_params)
+    enqueue_s = time.perf_counter() - t0
+    sync()
+    tree_s = time.perf_counter() - t0
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        booster.update()
+        sync()
+        prof_wall_s = time.perf_counter() - t0
+    busy_us, launches, rows = _kernel_table(prof, torch)
+    own_us = sum(r["us"] for r in rows if r["own"])
+    out = {
+        "card": card, "rows": args.rows,
+        "iteration_s": statistics.median(iters), "iteration_runs_s": iters,
+        "enqueue_s": enqueue_s, "tree_s": tree_s,
+        "profiled_iteration_s": prof_wall_s,
+        "device_busy_s": busy_us / 1e6 if launches else None,
+        "device_idle_share": (1.0 - busy_us / 1e6 / prof_wall_s)
+        if launches else None,
+        "kernel_launches": launches,
+        "own_kernels_s": own_us / 1e6 if launches else None,
+        "kernels": rows[:20],
+    }
+    if not launches:
+        print("profiler recorded no device events: device time not measured",
+              flush=True)
+    else:
+        print(f"iteration {out['iteration_s']:.3f} s; one tree enqueued in "
+              f"{enqueue_s:.3f} s, done in {tree_s:.3f} s; profiled "
+              f"iteration {prof_wall_s:.3f} s, device busy "
+              f"{busy_us / 1e6:.3f} s (idle share "
+              f"{out['device_idle_share']:.3f}), {launches} kernel launches",
+              flush=True)
+        for r in rows[:20]:
+            print(f"  {r['us'] / 1e3:9.3f} ms {r['launches']:6d}x "
+                  f"{'*' if r['own'] else ' '} {r['name']}", flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
