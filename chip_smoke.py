@@ -8,18 +8,28 @@ It builds the port's CUDA kernels from ``lightgbm_tpu_torch/csrc`` and
 drives the port only (nothing of JAX or of ``lightgbm_tpu``):
 
 1. prints the card (name and power limit, from nvidia-smi) and builds the
-   kernels;
+   kernels (one nvcc per source, all started together);
 2. holds every kernel against its plain PyTorch version on the same CUDA
-   tensors, at the main path's full-width shapes and at one ragged shape,
+   tensors, at the main paths' full-width shapes and at one ragged shape,
    and times kernel, plain version and, where one exists, the one-call
-   PyTorch equivalent (CUDA events, median);
-3. trains the Higgs-shaped configuration at full width (10.5M x 28,
-   num_leaves=255, max_bin=255, learning_rate=0.1,
+   PyTorch equivalent (CUDA events, median): kernels H, S and L of the
+   exact path, and kernels M (W=64 two-column int8, exact; W=21 float),
+   R (W=64, 6-row lane tables, exact), Q (exact) and S at the wave's 128
+   children with the counts proxy;
+3. the exact path: trains the Higgs-shaped configuration at full width
+   (10.5M x 28, num_leaves=255, max_bin=255, learning_rate=0.1,
    min_sum_hessian_in_leaf=100) for 1 warm-up + 5 measured iterations
    with the launch counters reset just before, and predicts a 500k-row
    holdout;
-4. trains a reduced copy (50k rows with missing values, 31 leaves, 10
-   iterations) on the card and on the CPU and requires identical trees.
+4. the wave path: bench.py's wave255 (wave growth, quantized two-column
+   passes at W=64, min_data_in_leaf=0) with hist_refinement=false on the
+   same data, 1 warm-up + 5 iterations with the counters reset just
+   before: seconds per iteration, waves per tree, launches of M, R, Q, S
+   and L, and holdout AUC no more than 0.02 below the exact path's;
+5. trains reduced copies (50k rows with missing values, 10 iterations:
+   the exact path at 31 leaves, float waves, quantized two-column waves
+   at 127 leaves) on the card and on the CPU and requires identical
+   trees.
 
 Every phase passes or the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
@@ -44,6 +54,10 @@ N_HOLDOUT = 500_000
 TRAIN_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
                 "learning_rate": 0.1, "min_sum_hessian_in_leaf": 100,
                 "verbose": -1}
+# bench.py's primary variant wave255 (bench.py:12-15, :1882-1896) without
+# coarse-to-fine refinement, which the port does not implement yet
+WAVE_PARAMS = {"wave_splits": True, "use_quantized_grad": True,
+               "min_data_in_leaf": 0, "hist_refinement": False}
 
 
 def make_higgs_shaped(n_rows, n_features, seed=0):
@@ -283,6 +297,192 @@ def phase_kernels(torch, dev):
     print(f"kernel L: exact; {ms_l:.4f} ms (plain {plain_l:.3f}, vals[idx] "
           f"{lib_l:.3f}, bound {b_l[0]:.4f} by {b_l[1]}) at N={N}",
           flush=True)
+    del score, idx, idx64
+    out.update(phase_kernels_wave(torch, dev, th, ts, bins))
+    return out
+
+
+def _index_add_ms(torch, dev, bins, vals, sel, W, B):
+    """One ``index_add_`` over flattened (lane, feature, bin) ids: the
+    one-call PyTorch yardstick of kernel M."""
+    F, N = bins.shape
+    keep = torch.nonzero(sel >= 0).squeeze(1)
+    s = sel.index_select(0, keep).to(torch.int64)
+    ids = ((s[None, :] * F + torch.arange(F, device=dev)[:, None]) * B +
+           bins.index_select(1, keep).to(torch.int64)).reshape(-1)
+    v = vals.index_select(0, keep).to(torch.float32).repeat(F, 1)
+    acc = torch.zeros(W * F * B, v.shape[1], device=dev)
+    ms = cuda_ms(lambda: acc.zero_().index_add_(0, ids, v), reps=3)
+    del ids, v, acc
+    return ms
+
+
+def check_multi(torch, th, bins, vals, sel, W, B, two_col, exact, ctx):
+    """Kernel M vs its plain version; returns (max abs, max rel)."""
+    k = th.multi_histogram(bins, vals, sel, B, W, two_col)
+    q = th.multi_histogram_plain(bins, vals, sel, B, W, two_col)
+    torch.cuda.synchronize()
+    diff = (k - q).abs()
+    rel = torch.where(diff == 0, torch.zeros_like(diff),
+                      diff / q.abs().clamp_min(1e-30))
+    if exact and float(diff.max()) != 0.0:
+        fail(f"kernel M is not exact on integer values ({ctx}): max diff "
+             f"{float(diff.max())}")
+    if float(rel.max()) > 1e-5:
+        fail(f"kernel M differs from plain ({ctx}): max rel "
+             f"{float(rel.max())}")
+    return float(diff.max()), float(rel.max())
+
+
+def phase_kernels_wave(torch, dev, th, ts, bins):
+    """Phase 2, wave-growth kernels M, R, Q (and S at the wave's 2W
+    children) against their plain versions at full width."""
+    F, N = bins.shape
+    B = 256
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    # ---- kernel M ---------------------------------------------------
+    # ragged: 3 features x 100,003 rows, int16 bins, both selector types
+    rb = torch.randint(0, 63, (3, 100_003), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.int16)
+    rv = torch.randint(-120, 121, (100_003, 3), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.int8)
+    rs = torch.randint(-1, 42, (100_003,), generator=g, device=dev,
+                       dtype=torch.int32)
+    check_multi(torch, th, rb, rv, rs, 42, 64, False, True, "ragged int16")
+    check_multi(torch, th, rb, rv[:, :2].contiguous(), rs.to(torch.int8), 42,
+                64, True, True, "ragged int8 sel")
+    # full width, quantized two-column, W = 64: the wave255 pass
+    qv = torch.stack([
+        torch.randint(-120, 121, (N,), generator=g, device=dev,
+                      dtype=torch.int32),
+        torch.randint(0, 121, (N,), generator=g, device=dev,
+                      dtype=torch.int32)], -1).to(torch.int8).contiguous()
+    sel = torch.randint(-1, 64, (N,), generator=g, device=dev,
+                        dtype=torch.int32)
+    err_m, _ = check_multi(torch, th, bins, qv, sel, 64, B, True, True,
+                           "W=64 two-column int8")
+    ms_m = cuda_ms(lambda: th.multi_histogram(bins, qv, sel, B, 64, True),
+                   reps=10)
+    plain_m = cuda_ms(lambda: th.multi_histogram_plain(bins, qv, sel, B, 64,
+                                                       True), reps=2)
+    lib_m = _index_add_ms(torch, dev, bins, qv, sel, 64, B)
+    n_sel = int((sel >= 0).sum())
+    # needs: the bins and values of the selected rows, every selector,
+    # the output; one integer add per (selected row, feature, column)
+    b_m = bound(n_sel * F + n_sel * 2 + N * 4 + 64 * F * B * 3 * 4,
+                n_sel * F * 2)
+    out["multi_histogram"] = dict(max_abs_err=err_m, ms=ms_m,
+                                  plain_ms=plain_m, bound_ms=b_m[0],
+                                  bound_by=b_m[1], library_ms=lib_m)
+    print(f"kernel M (W=64 two-column int8): exact; {ms_m:.4f} ms (plain "
+          f"{plain_m:.3f}, index_add_ {lib_m:.3f}, bound {b_m[0]:.4f} by "
+          f"{b_m[1]}) at F={F} N={N} B={B}", flush=True)
+    # full width, float values, W = 21
+    fv = torch.stack([torch.randn(N, generator=g, device=dev),
+                      torch.rand(N, generator=g, device=dev) + 0.05,
+                      torch.ones(N, device=dev)], -1).contiguous()
+    fsel = torch.randint(-1, 21, (N,), generator=g, device=dev,
+                         dtype=torch.int32)
+    _, rel_f = check_multi(torch, th, bins, fv, fsel, 21, B, False, False,
+                           "W=21 float")
+    ms_f = cuda_ms(lambda: th.multi_histogram(bins, fv, fsel, B, 21), reps=5)
+    print(f"kernel M (W=21 float): max rel {rel_f:.3g}; {ms_f:.4f} ms",
+          flush=True)
+    del fv, fsel
+
+    # ---- kernel R: a wave of 64 splits with missing-value routing -----
+    li = torch.randint(0, 127, (N,), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.uint8)
+    ids = torch.randperm(127, generator=g, device=dev)[:64].to(torch.int32)
+    ids[60:] = 127                                  # dummy lanes
+    miss_bin = torch.full((F,), -1, dtype=torch.int32, device=dev)
+    miss_bin[::4] = B - 2                           # bin 254 is missing
+    tbl = torch.stack([
+        ids,
+        torch.randint(0, F, (64,), generator=g, device=dev,
+                      dtype=torch.int32),
+        torch.randint(0, B - 3, (64,), generator=g, device=dev,
+                      dtype=torch.int32),
+        torch.arange(127, 191, device=dev, dtype=torch.int32),
+        torch.randint(0, 2, (64,), generator=g, device=dev,
+                      dtype=torch.int32),
+        torch.randint(0, 2, (64,), generator=g, device=dev,
+                      dtype=torch.int32)]).contiguous()
+    kh, kl, ks = th.routed_histogram(bins, qv, li, tbl, B, 64, True, miss_bin,
+                                     want_sel=True)
+    qh, ql, qs = th.routed_histogram_plain(bins, qv, li, tbl, B, 64, True,
+                                           miss_bin)
+    torch.cuda.synchronize()
+    if not (torch.equal(kh, qh) and torch.equal(kl, ql) and
+            torch.equal(ks, qs)):
+        fail("kernel R differs from plain: hist "
+             f"{float((kh - qh).abs().max())}, leaf ids "
+             f"{int((kl != ql).sum())}, sel {int((ks != qs).sum())}")
+    ms_r = cuda_ms(lambda: th.routed_histogram(bins, qv, li, tbl, B, 64, True,
+                                               miss_bin), reps=10)
+    plain_r = cuda_ms(lambda: th.routed_histogram_plain(
+        bins, qv, li, tbl, B, 64, True, miss_bin), reps=2)
+    n_wave = int(torch.isin(li.to(torch.int32), tbl[0]).sum())
+    n_sel = int((qs >= 0).sum())
+    # needs: the leaf ids, one split bin per row of the wave, the bins and
+    # values of the selected rows; writes the leaf ids and the histogram
+    b_r = bound(N + n_wave + N + n_sel * F + n_sel * 2 +
+                64 * F * B * 3 * 4, n_sel * F * 2)
+    out["routed_histogram"] = dict(max_abs_err=0.0, ms=ms_r, plain_ms=plain_r,
+                                   bound_ms=b_r[0], bound_by=b_r[1],
+                                   library_ms=None)
+    print(f"kernel R (W=64, 6-row tables): hist, leaf ids and sel exact; "
+          f"{ms_r:.4f} ms (plain {plain_r:.3f}, bound {b_r[0]:.4f} by "
+          f"{b_r[1]}) at F={F} N={N} B={B}", flush=True)
+
+    # ---- kernel S at the wave's 2W = 128 children, counts proxy -------
+    ch = th.multi_histogram(bins, qv, sel, B, 64, True)
+    ch = torch.cat([ch, ch.flip(0)]).contiguous() * 0.01
+    par = ch[:, 0].sum(dim=1).contiguous()
+    nb = torch.full((F,), B - 1, dtype=torch.int32, device=dev)
+    mt = torch.zeros(F, dtype=torch.int32, device=dev)
+    mt[::4] = 2
+    fm = torch.ones(F, dtype=torch.bool, device=dev)
+    pw = ts.SplitParams(max_bin=B, min_data_in_leaf=0,
+                        min_sum_hessian_in_leaf=100.0, any_missing=True,
+                        counts_proxy=True)
+    check_split(torch, ts, ch, par, nb, mt, fm, pw, "W=128 counts proxy")
+    ms_s = cuda_ms(lambda: ts.find_best_split(ch, par, nb, mt, fm, pw),
+                   reps=20)
+    print(f"kernel S (2W=128 children, counts proxy): identical to plain; "
+          f"{ms_s:.4f} ms", flush=True)
+    del ch, kh, kl, ks, qh, ql, qs
+
+    # ---- kernel Q ---------------------------------------------------
+    lq = torch.randint(0, 255, (N,), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.uint8)
+    gq = torch.randn(N, generator=g, device=dev)
+    hq = torch.rand(N, generator=g, device=dev)
+    mq = (torch.rand(N, generator=g, device=dev) < 0.9).float()
+    for L_ in (255, 7):
+        lidx = lq if L_ == 255 else (lq % 7).contiguous()
+        k = th.leaf_stats(lidx, gq, hq, mq, L_)
+        q = th.leaf_stats_plain(lidx, gq, hq, mq, L_)
+        torch.cuda.synchronize()
+        if not torch.equal(k, q):
+            fail(f"kernel Q differs from plain (L={L_}): max diff "
+                 f"{float((k - q).abs().max())}")
+    ms_q = cuda_ms(lambda: th.leaf_stats(lq, gq, hq, mq, 255), reps=20)
+    plain_q = cuda_ms(lambda: th.leaf_stats_plain(lq, gq, hq, mq, 255),
+                      reps=5)
+    lq64 = lq.to(torch.int64)
+    vq = torch.stack([gq * mq, hq * mq, mq], -1)
+    acc = torch.zeros(255, 3, device=dev)
+    lib_q = cuda_ms(lambda: acc.zero_().index_add_(0, lq64, vq), reps=10)
+    b_q = bound(N * (1 + 4 * 3) + 255 * 3 * 4, N * 5)
+    out["leaf_stats"] = dict(max_abs_err=0.0, ms=ms_q, plain_ms=plain_q,
+                             bound_ms=b_q[0], bound_by=b_q[1],
+                             library_ms=lib_q)
+    print(f"kernel Q: exact; {ms_q:.4f} ms (plain {plain_q:.3f}, index_add_ "
+          f"{lib_q:.3f}, bound {b_q[0]:.4f} by {b_q[1]}) at N={N}",
+          flush=True)
     return out
 
 
@@ -298,8 +498,33 @@ def read_counts():
     return {**histogram.LAUNCHES, **split.LAUNCHES, **lookup.LAUNCHES}
 
 
+def _train_timed(torch, booster, n_iter):
+    """1 warm-up + ``n_iter`` measured iterations -> (warm-up s, [s])."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    booster.update()                                    # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    iter_s = []
+    for _ in range(n_iter):
+        t0 = time.perf_counter()
+        stop = booster.update()
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - t0)
+        if stop:
+            fail("full-width training stopped early")
+    return warm_s, iter_s
+
+
+def _check_launches(counts, names, path):
+    for name in names:
+        if counts.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on the {path} path")
+
+
 def phase_full_width(torch, ltt):
-    """Phase 3: the slice end to end at the Higgs shape."""
+    """Phase 3: the serial (exact) path end to end at the Higgs shape.
+    Returns the data for the next phase and this path's numbers."""
     from lightgbm_tpu_torch.metrics import auc
     t0 = time.perf_counter()
     X, y = make_higgs_shaped(N_ROWS + N_HOLDOUT, N_FEATURES, seed=0)
@@ -318,19 +543,7 @@ def phase_full_width(torch, ltt):
 
     reset_counts()
     booster = ltt.Booster(params=params, train_set=ds)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    booster.update()                                    # warm-up
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    iter_s = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        stop = booster.update()
-        torch.cuda.synchronize()
-        iter_s.append(time.perf_counter() - t0)
-        if stop:
-            fail("full-width training stopped early")
+    warm_s, iter_s = _train_timed(torch, booster, 5)
     t0 = time.perf_counter()
     prob = booster.predict(Xh)
     predict_s = time.perf_counter() - t0
@@ -338,59 +551,129 @@ def phase_full_width(torch, ltt):
     if prob.shape != (N_HOLDOUT,) or not np.all(np.isfinite(prob)):
         fail("holdout predictions are not finite of the expected shape")
     score = auc(yh, prob)
-    train_auc = auc(y[:N_HOLDOUT], booster.predict(X[:N_HOLDOUT]))
-    print(f"full width: warm-up {warm_s:.3f} s, seconds per iteration "
-          f"{statistics.median(iter_s):.3f} (runs {[round(s, 3) for s in iter_s]}), "
-          f"holdout predict {predict_s:.3f} s, holdout AUC {score:.5f}, "
-          f"train-slice AUC {train_auc:.5f}, trees {booster.num_trees()} "
-          f"x {[t.num_leaves for t in booster.models]} leaves", flush=True)
-    print(f"launches on the main path: {counts} (per tree: "
+    print(f"exact path: warm-up {warm_s:.3f} s, seconds per iteration "
+          f"{statistics.median(iter_s):.3f} (runs "
+          f"{[round(s, 3) for s in iter_s]}), holdout predict "
+          f"{predict_s:.3f} s, holdout AUC {score:.5f}, trees "
+          f"{booster.num_trees()} x {[t.num_leaves for t in booster.models]} "
+          f"leaves", flush=True)
+    print(f"launches on the exact path: {counts} (per tree: "
           f"{ {k: v / 6 for k, v in counts.items()} })", flush=True)
-    for name, n in counts.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+    _check_launches(counts, ("histogram", "best_split", "leaf_lookup"),
+                    "exact")
     if not 0.6 < score <= 1.0:
         fail(f"holdout AUC {score} is not that of a trained model")
+    del booster
+    return (ds, Xh, yh), counts, dict(
+        seconds_per_iteration=statistics.median(iter_s),
+        iteration_seconds=iter_s, warmup_seconds=warm_s,
+        dataset_seconds=ds_s, predict_seconds=predict_s, holdout_auc=score)
+
+
+def phase_wave(torch, ltt, data, exact_auc):
+    """Phase 4: bench.py's wave255 configuration (wave growth, quantized
+    two-column passes, min_data_in_leaf=0) without coarse-to-fine, on the
+    same data, 1 warm-up + 5 iterations."""
+    from lightgbm_tpu_torch.metrics import auc
+    ds, Xh, yh = data
+    params = dict(TRAIN_PARAMS, **WAVE_PARAMS, device_type=DEVICE)
+    reset_counts()
+    booster = ltt.Booster(params=params, train_set=ds)
+    gp = booster._gbdt.grow_params
+    if not (gp.wave and gp.two_col and gp.speculate == 64 and gp.quantize):
+        fail(f"wave255 did not resolve to two-column W=64 waves: {gp}")
+    waves = []
+    booster.update()                                    # warm-up
+    waves.append(booster._gbdt.last_waves)
+    torch.cuda.synchronize()
+    iter_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        if booster.update():
+            fail("wave training stopped early")
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - t0)
+        waves.append(booster._gbdt.last_waves)
+    counts = read_counts()
+    prob = booster.predict(Xh)
+    if prob.shape != (N_HOLDOUT,) or not np.all(np.isfinite(prob)):
+        fail("wave holdout predictions are not finite of the expected shape")
+    score = auc(yh, prob)
+    n_trees = booster.num_trees()
+    print(f"wave255 (hist_refinement=false): seconds per iteration "
+          f"{statistics.median(iter_s):.4f} (runs "
+          f"{[round(s, 4) for s in iter_s]}), waves per tree {waves}, "
+          f"holdout AUC {score:.5f} (exact path {exact_auc:.5f}), trees "
+          f"{n_trees} x {[t.num_leaves for t in booster.models]} leaves",
+          flush=True)
+    print(f"launches on the wave path: {counts} (per tree: "
+          f"{ {k: v / n_trees for k, v in counts.items()} })", flush=True)
+    _check_launches(counts, ("multi_histogram", "routed_histogram",
+                             "leaf_stats", "best_split", "leaf_lookup"),
+                    "wave")
+    if score < exact_auc - 0.02:
+        fail(f"wave holdout AUC {score} is more than 0.02 below the exact "
+             f"path's {exact_auc}")
     return counts, dict(seconds_per_iteration=statistics.median(iter_s),
-                        iteration_seconds=iter_s, warmup_seconds=warm_s,
-                        dataset_seconds=ds_s, predict_seconds=predict_s,
+                        iteration_seconds=iter_s, waves_per_tree=waves,
                         holdout_auc=score)
 
 
-def phase_device_vs_cpu(ltt):
-    """Phase 4: the reduced configuration on the card and on the CPU."""
-    X, y = make_higgs_shaped(50_000, N_FEATURES, seed=1)
-    rng = np.random.RandomState(2)
-    X[rng.rand(len(X)) < 0.05, 5] = np.nan      # exercise missing values
-    boosters = {}
-    for dev in (DEVICE, "cpu"):
-        p = dict(TRAIN_PARAMS, num_leaves=31, device_type=dev)
-        t0 = time.perf_counter()
-        boosters[dev] = ltt.train(p, ltt.Dataset(X, label=y, params=p),
-                                  num_boost_round=10)
-        print(f"reduced training on {dev}: "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
-    a, b = boosters[DEVICE], boosters["cpu"]
+def _same_trees(a, b, what):
+    """Identical splits and leaf values within rtol 1e-5, or fail."""
     if a.num_trees() != b.num_trees() or a.num_trees() != 10:
-        fail(f"tree counts differ: {a.num_trees()} vs {b.num_trees()}")
+        fail(f"{what}: tree counts differ: {a.num_trees()} vs "
+             f"{b.num_trees()}")
     worst = 0.0
     for i, (ta, tb) in enumerate(zip(a.models, b.models)):
         n = ta.num_leaves - 1
         if ta.num_leaves != tb.num_leaves:
-            fail(f"tree {i}: {ta.num_leaves} vs {tb.num_leaves} leaves")
-        for k in ("split_feature", "threshold_bin", "decision_type"):
-            if not np.array_equal(getattr(ta, k)[:n], getattr(tb, k)[:n]):
-                fail(f"tree {i}: {k} differs between cuda and cpu")
+            fail(f"{what}: tree {i}: {ta.num_leaves} vs {tb.num_leaves} "
+                 f"leaves")
+        for k in ("split_feature", "threshold_bin", "decision_type",
+                  "left_child", "right_child", "leaf_count"):
+            if not np.array_equal(getattr(ta, k)[:n + 1],
+                                  getattr(tb, k)[:n + 1]):
+                fail(f"{what}: tree {i}: {k} differs between cuda and cpu")
         va, vb = ta.leaf_value[:n + 1], tb.leaf_value[:n + 1]
         if not np.allclose(va, vb, rtol=1e-5, atol=0):
-            fail(f"tree {i}: leaf values differ beyond rtol 1e-5")
+            fail(f"{what}: tree {i}: leaf values differ beyond rtol 1e-5")
         worst = max(worst, float(np.max(np.abs(va - vb))))
-    pa, pb = a.predict(X), b.predict(X)
-    pdiff = float(np.max(np.abs(pa - pb)))
-    if pdiff > 1e-5:
-        fail(f"predictions differ between cuda and cpu by {pdiff}")
-    print(f"device vs cpu: 10 trees identical, max leaf value diff "
-          f"{worst:.3g}, max prediction diff {pdiff:.3g}", flush=True)
+    return worst
+
+
+def phase_device_vs_cpu(ltt):
+    """Phase 5: reduced configurations on the card and on the CPU: the
+    exact path at 31 leaves, float waves, and quantized two-column waves
+    at 127 leaves (W = 64)."""
+    X, y = make_higgs_shaped(50_000, N_FEATURES, seed=1)
+    rng = np.random.RandomState(2)
+    X[rng.rand(len(X)) < 0.05, 5] = np.nan      # exercise missing values
+    configs = {
+        "exact": {"num_leaves": 31},
+        "float waves": {"num_leaves": 31, "wave_splits": True,
+                        "hist_refinement": False},
+        "quantized two-column waves": dict(WAVE_PARAMS, num_leaves=127),
+    }
+    for what, extra in configs.items():
+        boosters = {}
+        for dev in (DEVICE, "cpu"):
+            p = dict(TRAIN_PARAMS, **extra, device_type=dev)
+            t0 = time.perf_counter()
+            boosters[dev] = ltt.train(p, ltt.Dataset(X, label=y, params=p),
+                                      num_boost_round=10)
+            print(f"reduced {what} on {dev}: "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+        a, b = boosters[DEVICE], boosters["cpu"]
+        worst = _same_trees(a, b, what)
+        pa, pb = a.predict(X), b.predict(X)
+        pdiff = float(np.max(np.abs(pa - pb)))
+        if pdiff > 1e-5:
+            fail(f"{what}: predictions differ between cuda and cpu by "
+                 f"{pdiff}")
+        print(f"device vs cpu, {what}: 10 trees identical, max leaf value "
+              f"diff {worst:.3g}, max prediction diff {pdiff:.3g}",
+              flush=True)
 
 
 def main():
@@ -426,21 +709,37 @@ def main():
 
     # ---- phase 2: kernels vs plain -----------------------------------
     stats = phase_kernels(torch, dev)
-    # ---- phase 3: the slice end to end at full width -----------------
-    counts, e2e = phase_full_width(torch, ltt)
-    # ---- phase 4: device vs cpu --------------------------------------
+    # ---- phase 3: the exact path end to end at full width ------------
+    data, exact_counts, e2e = phase_full_width(torch, ltt)
+    # ---- phase 4: wave255 without coarse-to-fine at full width -------
+    wave_counts, e2e_wave = phase_wave(torch, ltt, data,
+                                       e2e["holdout_auc"])
+    del data
+    # ---- phase 5: device vs cpu --------------------------------------
     phase_device_vs_cpu(ltt)
 
+    # (route, source, the TPU kernel it replaces, the path whose run
+    # gives its launches: kernel H runs on the exact path only, the
+    # others are read from the wave path)
     meta = {
         "histogram": ("cuda", "lightgbm_tpu_torch/csrc/histogram.cu",
-                      "lightgbm_tpu/ops/histogram.py:238"),
+                      "lightgbm_tpu/ops/histogram.py:238", exact_counts),
         "best_split": ("cuda", "lightgbm_tpu_torch/csrc/split.cu",
-                       "lightgbm_tpu/ops/split.py:899"),
+                       "lightgbm_tpu/ops/split.py:899", wave_counts),
         "leaf_lookup": ("cuda", "lightgbm_tpu_torch/csrc/lookup.cu",
-                        "lightgbm_tpu/ops/lookup.py:35"),
+                        "lightgbm_tpu/ops/lookup.py:35", wave_counts),
+        "multi_histogram": ("cuda", "lightgbm_tpu_torch/csrc/multi_hist.cu",
+                            "lightgbm_tpu/ops/histogram.py:396",
+                            wave_counts),
+        "routed_histogram": ("cuda",
+                             "lightgbm_tpu_torch/csrc/routed_hist.cu",
+                             "lightgbm_tpu/ops/histogram.py:872",
+                             wave_counts),
+        "leaf_stats": ("cuda", "lightgbm_tpu_torch/csrc/leaf_stats.cu",
+                       "lightgbm_tpu/ops/histogram.py:1239", wave_counts),
     }
     rows = []
-    for name, (route, src, repl) in meta.items():
+    for name, (route, src, repl, counts) in meta.items():
         s = stats[name]
         rows.append({"name": name, "route": route, "source": src,
                      "replaces": repl, "launches": counts[name],
@@ -448,7 +747,9 @@ def main():
                      "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                      "bound_by": s["bound_by"],
                      "library_ms": s["library_ms"]})
-    print(json.dumps({"card": card, "e2e": e2e}), flush=True)
+    print(json.dumps({"card": card, "e2e_exact": e2e, "e2e_wave": e2e_wave,
+                      "launches_exact": exact_counts,
+                      "launches_wave": wave_counts}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1158,8 +1158,8 @@ UNSUPPORTED: List[Tuple[str, Any, str]] = [
      "monotone constraints"),
     ("feature_contri", lambda v: any(float(x) != 1.0 for x in v),
      "feature penalty"),
-    ("wave_splits", bool, "wave growth"),
-    ("use_quantized_grad", bool, "quantized gradients"),
+    ("speculative_tolerance", lambda v: v > 0,
+     "near-tie preference for armed leaves (speculative arming)"),
     ("tree_learner", lambda v: v not in ("serial", ""),
      "parallel tree learners"),
     ("boosting", lambda v: v not in ("gbdt", "gbrt"),

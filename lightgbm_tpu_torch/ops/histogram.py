@@ -1,16 +1,32 @@
 """Per-leaf histograms: ``[sum_grad, sum_hess, count]`` per (feature, bin).
 
-Counterpart of ``lightgbm_tpu/ops/histogram.py``: ``histogram_segsum``
-(:64) becomes :func:`histogram_plain`, and the TPU kernel
-``histogram_pallas`` (:238) becomes kernel H
-(``csrc/histogram.cu``), called through :func:`masked_histogram` with
-the leaf mask fused in — the function ``masked_hist`` computes in the
-JAX growth loop (``lightgbm_tpu/ops/grow.py:529-533``).
+Counterpart of ``lightgbm_tpu/ops/histogram.py``.  Each TPU kernel
+becomes a hand-written CUDA kernel behind a wrapper, with a plain
+PyTorch version beside it:
 
-Both versions sum in float64 and round once to float32, so the kernel,
-the plain version on the card and the plain version on the CPU agree
-whatever the order of the additions (the JAX reference sums in float32;
-the parity tests state the tolerance that follows).
+- ``histogram_pallas`` (:238) -> kernel H (``csrc/histogram.cu``) through
+  :func:`masked_histogram`, the leaf mask fused in (the JAX growth loop's
+  ``masked_hist``, ``lightgbm_tpu/ops/grow.py:529-533``); plain version
+  :func:`masked_histogram_plain` over :func:`histogram_plain`
+  (``histogram_segsum``, :64);
+- ``histogram_pallas_multi`` (:396) -> kernel M (``csrc/multi_hist.cu``)
+  through :func:`multi_histogram`; plain version
+  :func:`multi_histogram_plain` (``histogram_segsum_multi``, :528);
+- ``histogram_pallas_multi_routed`` (:872, mode "small") -> kernel R
+  (``csrc/routed_hist.cu``) through :func:`routed_histogram`; plain
+  version :func:`routed_histogram_plain`
+  (``histogram_segsum_multi_routed``, :1013);
+- ``leaf_stats_pallas`` (:1239) -> kernel Q (``csrc/leaf_stats.cu``)
+  through :func:`leaf_stats`; plain version :func:`leaf_stats_plain`
+  (the ``histogram(leaf_idx ...)`` fallback,
+  ``lightgbm_tpu/ops/grow.py:1787-1790``).
+
+Float values are summed in float64 and rounded once to float32, so a
+kernel, the plain version on the card and the plain version on the CPU
+agree whatever the order of the additions (the JAX reference sums in
+float32; the parity tests state the tolerance that follows).  Quantized
+(integer) values are summed exactly everywhere.  CPU tensors take the
+plain version; CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -19,10 +35,15 @@ import torch
 from . import kernels
 
 __all__ = ["histogram_plain", "masked_histogram_plain", "masked_histogram",
-           "LAUNCHES"]
+           "multi_width", "multi_histogram_plain", "multi_histogram",
+           "routed_histogram_plain", "routed_histogram", "leaf_stats_plain",
+           "leaf_stats", "LAUNCHES"]
 
-# launches of kernel H through :func:`masked_histogram`, one per call
-LAUNCHES = {"histogram": 0}
+# kernel launches through the wrappers below, one per call: H
+# (masked_histogram), M (multi_histogram), R (routed_histogram) and Q
+# (leaf_stats)
+LAUNCHES = {"histogram": 0, "multi_histogram": 0, "routed_histogram": 0,
+            "leaf_stats": 0}
 
 _THREADS = 512
 _SMEM_BUDGET = 99 * 1024   # two blocks of the float64 tile per SM
@@ -109,4 +130,260 @@ def masked_histogram(bins: torch.Tensor, grad: torch.Tensor,
         row_blocks, _THREADS, partial.data_ptr(), out.data_ptr(), stream)
     kernels.check(rc, "kernel H (ltt_hist_masked)")
     LAUNCHES["histogram"] += 1
+    return out
+
+
+# ---- batched passes: kernels M and R ----------------------------------
+
+_MULTI_THREADS = 1024
+_MAX_LANES = 64
+
+
+def multi_width(quantized: bool, two_col: bool = False) -> int:
+    """Subsets per batched pass (``lightgbm_tpu/ops/histogram.py:54``):
+    21 float, 42 quantized, 64 two-column quantized."""
+    if two_col:
+        return 64
+    return 42 if quantized else 21
+
+
+def multi_histogram_plain(bins: torch.Tensor, vals: torch.Tensor,
+                          sel: torch.Tensor, max_bin: int, width: int,
+                          two_col: bool = False) -> torch.Tensor:
+    """Histograms of ``width`` row-disjoint subsets -> (W, F, B, 3)
+    float32 — plain PyTorch.
+
+    bins (F, N); vals (N, C) float32 or int8, C >= 3 (C >= 2 with
+    ``two_col``); sel (N,) subset id per row, -1 = none.  With
+    ``two_col`` only grad and hess are summed and the count channel is a
+    copy of hess.  Sums in float64 (exact on integers), one rounding."""
+    F, _ = bins.shape
+    cols = 2 if two_col else 3
+    keep = torch.nonzero(sel >= 0).squeeze(1)
+    s = sel.index_select(0, keep).to(torch.int64)
+    v = vals[:, :cols].index_select(0, keep).to(torch.float64)
+    out = torch.zeros(width * F * max_bin, cols, dtype=torch.float64,
+                      device=bins.device)
+    for f in range(F):
+        ids = (s * F + f) * max_bin + \
+            bins[f].index_select(0, keep).to(torch.int64)
+        out.index_add_(0, ids, v)
+    out = out.to(torch.float32).reshape(width, F, max_bin, cols)
+    if two_col:
+        out = torch.cat([out, out[..., 1:2]], dim=-1)
+    return out
+
+
+def _multi_plan(F: int, n: int, device) -> int:
+    """Row blocks of kernel M: about two blocks per SM over the F feature
+    blocks (one 126-128 KB tile per SM), and at most 2^24 rows a block so
+    an int32 partial of int8 values cannot overflow."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rb = max(1, -(-2 * sms // F))
+    rb = min(rb, max(1, -(-n // _MULTI_THREADS)))
+    return max(rb, -(-n // (1 << 24)))
+
+
+def _check_multi_inputs(bins, vals, two_col, width, max_bin):
+    F, n = bins.shape
+    if bins.dtype not in (torch.uint8, torch.int16):
+        raise TypeError(f"bins must be uint8/int16, got {bins.dtype}")
+    if vals.dtype not in (torch.int8, torch.float32) or vals.dim() != 2 or \
+            vals.shape[0] != n or vals.shape[1] < (2 if two_col else 3):
+        raise ValueError("vals must be int8/float32 (N, 3), or (N, 2) with "
+                         "two_col")
+    if not 1 <= width <= _MAX_LANES:
+        raise ValueError(f"width must be in [1, {_MAX_LANES}]")
+    acc = 4 if vals.dtype == torch.int8 else 8
+    smem = width * max_bin * (2 if two_col else 3) * acc
+    if smem > _SMEM_MAX:
+        raise ValueError(f"one feature's (W={width}, B={max_bin}) tile needs "
+                         f"{smem} bytes of shared memory (at most "
+                         f"{_SMEM_MAX})")
+    if not (bins.is_contiguous() and vals.is_contiguous()):
+        raise ValueError("inputs must be contiguous")
+    return F, n
+
+
+def multi_histogram(bins: torch.Tensor, vals: torch.Tensor,
+                    sel: torch.Tensor, max_bin: int, width: int,
+                    two_col: bool = False) -> torch.Tensor:
+    """Batched histogram over ``width`` disjoint row subsets, as
+    :func:`multi_histogram_plain`.  CUDA tensors go to kernel M (sel
+    int32 or int8; vals int8 for quantized values, exact, or float32);
+    CPU tensors to the plain version."""
+    if bins.device.type == "cpu":
+        return multi_histogram_plain(bins, vals, sel, max_bin, width, two_col)
+    F, n = _check_multi_inputs(bins, vals, two_col, width, max_bin)
+    if sel.dtype not in (torch.int32, torch.int8) or sel.shape != (n,) or \
+            not sel.is_contiguous():
+        raise ValueError("sel must be contiguous int32/int8 (N,)")
+    if sel.device != bins.device or vals.device != bins.device:
+        raise ValueError("all inputs must be on one device")
+    lib = kernels.load()
+    cols = 2 if two_col else 3
+    rb = _multi_plan(F, n, bins.device)
+    part = torch.empty(rb * F * width * max_bin * cols,
+                       dtype=torch.int32 if vals.dtype == torch.int8
+                       else torch.float64, device=bins.device)
+    out = torch.empty(width, F, max_bin, 3, dtype=torch.float32,
+                      device=bins.device)
+    stream = torch.cuda.current_stream(bins.device).cuda_stream
+    rc = lib.ltt_multi_hist(
+        bins.data_ptr(), bins.element_size(), sel.data_ptr(),
+        sel.element_size(), vals.data_ptr(), int(vals.dtype == torch.int8),
+        vals.shape[1], int(two_col), n, F, max_bin, width, rb,
+        part.data_ptr(), out.data_ptr(), stream)
+    kernels.check(rc, "kernel M (ltt_multi_hist)")
+    LAUNCHES["multi_histogram"] += 1
+    return out
+
+
+def routed_histogram_plain(bins: torch.Tensor, vals: torch.Tensor,
+                           leaf_idx: torch.Tensor, tables: torch.Tensor,
+                           max_bin: int, width: int, two_col: bool = False,
+                           miss_bin=None):
+    """Route the rows of a wave and histogram the smaller children ->
+    (hist (W, F, B, 3), new leaf_idx, sel (N,) int32) — plain PyTorch.
+
+    tables (5 or 6, W) int32: lane leaf ids, split columns, thresholds,
+    new (right) leaf ids, smaller-is-left flags and, in row 5, default
+    left; miss_bin (F,) int32 per-feature missing bin (-1 = none) or
+    None.  A row at its lane feature's missing bin goes left when the
+    lane's default is left."""
+    W = width
+    t = tables.to(torch.int64)
+    ids, colw, thrw, neww, slw = (t[k, :W] for k in range(5))
+    li = leaf_idx.to(torch.int64)
+    lane = torch.full_like(li, -1)
+    for w in range(W):                    # the last matching lane wins
+        lane = torch.where(li == ids[w], torch.full_like(lane, w), lane)
+    in_wave = lane >= 0
+    safe = lane.clamp(min=0)
+    col_id = colw[safe]
+    col = bins.gather(0, col_id[None, :])[0].to(torch.int64)
+    gl = col <= thrw[safe]
+    if t.shape[0] >= 6 and miss_bin is not None:
+        mb_row = miss_bin.to(torch.int64)[col_id]
+        is_miss = (col == mb_row) & (mb_row >= 0)
+        gl = gl | ((t[5, :W][safe] > 0) & is_miss)
+    gl = gl & in_wave
+    li_new = torch.where(in_wave & ~gl, neww[safe], li).to(leaf_idx.dtype)
+    to_small = gl == (slw[safe] > 0)
+    sel = torch.where(in_wave & to_small, lane,
+                      torch.full_like(lane, -1)).to(torch.int32)
+    hist = multi_histogram_plain(bins, vals, sel, max_bin, width, two_col)
+    return hist, li_new, sel
+
+
+def routed_histogram(bins: torch.Tensor, vals: torch.Tensor,
+                     leaf_idx: torch.Tensor, tables: torch.Tensor,
+                     max_bin: int, width: int, two_col: bool = False,
+                     miss_bin=None, want_sel: bool = False,
+                     leaf_bound: int = 256):
+    """As :func:`routed_histogram_plain`.  CUDA tensors go to kernel R
+    (a routing launch, then kernel M over its one-byte subset ids); the
+    int32 ``sel`` is written only with ``want_sel`` (None otherwise).
+    ``leaf_bound``: every leaf id is below it (256 for uint8 leaf ids).
+    CPU tensors go to the plain version, which always returns ``sel``."""
+    if bins.device.type == "cpu":
+        return routed_histogram_plain(bins, vals, leaf_idx, tables, max_bin,
+                                      width, two_col, miss_bin)
+    F, n = _check_multi_inputs(bins, vals, two_col, width, max_bin)
+    if leaf_idx.dtype not in (torch.uint8, torch.int32) or \
+            leaf_idx.shape != (n,) or not leaf_idx.is_contiguous():
+        raise ValueError("leaf_idx must be contiguous uint8/int32 (N,)")
+    if tables.dtype != torch.int32 or tables.dim() != 2 or \
+            tables.shape[0] not in (5, 6) or tables.shape[1] != width:
+        raise ValueError(f"tables must be int32 (5 or 6, {width})")
+    if leaf_idx.dtype == torch.uint8:
+        leaf_bound = 256
+    if not 1 <= leaf_bound <= 32768:
+        raise ValueError("leaf_bound must be in [1, 32768]")
+    if miss_bin is not None and (miss_bin.dtype != torch.int32 or
+                                 miss_bin.shape != (F,)):
+        raise ValueError(f"miss_bin must be int32 ({F},)")
+    if F > 2048:
+        raise ValueError("kernel R routes at most 2048 features")
+    ins = (vals, leaf_idx, tables) + (() if miss_bin is None else (miss_bin,))
+    if any(x.device != bins.device for x in ins):
+        raise ValueError("all inputs must be on one device")
+    lib = kernels.load()
+    dev = bins.device
+    tables = tables.contiguous()
+    mb = None if miss_bin is None else miss_bin.contiguous()
+    cols = 2 if two_col else 3
+    rb = _multi_plan(F, n, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    route_blocks = max(1, min(8 * sms, -(-n // 256)))
+    leaf_out = torch.empty_like(leaf_idx)
+    lane = torch.empty(n, dtype=torch.int8, device=dev)
+    sel = torch.empty(n, dtype=torch.int32, device=dev) if want_sel else None
+    part = torch.empty(rb * F * width * max_bin * cols,
+                       dtype=torch.int32 if vals.dtype == torch.int8
+                       else torch.float64, device=dev)
+    out = torch.empty(width, F, max_bin, 3, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.ltt_routed_hist(
+        bins.data_ptr(), bins.element_size(), vals.data_ptr(),
+        int(vals.dtype == torch.int8), vals.shape[1], int(two_col),
+        leaf_idx.data_ptr(), leaf_idx.element_size(), tables.data_ptr(),
+        tables.shape[0], None if mb is None else mb.data_ptr(), leaf_bound,
+        n, F, max_bin, width, route_blocks, rb, leaf_out.data_ptr(),
+        lane.data_ptr(), None if sel is None else sel.data_ptr(),
+        part.data_ptr(), out.data_ptr(), stream)
+    kernels.check(rc, "kernel R (ltt_routed_hist)")
+    LAUNCHES["routed_histogram"] += 1
+    return out, leaf_out, sel
+
+
+# ---- leaf renewal sums: kernel Q ---------------------------------------
+
+_LEAF_THREADS = 512
+
+
+def leaf_stats_plain(leaf_idx: torch.Tensor, grad: torch.Tensor,
+                     hess: torch.Tensor, mask: torch.Tensor,
+                     num_leaves: int) -> torch.Tensor:
+    """Per-leaf ``[sum grad*m, sum hess*m, sum m]`` -> (L, 3) float32,
+    summed in float64 — plain PyTorch."""
+    v = torch.stack([grad * mask, hess * mask, mask], dim=-1)
+    out = torch.zeros(num_leaves, 3, dtype=torch.float64,
+                      device=leaf_idx.device)
+    out.index_add_(0, leaf_idx.to(torch.int64), v.to(torch.float64))
+    return out.to(torch.float32)
+
+
+def leaf_stats(leaf_idx: torch.Tensor, grad: torch.Tensor,
+               hess: torch.Tensor, mask: torch.Tensor,
+               num_leaves: int) -> torch.Tensor:
+    """As :func:`leaf_stats_plain`; CUDA tensors go to kernel Q, CPU
+    tensors to the plain version.  Every id must be below
+    ``num_leaves``."""
+    if leaf_idx.device.type == "cpu":
+        return leaf_stats_plain(leaf_idx, grad, hess, mask, num_leaves)
+    n = leaf_idx.shape[0]
+    if leaf_idx.dtype not in (torch.uint8, torch.int32) or \
+            leaf_idx.dim() != 1 or not leaf_idx.is_contiguous():
+        raise ValueError("leaf_idx must be contiguous uint8/int32 (N,)")
+    for name, x in (("grad", grad), ("hess", hess), ("mask", mask)):
+        if x.dtype != torch.float32 or x.shape != (n,) or \
+                not x.is_contiguous() or x.device != leaf_idx.device:
+            raise ValueError(f"{name} must be contiguous float32 ({n},) on "
+                             "the device of leaf_idx")
+    if not 1 <= num_leaves <= _SMEM_MAX // 24:
+        raise ValueError(f"kernel Q holds at most {_SMEM_MAX // 24} leaves")
+    lib = kernels.load()
+    dev = leaf_idx.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rb = max(1, min(2 * sms, -(-n // _LEAF_THREADS)))
+    part = torch.empty(rb * num_leaves * 3, dtype=torch.float64, device=dev)
+    out = torch.empty(num_leaves, 3, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.ltt_leaf_stats(leaf_idx.data_ptr(), leaf_idx.element_size(),
+                            grad.data_ptr(), hess.data_ptr(), mask.data_ptr(),
+                            n, num_leaves, rb, part.data_ptr(),
+                            out.data_ptr(), stream)
+    kernels.check(rc, "kernel Q (ltt_leaf_stats)")
+    LAUNCHES["leaf_stats"] += 1
     return out

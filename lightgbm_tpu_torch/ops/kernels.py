@@ -27,7 +27,8 @@ from typing import Optional
 __all__ = ["load", "build_info", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("histogram.cu", "split.cu", "lookup.cu")
+SOURCES = ("histogram.cu", "split.cu", "lookup.cu", "multi_hist.cu",
+           "routed_hist.cu", "leaf_stats.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -44,8 +45,13 @@ _SIGNATURES = {
     "ltt_hist_masked": [_P, _I, _P, _P, _P, _P, _I, _P, _I64, _I, _I, _I,
                         _I, _I, _P, _P, _P],
     "ltt_best_split": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
-                       _I, _P, _P, _P, _P, _P, _P, _P, _P],
+                       _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "ltt_leaf_add": [_P, _I, _P, _I, _P, _I64, _I, _P],
+    "ltt_multi_hist": [_P, _I, _P, _I, _P, _I, _I, _I, _I64, _I, _I, _I, _I,
+                       _P, _P, _P],
+    "ltt_routed_hist": [_P, _I, _P, _I, _I, _I, _P, _I, _P, _I, _P, _I,
+                        _I64, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "ltt_leaf_stats": [_P, _I, _P, _P, _P, _I64, _I, _I, _P, _P, _P],
 }
 
 

@@ -11,9 +11,14 @@ gain helpers (:28-131) are copied; the numerical section of
 Numerical features only, with missing values (both default
 directions), min_data_in_leaf, min_sum_hessian_in_leaf, lambda_l1/l2,
 max_delta_step and min_gain_to_split.  Ties resolve first-max: lowest
-bin within a feature, then lowest feature.  The prefix sums are taken in
-float64 and rounded once to float32 in both versions; every gain is then
-the same float32 expression as ``_split_gain``.
+bin within a feature, then lowest feature.  The prefix sums are float32
+in the order of the reference's ``jnp.cumsum`` on the CPU
+(:func:`prefix_sum`) in both versions; every gain is then the same
+float32 expression as ``_split_gain`` compiled for the reference's CPU
+backend, which fuses one multiply-add (:func:`fma32`).  So a histogram
+the reference also holds bit for bit (quantized sums: integers times a
+scale) gives the same gains and the same choice, even where candidates
+tie in exact arithmetic.
 """
 from __future__ import annotations
 
@@ -24,8 +29,8 @@ import torch
 from . import kernels
 
 __all__ = ["EPS", "NEG_INF", "SplitParams", "leaf_output", "leaf_gain",
-           "lane_scalars", "find_best_split_plain", "find_best_split",
-           "LAUNCHES"]
+           "lane_scalars", "prefix_sum", "find_best_split_plain",
+           "find_best_split", "LAUNCHES"]
 
 EPS = 1e-15
 NEG_INF = -1e30
@@ -38,7 +43,11 @@ LAUNCHES = {"best_split": 0}
 class SplitParams:
     """Split-finding parameters (the numerical subset of the JAX
     package's ``SplitParams``).  ``any_missing`` is a dataset fact: with
-    no missing bin anywhere only the default-right scan runs."""
+    no missing bin anywhere only the default-right scan runs.
+    ``counts_proxy`` (``lightgbm_tpu/ops/split.py:57-62``): legal only
+    when min_data_in_leaf <= 1 and min_sum_hessian_in_leaf > 0, where a
+    side with hess >= msh > 0 holds a row, so no count is read; the
+    missing-direction test then reads the hess copy too."""
     max_bin: int
     lambda_l1: float = 0.0
     lambda_l2: float = 0.0
@@ -47,6 +56,10 @@ class SplitParams:
     min_gain_to_split: float = 0.0
     max_delta_step: float = 0.0
     any_missing: bool = True
+    # the count channel holds a hess copy (two-column quantized passes):
+    # feasibility is then the hessian test alone, with
+    # msh = max(min_sum_hessian_in_leaf, EPS)
+    counts_proxy: bool = False
 
 
 def threshold_l1(s, l1):
@@ -64,10 +77,26 @@ def leaf_output(g, h, l1, l2, max_delta_step):
     return out
 
 
-def _gain_given_output(g, h, out, l1, l2):
-    """GetLeafSplitGainGivenOutput (feature_histogram.hpp:498)."""
+def fma32(a, b, c):
+    """float32 ``a * b + c`` with one rounding of the product-sum, as a
+    fused multiply-add: the float32 product is exact in float64, the sum
+    rounds there and once more to float32 (which a true fused add would
+    differ from only where that second rounding meets a tie).  Kernel S
+    computes the same expression."""
+    return (a.to(torch.float64) * b.to(torch.float64) +
+            c.to(torch.float64)).to(torch.float32)
+
+
+def _gain_given_output(g, h, out, l1, l2, fuse_first=True):
+    """GetLeafSplitGainGivenOutput (feature_histogram.hpp:498):
+    ``-(2 * sg * out + (h + l2) * out * out)`` with one of the two
+    products fused into the sum, as the reference's CPU compile contracts
+    it: the first (``fuse_first``), or the second, which it fuses in the
+    default-left scan."""
     sg = threshold_l1(g, l1)
-    return -(2.0 * sg * out + (h + l2) * out * out)
+    if fuse_first:
+        return -fma32(2.0 * sg, out, (h + l2) * out * out)
+    return -fma32((h + l2) * out, out, 2.0 * sg * out)
 
 
 def leaf_gain(g, h, l1, l2, max_delta_step):
@@ -76,12 +105,12 @@ def leaf_gain(g, h, l1, l2, max_delta_step):
                               l1, l2)
 
 
-def _split_gain(gl, hl, gr, hr, l1, l2, mds):
+def _split_gain(gl, hl, gr, hr, l1, l2, mds, fuse_first=True):
     """GetSplitGains (feature_histogram.hpp:456-465), unconstrained."""
     lo = leaf_output(gl, hl, l1, l2, mds)
     ro = leaf_output(gr, hr, l1, l2, mds)
-    return (_gain_given_output(gl, hl, lo, l1, l2) +
-            _gain_given_output(gr, hr, ro, l1, l2))
+    return (_gain_given_output(gl, hl, lo, l1, l2, fuse_first) +
+            _gain_given_output(gr, hr, ro, l1, l2, fuse_first))
 
 
 def lane_scalars(parent: torch.Tensor, p: SplitParams) -> torch.Tensor:
@@ -91,6 +120,33 @@ def lane_scalars(parent: torch.Tensor, p: SplitParams) -> torch.Tensor:
                       p.max_delta_step)
     gshift = pgain + p.min_gain_to_split
     return torch.cat([parent[:, :3], gshift[:, None]], dim=1).contiguous()
+
+
+_CHUNK = 16
+
+
+def prefix_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive float32 prefix sums along ``dim`` in the order of XLA's
+    cumsum on the CPU: sequential within chunks of 16, the chunk totals
+    summed the same way, and every chunk after the first offset by the
+    total of the chunks before it.  Each step is an elementwise float32
+    add, so the result is the same on every device."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    if n <= _CHUNK:
+        outs = [x[..., 0]]
+        for i in range(1, n):
+            outs.append(outs[-1] + x[..., i])
+        return torch.stack(outs, dim=-1).movedim(-1, dim)
+    nc = -(-n // _CHUNK)
+    pad = nc * _CHUNK - n
+    if pad:
+        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], dim=-1)
+    inner = prefix_sum(x.reshape(x.shape[:-1] + (nc, _CHUNK)), -1)
+    pre = prefix_sum(inner[..., -1], -1)
+    out = torch.cat([inner[..., :1, :],
+                     inner[..., 1:, :] + pre[..., :-1, None]], dim=-2)
+    return out.reshape(x.shape)[..., :n].movedim(-1, dim)
 
 
 def _empty_record(W, B, device):
@@ -131,17 +187,22 @@ def find_best_split_plain(hist: torch.Tensor, parent: torch.Tensor,
         nv = nb
     in_value = jidx[None, :] < nv[:, None]                 # (F, B)
     hv = hist * in_value[None, :, :, None].to(hist.dtype)
-    cum = torch.cumsum(hv.to(torch.float64), dim=2).to(torch.float32)
+    cum = prefix_sum(hv, dim=2)
     cand_ok = jidx[None, :] <= nv[:, None] - 2             # (F, B)
     md = max(p.min_data_in_leaf, 1)
     msh = p.min_sum_hessian_in_leaf
 
-    def scan_dir(L):
+    def scan_dir(L, left=False):
         R = pst - L
         g = _split_gain(L[..., 0], L[..., 1] + EPS, R[..., 0],
-                        R[..., 1] + EPS, l1, l2, mds) - gshift
-        ok = cand_ok[None] & (L[..., 2] >= md) & (R[..., 2] >= md) & \
-            (L[..., 1] >= msh) & (R[..., 1] >= msh)
+                        R[..., 1] + EPS, l1, l2, mds,
+                        fuse_first=not left) - gshift
+        if p.counts_proxy:
+            hmin = max(msh, EPS)
+            ok = cand_ok[None] & (L[..., 1] >= hmin) & (R[..., 1] >= hmin)
+        else:
+            ok = cand_ok[None] & (L[..., 2] >= md) & (R[..., 2] >= md) & \
+                (L[..., 1] >= msh) & (R[..., 1] >= msh)
         return torch.where(ok, g, torch.full_like(g, NEG_INF))
 
     g_r = scan_dir(cum)
@@ -149,7 +210,7 @@ def find_best_split_plain(hist: torch.Tensor, parent: torch.Tensor,
         miss = hist[:, torch.arange(F, device=dev), nb - 1, :] * \
             has_missing[None, :, None].to(hist.dtype)        # (W, F, 3)
         L_l = cum + miss[:, :, None, :]
-        g_l = scan_dir(L_l)
+        g_l = scan_dir(L_l, left=True)
         no_miss = miss[..., 2] <= 0                          # (W, F)
         g_l = torch.where(no_miss[..., None], torch.full_like(g_l, NEG_INF),
                           g_l)
@@ -217,7 +278,9 @@ def find_best_split(hist: torch.Tensor, parent: torch.Tensor,
         hist.data_ptr(), num_bins.data_ptr(), missing_type.data_ptr(),
         fmask.data_ptr(), lane.data_ptr(), W, F, B, p.lambda_l1,
         p.lambda_l2, p.max_delta_step, float(max(p.min_data_in_leaf, 1)),
-        p.min_sum_hessian_in_leaf, int(p.any_missing), part.data_ptr(),
+        max(p.min_sum_hessian_in_leaf, EPS) if p.counts_proxy
+        else p.min_sum_hessian_in_leaf, int(p.any_missing),
+        int(p.counts_proxy), part.data_ptr(),
         rec["gain"].data_ptr(), rec["feature"].data_ptr(),
         rec["threshold"].data_ptr(), rec["default_left"].data_ptr(),
         rec["left_stats"].data_ptr(), rec["left_mask"].data_ptr(), stream)

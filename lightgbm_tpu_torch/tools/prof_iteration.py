@@ -2,10 +2,12 @@
 
 Run from the root of a checkout on a machine with one NVIDIA card:
 
-    python3 -m lightgbm_tpu_torch.tools.prof_iteration [--rows N]
+    python3 -m lightgbm_tpu_torch.tools.prof_iteration [--rows N] [--wave]
 
 It trains the configuration ``chip_smoke.py`` drives at full width
-(10.5M x 28, num_leaves=255, max_bin=255; data from the same generator)
+(10.5M x 28, num_leaves=255, max_bin=255; data from the same generator):
+the exact path, or with ``--wave`` the wave path (bench.py's wave255:
+wave growth with quantized two-column passes, hist_refinement=false),
 and reports, after one warm-up iteration:
 
 - ``iteration_s``: host clock around ``Booster.update()`` ending in a
@@ -33,7 +35,9 @@ ROOT = Path(__file__).resolve().parents[2]
 
 # kernels of this package, by the name of their __global__ function
 OWN_KERNELS = ("hist_masked_kernel", "hist_reduce_kernel", "split_scan_kernel",
-               "split_finish_kernel", "leaf_add_kernel")
+               "split_finish_kernel", "leaf_add_kernel", "multi_hist_kernel",
+               "multi_reduce_kernel", "route_kernel",
+               "leaf_stats_reduce_kernel", "leaf_stats_kernel")
 
 
 def _kernel_table(prof, torch):
@@ -68,6 +72,8 @@ def _kernel_table(prof, torch):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=10_500_000)
+    ap.add_argument("--wave", action="store_true",
+                    help="profile the wave path (wave255 without c2f)")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import torch
@@ -83,6 +89,8 @@ def main(argv=None) -> int:
     X, y = chip_smoke.make_higgs_shaped(args.rows, chip_smoke.N_FEATURES,
                                         seed=0)
     params = dict(chip_smoke.TRAIN_PARAMS, device_type="cuda")
+    if args.wave:
+        params.update(chip_smoke.WAVE_PARAMS)
     booster = ltt.Booster(params=params,
                           train_set=ltt.Dataset(X, label=y, params=params))
     del X
@@ -117,6 +125,7 @@ def main(argv=None) -> int:
     own_us = sum(r["us"] for r in rows if r["own"])
     out = {
         "card": card, "rows": args.rows,
+        "path": "wave" if args.wave else "exact",
         "iteration_s": statistics.median(iters), "iteration_runs_s": iters,
         "enqueue_s": enqueue_s, "tree_s": tree_s,
         "profiled_iteration_s": prof_wall_s,

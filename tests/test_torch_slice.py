@@ -179,7 +179,7 @@ def test_cuda_default_raises_without_a_card():
 
 @pytest.mark.parametrize("params", [
     {"boosting": "dart"}, {"bagging_fraction": 0.5, "bagging_freq": 1},
-    {"use_quantized_grad": True}, {"wave_splits": True},
+    {"speculative_tolerance": 0.1}, {"boosting": "goss"},
     {"tree_learner": "data"}, {"monotone_constraints": [1, 0, 0, 0, 0, 0]},
     {"fused_iters": 4}, {"objective": "multiclass", "num_class": 3},
 ])
@@ -195,7 +195,8 @@ def test_port_imports_nothing_of_jax():
     code = (f"import sys; sys.path.insert(0, {ROOT!r}); "
             "import lightgbm_tpu_torch as t; "
             "import lightgbm_tpu_torch.basic, lightgbm_tpu_torch.engine, "
-            "lightgbm_tpu_torch.convert, lightgbm_tpu_torch.ops.kernels; "
+            "lightgbm_tpu_torch.convert, lightgbm_tpu_torch.ops.kernels, "
+            "lightgbm_tpu_torch.utils.prng; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'lightgbm_tpu' or "
             "m.startswith('lightgbm_tpu.')]; print(bad); "
