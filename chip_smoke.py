@@ -15,7 +15,11 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    PyTorch equivalent (CUDA events, median): kernels H, S and L of the
    exact path, and kernels M (W=64 two-column int8, exact; W=21 float),
    R (W=64, 6-row lane tables, exact), Q (exact) and S at the wave's 128
-   children with the counts proxy;
+   children with the counts proxy; and the coarse-to-fine kernels: M
+   coarse (the root pass, one live lane, and W=64, two-column int8, shift
+   4 with the reserved missing slot; W=21 float), R coarse (W=64), V (the
+   root's window) and V-lanes (W=64, a uint8 leaf vector, dummy lanes),
+   all exact on integers;
 3. the exact path: trains the Higgs-shaped configuration at full width
    (10.5M x 28, num_leaves=255, max_bin=255, learning_rate=0.1,
    min_sum_hessian_in_leaf=100) for 1 warm-up + 5 measured iterations
@@ -26,10 +30,15 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    same data, 1 warm-up + 5 iterations with the counters reset just
    before: seconds per iteration, waves per tree, launches of M, R, Q, S
    and L, and holdout AUC no more than 0.02 below the exact path's;
-5. trains reduced copies (50k rows with missing values, 10 iterations:
+5. wave255 as bench.py runs it, coarse-to-fine refinement on
+   (refine_shift 4), on the same data, 1 warm-up + 5 iterations with the
+   counters reset just before: seconds per iteration, waves per tree,
+   launches of M, V, R, V-lanes, Q and L per tree, none of S, and holdout
+   AUC no more than 0.02 below the exact path's;
+6. trains reduced copies (50k rows with missing values, 10 iterations:
    the exact path at 31 leaves, float waves, quantized two-column waves
-   at 127 leaves) on the card and on the CPU and requires identical
-   trees.
+   at 127 leaves, and both wave kinds with coarse-to-fine refinement) on
+   the card and on the CPU and requires identical trees.
 
 Every phase passes or the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
@@ -54,10 +63,11 @@ N_HOLDOUT = 500_000
 TRAIN_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
                 "learning_rate": 0.1, "min_sum_hessian_in_leaf": 100,
                 "verbose": -1}
-# bench.py's primary variant wave255 (bench.py:12-15, :1882-1896) without
-# coarse-to-fine refinement, which the port does not implement yet
-WAVE_PARAMS = {"wave_splits": True, "use_quantized_grad": True,
-               "min_data_in_leaf": 0, "hist_refinement": False}
+# bench.py's primary variant wave255 (bench.py:12-15, :1882-1896) as it
+# ships (coarse-to-fine refinement on by default), and without it
+WAVE255_PARAMS = {"wave_splits": True, "use_quantized_grad": True,
+                  "min_data_in_leaf": 0}
+WAVE_PARAMS = dict(WAVE255_PARAMS, hist_refinement=False)
 
 
 def make_higgs_shaped(n_rows, n_features, seed=0):
@@ -302,25 +312,30 @@ def phase_kernels(torch, dev):
     return out
 
 
-def _index_add_ms(torch, dev, bins, vals, sel, W, B):
+def _index_add_ms(torch, dev, cells, vals, sel, W, nb):
     """One ``index_add_`` over flattened (lane, feature, bin) ids: the
-    one-call PyTorch yardstick of kernel M."""
-    F, N = bins.shape
+    one-call PyTorch yardstick of kernels M, V and V-lanes.  ``cells``
+    (F, N): each row's bin in each feature, ``nb`` where it adds
+    nowhere (a slot past the ``nb`` bins, as the plain versions use)."""
+    F, N = cells.shape
     keep = torch.nonzero(sel >= 0).squeeze(1)
     s = sel.index_select(0, keep).to(torch.int64)
-    ids = ((s[None, :] * F + torch.arange(F, device=dev)[:, None]) * B +
-           bins.index_select(1, keep).to(torch.int64)).reshape(-1)
+    ids = ((s[None, :] * F + torch.arange(F, device=dev)[:, None]) *
+           (nb + 1) + cells.index_select(1, keep).to(torch.int64)
+           ).reshape(-1)
     v = vals.index_select(0, keep).to(torch.float32).repeat(F, 1)
-    acc = torch.zeros(W * F * B, v.shape[1], device=dev)
+    acc = torch.zeros(W * F * (nb + 1), v.shape[1], device=dev)
     ms = cuda_ms(lambda: acc.zero_().index_add_(0, ids, v), reps=3)
     del ids, v, acc
     return ms
 
 
-def check_multi(torch, th, bins, vals, sel, W, B, two_col, exact, ctx):
+def check_multi(torch, th, bins, vals, sel, W, B, two_col, exact, ctx,
+                shift=0, miss_bin=None):
     """Kernel M vs its plain version; returns (max abs, max rel)."""
-    k = th.multi_histogram(bins, vals, sel, B, W, two_col)
-    q = th.multi_histogram_plain(bins, vals, sel, B, W, two_col)
+    k = th.multi_histogram(bins, vals, sel, B, W, two_col, shift, miss_bin)
+    q = th.multi_histogram_plain(bins, vals, sel, B, W, two_col, shift,
+                                 miss_bin)
     torch.cuda.synchronize()
     diff = (k - q).abs()
     rel = torch.where(diff == 0, torch.zeros_like(diff),
@@ -483,7 +498,176 @@ def phase_kernels_wave(torch, dev, th, ts, bins):
     print(f"kernel Q: exact; {ms_q:.4f} ms (plain {plain_q:.3f}, index_add_ "
           f"{lib_q:.3f}, bound {b_q[0]:.4f} by {b_q[1]}) at N={N}",
           flush=True)
+    del lq, gq, hq, mq, lq64, vq, acc
+    out.update(phase_kernels_c2f(torch, dev, th, bins, qv, g))
     return out
+
+
+def phase_kernels_c2f(torch, dev, th, bins, qv, g):
+    """Phase 2, the coarse-to-fine kernels at wave255's shapes (shift 4,
+    Bc = 17 with the reserved missing slot, R = 32): M and R coarse, V
+    and V-lanes, against their plain versions (exact on integers), with
+    their times, bounds and one-call yardsticks.  The rows' numbers are
+    those of the shapes the c2f path gives each kernel: M the root pass
+    (one live lane), V the root's window, R and V-lanes a W=64 wave."""
+    F, N = bins.shape
+    B, shift, W = 256, 4, 64
+    Bc = ((B - 1) >> shift) + 2
+    R = 2 << shift
+    out = {}
+    miss_bin = torch.full((F,), -1, dtype=torch.int32, device=dev)
+    miss_bin[::4] = B - 2                           # bin 254 is missing
+    b64 = bins.to(torch.int64)
+    is_miss = b64 == miss_bin.to(torch.int64)[:, None]
+    coarse = torch.where(is_miss, Bc - 1, b64 >> shift)
+
+    # ---- kernel M, coarse ---------------------------------------------
+    sel0 = torch.zeros(N, dtype=torch.int8, device=dev)
+    err_m, _ = check_multi(torch, th, bins, qv, sel0, 1, Bc, True, True,
+                           "coarse root pass", shift, miss_bin)
+    ms_m = cuda_ms(lambda: th.multi_histogram(bins, qv, sel0, Bc, 1, True,
+                                              shift, miss_bin), reps=10)
+    plain_m = cuda_ms(lambda: th.multi_histogram_plain(
+        bins, qv, sel0, Bc, 1, True, shift, miss_bin), reps=2)
+    lib_m = _index_add_ms(torch, dev, coarse, qv, sel0, 1, Bc)
+    b_m = bound(N * F + N * 2 + N + F * Bc * 3 * 4, N * F * 2)
+    out["multi_histogram"] = dict(max_abs_err=err_m, ms=ms_m,
+                                  plain_ms=plain_m, bound_ms=b_m[0],
+                                  bound_by=b_m[1], library_ms=lib_m)
+    print(f"kernel M coarse (root pass, two-column int8, shift {shift}, "
+          f"missing slot): exact; {ms_m:.4f} ms (plain {plain_m:.3f}, "
+          f"index_add_ {lib_m:.3f}, bound {b_m[0]:.4f} by {b_m[1]}) at "
+          f"F={F} N={N} Bc={Bc}", flush=True)
+    sel = torch.randint(-1, W, (N,), generator=g, device=dev,
+                        dtype=torch.int32)
+    check_multi(torch, th, bins, qv, sel, W, Bc, True, True,
+                "coarse W=64 two-column int8", shift, miss_bin)
+    ms_w = cuda_ms(lambda: th.multi_histogram(bins, qv, sel, Bc, W, True,
+                                              shift, miss_bin), reps=5)
+    fv = torch.stack([torch.randn(N, generator=g, device=dev),
+                      torch.rand(N, generator=g, device=dev) + 0.05,
+                      torch.ones(N, device=dev)], -1).contiguous()
+    fsel = torch.randint(-1, 21, (N,), generator=g, device=dev,
+                         dtype=torch.int32)
+    _, rel_f = check_multi(torch, th, bins, fv, fsel, 21, Bc, False, False,
+                           "coarse W=21 float", shift, miss_bin)
+    ms_f = cuda_ms(lambda: th.multi_histogram(bins, fv, fsel, Bc, 21, False,
+                                              shift, miss_bin), reps=5)
+    print(f"kernel M coarse W=64 two-column int8: exact, {ms_w:.4f} ms; "
+          f"W=21 float: max rel {rel_f:.3g}, {ms_f:.4f} ms", flush=True)
+    del fv, fsel
+
+    # ---- kernel R, coarse: a wave of 64 splits ------------------------
+    li = torch.randint(0, 127, (N,), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.uint8)
+    ids = torch.randperm(127, generator=g, device=dev)[:W].to(torch.int32)
+    ids[60:] = 256                                  # dummy lanes
+    tbl = torch.stack([
+        ids,
+        torch.randint(0, F, (W,), generator=g, device=dev,
+                      dtype=torch.int32),
+        torch.randint(0, B - 3, (W,), generator=g, device=dev,
+                      dtype=torch.int32),
+        torch.arange(127, 127 + W, device=dev, dtype=torch.int32),
+        torch.randint(0, 2, (W,), generator=g, device=dev,
+                      dtype=torch.int32),
+        torch.randint(0, 2, (W,), generator=g, device=dev,
+                      dtype=torch.int32)]).contiguous()
+    kh, kl, ks = th.routed_histogram(bins, qv, li, tbl, Bc, W, True,
+                                     miss_bin, want_sel=True, shift=shift)
+    qh, ql, qs = th.routed_histogram_plain(bins, qv, li, tbl, Bc, W, True,
+                                           miss_bin, shift)
+    torch.cuda.synchronize()
+    if not (torch.equal(kh, qh) and torch.equal(kl, ql) and
+            torch.equal(ks, qs)):
+        fail("kernel R (coarse) differs from plain: hist "
+             f"{float((kh - qh).abs().max())}, leaf ids "
+             f"{int((kl != ql).sum())}, sel {int((ks != qs).sum())}")
+    ms_r = cuda_ms(lambda: th.routed_histogram(bins, qv, li, tbl, Bc, W,
+                                               True, miss_bin, shift=shift),
+                   reps=10)
+    plain_r = cuda_ms(lambda: th.routed_histogram_plain(
+        bins, qv, li, tbl, Bc, W, True, miss_bin, shift), reps=2)
+    n_wave = int(torch.isin(li.to(torch.int32), tbl[0]).sum())
+    n_sel = int((qs >= 0).sum())
+    b_r = bound(N + n_wave + N + n_sel * F + n_sel * 2 +
+                W * F * Bc * 3 * 4, n_sel * F * 2)
+    out["routed_histogram"] = dict(max_abs_err=0.0, ms=ms_r,
+                                   plain_ms=plain_r, bound_ms=b_r[0],
+                                   bound_by=b_r[1], library_ms=None)
+    print(f"kernel R coarse (W=64, 6-row tables, shift {shift}): hist, leaf "
+          f"ids and sel exact; {ms_r:.4f} ms (plain {plain_r:.3f}, bound "
+          f"{b_r[0]:.4f} by {b_r[1]}) at F={F} N={N} Bc={Bc}", flush=True)
+    del kh, ks, qh, ql, qs
+
+    # ---- kernel V: the root's window ----------------------------------
+    lo0 = (torch.randint(0, Bc - 2, (1, F), generator=g, device=dev,
+                         dtype=torch.int32) << shift).contiguous()
+    lo0[0, 0] = 0                                   # both edges
+    lo0[0, 1] = (Bc - 3) << shift
+    k = th.window_histogram(bins, qv, sel0, lo0, R, 1, True, miss_bin)
+    q = th.window_histogram_plain(bins, qv, sel0, lo0, R, 1, True, miss_bin)
+    torch.cuda.synchronize()
+    if not torch.equal(k, q):
+        fail(f"kernel V differs from plain: max diff "
+             f"{float((k - q).abs().max())}")
+    ms_v = cuda_ms(lambda: th.window_histogram(bins, qv, sel0, lo0, R, 1,
+                                               True, miss_bin), reps=10)
+    plain_v = cuda_ms(lambda: th.window_histogram_plain(
+        bins, qv, sel0, lo0, R, 1, True, miss_bin), reps=2)
+    rb = b64 - lo0[0].to(torch.int64)[:, None]
+    in_win = (rb >= 0) & (rb < R) & ~is_miss
+    lib_v = _index_add_ms(torch, dev, torch.where(in_win, rb, R), qv, sel0,
+                          1, R)
+    # every row's bin is read to place it; values of every row; one add
+    # per (in-window row, feature, column)
+    b_v = bound(N * F + N * 2 + N + F * 4 + F * R * 3 * 4,
+                int(in_win.sum()) * 2)
+    out["window_histogram"] = dict(max_abs_err=0.0, ms=ms_v, plain_ms=plain_v,
+                                   bound_ms=b_v[0], bound_by=b_v[1],
+                                   library_ms=lib_v)
+    print(f"kernel V (the root's window, R={R}): exact; {ms_v:.4f} ms (plain "
+          f"{plain_v:.3f}, index_add_ {lib_v:.3f}, bound {b_v[0]:.4f} by "
+          f"{b_v[1]}) at F={F} N={N}", flush=True)
+    del rb, in_win
+
+    # ---- kernel V-lanes: a wave's first window group -------------------
+    # kl is the leaf vector after kernel R's routing; lanes are child ids,
+    # four of them dummies (256, past every uint8 leaf id)
+    lane_ids = torch.cat([tbl[0, :30], tbl[3, :30],
+                          torch.full((4,), 256, dtype=torch.int32,
+                                     device=dev)]).contiguous()
+    lo = (torch.randint(0, Bc - 2, (W, F), generator=g, device=dev,
+                        dtype=torch.int32) << shift).contiguous()
+    k = th.lanes_window_histogram(bins, qv, kl, lane_ids, lo, R, W, True,
+                                  miss_bin)
+    q = th.lanes_window_histogram_plain(bins, qv, kl, lane_ids, lo, R, W,
+                                        True, miss_bin)
+    torch.cuda.synchronize()
+    if not torch.equal(k, q):
+        fail(f"kernel V-lanes differs from plain: max diff "
+             f"{float((k - q).abs().max())}")
+    ms_vl = cuda_ms(lambda: th.lanes_window_histogram(
+        bins, qv, kl, lane_ids, lo, R, W, True, miss_bin), reps=10)
+    plain_vl = cuda_ms(lambda: th.lanes_window_histogram_plain(
+        bins, qv, kl, lane_ids, lo, R, W, True, miss_bin), reps=2)
+    lane = th._lanes_of(kl, lane_ids, W)
+    safe = lane.clamp(min=0)
+    rb = b64 - lo.to(torch.int64).t()[:, safe]      # (F, N)
+    in_win = (rb >= 0) & (rb < R) & ~is_miss & (lane >= 0)[None, :]
+    lib_vl = _index_add_ms(torch, dev, torch.where(in_win, rb, R), qv, lane,
+                           W, R)
+    n_lane = int((lane >= 0).sum())
+    b_vl = bound(N + n_lane * F + n_lane * 2 + W * 4 * (F + 1) +
+                 W * F * R * 3 * 4, int(in_win.sum()) * 2)
+    out["lanes_window_histogram"] = dict(
+        max_abs_err=0.0, ms=ms_vl, plain_ms=plain_vl, bound_ms=b_vl[0],
+        bound_by=b_vl[1], library_ms=lib_vl)
+    print(f"kernel V-lanes (W=64, uint8 leaf vector, 4 dummy lanes): "
+          f"exact; {ms_vl:.4f} ms (plain {plain_vl:.3f}, "
+          f"index_add_ {lib_vl:.3f}, bound {b_vl[0]:.4f} by {b_vl[1]}) at "
+          f"F={F} N={N} rows in lanes {n_lane}", flush=True)
+    return {f"c2f_{k}": v for k, v in out.items()}
 
 
 def reset_counts():
@@ -619,6 +803,60 @@ def phase_wave(torch, ltt, data, exact_auc):
                         holdout_auc=score)
 
 
+def phase_c2f(torch, ltt, data, exact_auc):
+    """Phase 5: wave255 as bench.py runs it (hist_refinement at its
+    default: coarse-to-fine refinement at shift 4) on the same data,
+    1 warm-up + 5 iterations."""
+    from lightgbm_tpu_torch.metrics import auc
+    ds, Xh, yh = data
+    params = dict(TRAIN_PARAMS, **WAVE255_PARAMS, device_type=DEVICE)
+    reset_counts()
+    booster = ltt.Booster(params=params, train_set=ds)
+    gp = booster._gbdt.grow_params
+    if not (gp.refine_shift == 4 and gp.wave and gp.two_col and
+            gp.speculate == 64 and gp.quantize):
+        fail(f"wave255 did not resolve to c2f two-column W=64 waves at shift "
+             f"4: {gp}")
+    waves = []
+    booster.update()                                    # warm-up
+    waves.append(booster._gbdt.last_waves)
+    torch.cuda.synchronize()
+    iter_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        if booster.update():
+            fail("c2f wave training stopped early")
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - t0)
+        waves.append(booster._gbdt.last_waves)
+    counts = read_counts()
+    prob = booster.predict(Xh)
+    if prob.shape != (N_HOLDOUT,) or not np.all(np.isfinite(prob)):
+        fail("c2f holdout predictions are not finite of the expected shape")
+    score = auc(yh, prob)
+    n_trees = booster.num_trees()
+    print(f"wave255 (coarse-to-fine, refine_shift 4): seconds per iteration "
+          f"{statistics.median(iter_s):.4f} (runs "
+          f"{[round(s, 4) for s in iter_s]}), waves per tree {waves}, "
+          f"holdout AUC {score:.5f} (exact path {exact_auc:.5f}), trees "
+          f"{n_trees} x {[t.num_leaves for t in booster.models]} leaves",
+          flush=True)
+    print(f"launches on the c2f path: {counts} (per tree: "
+          f"{ {k: v / n_trees for k, v in counts.items()} })", flush=True)
+    _check_launches(counts, ("multi_histogram", "window_histogram",
+                             "routed_histogram", "lanes_window_histogram",
+                             "leaf_stats", "leaf_lookup"), "c2f")
+    if counts["best_split"] != 0:
+        fail(f"kernel S ran {counts['best_split']} times on the c2f path, "
+             f"whose scans are plain tensor code")
+    if score < exact_auc - 0.02:
+        fail(f"c2f holdout AUC {score} is more than 0.02 below the exact "
+             f"path's {exact_auc}")
+    return counts, dict(seconds_per_iteration=statistics.median(iter_s),
+                        iteration_seconds=iter_s, waves_per_tree=waves,
+                        holdout_auc=score)
+
+
 def _same_trees(a, b, what):
     """Identical splits and leaf values within rtol 1e-5, or fail."""
     if a.num_trees() != b.num_trees() or a.num_trees() != 10:
@@ -643,9 +881,10 @@ def _same_trees(a, b, what):
 
 
 def phase_device_vs_cpu(ltt):
-    """Phase 5: reduced configurations on the card and on the CPU: the
+    """Phase 6: reduced configurations on the card and on the CPU: the
     exact path at 31 leaves, float waves, and quantized two-column waves
-    at 127 leaves (W = 64)."""
+    at 127 leaves (W = 64), each wave kind without and with coarse-to-fine
+    refinement (28 x 256 bins passes its gate)."""
     X, y = make_higgs_shaped(50_000, N_FEATURES, seed=1)
     rng = np.random.RandomState(2)
     X[rng.rand(len(X)) < 0.05, 5] = np.nan      # exercise missing values
@@ -654,6 +893,9 @@ def phase_device_vs_cpu(ltt):
         "float waves": {"num_leaves": 31, "wave_splits": True,
                         "hist_refinement": False},
         "quantized two-column waves": dict(WAVE_PARAMS, num_leaves=127),
+        "float c2f waves": {"num_leaves": 31, "wave_splits": True},
+        "quantized two-column c2f waves": dict(WAVE255_PARAMS,
+                                               num_leaves=127),
     }
     for what, extra in configs.items():
         boosters = {}
@@ -662,6 +904,9 @@ def phase_device_vs_cpu(ltt):
             t0 = time.perf_counter()
             boosters[dev] = ltt.train(p, ltt.Dataset(X, label=y, params=p),
                                       num_boost_round=10)
+            want = 4 if "c2f" in what else 0
+            if boosters[dev]._gbdt.grow_params.refine_shift != want:
+                fail(f"{what}: refine_shift is not {want}")
             print(f"reduced {what} on {dev}: "
                   f"{time.perf_counter() - t0:.2f} s", flush=True)
         a, b = boosters[DEVICE], boosters["cpu"]
@@ -714,42 +959,55 @@ def main():
     # ---- phase 4: wave255 without coarse-to-fine at full width -------
     wave_counts, e2e_wave = phase_wave(torch, ltt, data,
                                        e2e["holdout_auc"])
+    # ---- phase 5: wave255 as it ships, with coarse-to-fine -----------
+    c2f_counts, e2e_c2f = phase_c2f(torch, ltt, data, e2e["holdout_auc"])
     del data
-    # ---- phase 5: device vs cpu --------------------------------------
+    # ---- phase 6: device vs cpu --------------------------------------
     phase_device_vs_cpu(ltt)
 
     # (route, source, the TPU kernel it replaces, the path whose run
-    # gives its launches: kernel H runs on the exact path only, the
-    # others are read from the wave path)
+    # gives its launches and whose shapes its numbers are taken at:
+    # kernel H runs on the exact path only and kernel S on the paths
+    # without c2f; M and R report their coarse mode on the c2f path, with
+    # their full-resolution numbers from the wave path beside them)
     meta = {
-        "histogram": ("cuda", "lightgbm_tpu_torch/csrc/histogram.cu",
+        "histogram": ("lightgbm_tpu_torch/csrc/histogram.cu",
                       "lightgbm_tpu/ops/histogram.py:238", exact_counts),
-        "best_split": ("cuda", "lightgbm_tpu_torch/csrc/split.cu",
+        "best_split": ("lightgbm_tpu_torch/csrc/split.cu",
                        "lightgbm_tpu/ops/split.py:899", wave_counts),
-        "leaf_lookup": ("cuda", "lightgbm_tpu_torch/csrc/lookup.cu",
-                        "lightgbm_tpu/ops/lookup.py:35", wave_counts),
-        "multi_histogram": ("cuda", "lightgbm_tpu_torch/csrc/multi_hist.cu",
+        "leaf_lookup": ("lightgbm_tpu_torch/csrc/lookup.cu",
+                        "lightgbm_tpu/ops/lookup.py:35", c2f_counts),
+        "multi_histogram": ("lightgbm_tpu_torch/csrc/multi_hist.cu",
                             "lightgbm_tpu/ops/histogram.py:396",
-                            wave_counts),
-        "routed_histogram": ("cuda",
-                             "lightgbm_tpu_torch/csrc/routed_hist.cu",
+                            c2f_counts),
+        "routed_histogram": ("lightgbm_tpu_torch/csrc/routed_hist.cu",
                              "lightgbm_tpu/ops/histogram.py:872",
-                             wave_counts),
-        "leaf_stats": ("cuda", "lightgbm_tpu_torch/csrc/leaf_stats.cu",
-                       "lightgbm_tpu/ops/histogram.py:1239", wave_counts),
+                             c2f_counts),
+        "leaf_stats": ("lightgbm_tpu_torch/csrc/leaf_stats.cu",
+                       "lightgbm_tpu/ops/histogram.py:1239", c2f_counts),
+        "window_histogram": ("lightgbm_tpu_torch/csrc/window_hist.cu",
+                             "lightgbm_tpu/ops/histogram.py:628",
+                             c2f_counts),
+        "lanes_window_histogram": ("lightgbm_tpu_torch/csrc/window_hist.cu",
+                                   "lightgbm_tpu/ops/histogram.py:1113",
+                                   c2f_counts),
     }
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     rows = []
-    for name, (route, src, repl, counts) in meta.items():
-        s = stats[name]
-        rows.append({"name": name, "route": route, "source": src,
-                     "replaces": repl, "launches": counts[name],
-                     "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-                     "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                     "bound_by": s["bound_by"],
-                     "library_ms": s["library_ms"]})
+    for name, (src, repl, counts) in meta.items():
+        s = stats.get(f"c2f_{name}", stats.get(name))
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": repl, "launches": counts[name],
+               **{k: s[k] for k in keys}}
+        if f"c2f_{name}" in stats and name in stats:
+            row["full_resolution"] = {"launches": wave_counts[name],
+                                      **{k: stats[name][k] for k in keys}}
+        rows.append(row)
     print(json.dumps({"card": card, "e2e_exact": e2e, "e2e_wave": e2e_wave,
-                      "launches_exact": exact_counts,
-                      "launches_wave": wave_counts}), flush=True)
+                      "e2e_c2f": e2e_c2f, "launches_exact": exact_counts,
+                      "launches_wave": wave_counts,
+                      "launches_c2f": c2f_counts}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

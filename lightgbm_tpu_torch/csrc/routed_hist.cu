@@ -3,8 +3,9 @@
 //
 // Replaces the TPU kernel `histogram_pallas_multi_routed` /
 // `_hist_kernel_multi_routed` with `_routed_parts`
-// (lightgbm_tpu/ops/histogram.py:872, :783, :713) in mode "small" at full
-// resolution (shift 0).  The lane tables are a (5 or 6, W) int32 array:
+// (lightgbm_tpu/ops/histogram.py:872, :783, :713) in mode "small", at full
+// resolution (shift 0) or coarse (shift > 0: the coarse-to-fine wave,
+// :831-836, :932-939).  The lane tables are a (5 or 6, W) int32 array:
 //
 //   row 0: the leaf each lane splits      row 1: its split column
 //   row 2: its threshold bin              row 3: the new (right) leaf id
@@ -29,6 +30,9 @@
 //      caller asks for it;
 //   2. kernel M (`ltt_multi_hist`, multi_hist.cu) over that subset id.
 //
+// Routing always compares FINE bins; only the histogram half collapses
+// them (`shift`, and the missing bin to the reserved last coarse slot).
+//
 // What bounds it on an H100: bytes.  Routing reads the leaf vector and,
 // for the rows of the wave, one bin each (10.5 MB + at most 10.5 MB, plus
 // 10.5 MB of leaf ids and subset ids written at 10.5M rows); the histogram
@@ -42,8 +46,8 @@ extern "C" int ltt_multi_hist(const void* bins, int bin_bytes, const void* sel,
                               int sel_bytes, const void* vals, int val_int8,
                               int val_cols, int two_col, int64_t n,
                               int num_features, int num_bins, int width,
-                              int row_blocks, void* partial, void* out,
-                              void* stream_ptr);
+                              int shift, const void* miss_bin, int row_blocks,
+                              void* partial, void* out, void* stream_ptr);
 
 namespace {
 
@@ -126,15 +130,16 @@ cudaError_t route(const void* bins, const void* leaf_idx, const int32_t* tbl,
 // uint8/int32 with ids < leaf_bound; tables (table_rows, W) int32;
 // miss_bin (F,) int32 or null.  Writes leaf_out (N,) (same type as
 // leaf_idx), lane (N,) int8 scratch, sel_out (N,) int32 when not null, and
-// out (W, F, B, 3) float32 through kernel M.
+// out (W, F, B, 3) float32 through kernel M, B the bin count at `shift`.
 extern "C" int ltt_routed_hist(const void* bins, int bin_bytes,
                                const void* vals, int val_int8, int val_cols,
                                int two_col, const void* leaf_idx,
                                int idx_bytes, const void* tables,
                                int table_rows, const void* miss_bin,
                                int leaf_bound, int64_t n, int num_features,
-                               int num_bins, int width, int route_blocks,
-                               int row_blocks, void* leaf_out, void* lane,
+                               int num_bins, int width, int shift,
+                               int route_blocks, int row_blocks,
+                               void* leaf_out, void* lane,
                                void* sel_out, void* partial, void* out,
                                void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
@@ -167,6 +172,6 @@ extern "C" int ltt_routed_hist(const void* bins, int bin_bytes,
   }
   if (err != cudaSuccess) return (int)err;
   return ltt_multi_hist(bins, bin_bytes, lane, 1, vals, val_int8, val_cols,
-                        two_col, n, num_features, num_bins, width, row_blocks,
-                        partial, out, stream);
+                        two_col, n, num_features, num_bins, width, shift,
+                        miss_bin, row_blocks, partial, out, stream);
 }

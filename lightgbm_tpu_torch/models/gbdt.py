@@ -4,9 +4,10 @@ Counterpart of ``lightgbm_tpu/models/gbdt.py`` for the serial learner:
 ``records_to_tree`` (:38-125, with the quantized renewal and the
 two-column count restore) is copied; the serial subset of the tier
 resolution (:381-418, :491-512: wave growth, two-column passes,
-quantized gradients, the lane width) and one boosting iteration
-(:2245-2310: boost_from_average, gradients, tree build with the tree's
-quantization key, score update) become a plain per-iteration loop.  The
+coarse-to-fine refinement, quantized gradients, the lane width) and one
+boosting iteration (:2245-2310: boost_from_average, gradients, tree build
+with the tree's quantization key, score update) become a plain
+per-iteration loop.  The
 score update is the one the JAX package's pipelined iteration performs,
 from the build's own float32 leaf values (renewed under quantization):
 ``score += leaf_values_final * learning_rate`` gathered by leaf id
@@ -161,13 +162,12 @@ class GBDT:
                        config.min_data_in_leaf <= 1 and
                        config.min_sum_hessian_in_leaf > 0)
         self._counts_proxy = two_col
+        # coarse-to-fine refinement: the JAX package's stream-size gate
+        # (lightgbm_tpu/models/gbdt.py:410-418), unchanged
+        refine_shift = 0
         if (config.hist_refinement and wave_on and self.max_bin >= 48 and
                 F * _pad_bins(self.max_bin) >= 7000):
-            raise NotImplementedError(
-                f"coarse-to-fine refinement (hist_refinement=true with "
-                f"wave_splits at {F} features x {self.max_bin} bins) is not "
-                f"implemented by lightgbm_tpu_torch yet; set "
-                f"hist_refinement=false to run wave growth without it")
+            refine_shift = 4 if self.max_bin > 64 else 3
         quantize = config.num_grad_quant_bins \
             if config.use_quantized_grad else 0
         self.grow_params = GrowParams(
@@ -188,7 +188,8 @@ class GBDT:
             wave=wave_on,
             speculate=min(multi_width(bool(config.use_quantized_grad),
                                       two_col), config.num_leaves)
-            if wave_on else 0)
+            if wave_on else 0,
+            refine_shift=refine_shift)
         # quantization key stream: one fold per dispatched tree
         self._quant_key = prng.prng_key(
             config.data_random_seed & 0x7FFFFFFF) if quantize else None

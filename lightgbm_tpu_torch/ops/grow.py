@@ -16,6 +16,16 @@ the larger child is parent minus smaller, :1120-1132):
   and one kernel-S launch scans all 2W children.  The split chosen for a
   leaf is the same greedy best; only the order is bulk-synchronous.  The
   root comes from the batched pass with one live lane (kernel M, :920).
+- coarse-to-fine wave growth (``GrowParams.refine_shift``, ``wave_body_c2f``
+  :1596-1724): the pool and the routed pass are coarse (fine bins
+  collapsed ``2^shift``-to-1, the missing bin in a reserved last slot);
+  each child then gets a window of ``2 << shift`` fine bins around its
+  best coarse boundary, filled by one or two leaf-vector-routed windowed
+  passes (kernel V-lanes), and the split search scans the coarse
+  boundaries and the window's thresholds (``ops/split.py``
+  ``find_best_split_c2f``, plain tensor code as in the JAX package).  The
+  root is a coarse pass and one windowed pass (kernels M and V); no pass
+  runs at full resolution.
 
 With ``GrowParams.quantize`` the gradients are stochastically rounded to
 integers in ``[-quantize, quantize]`` first (:409-459); histograms sum the
@@ -39,9 +49,11 @@ import dataclasses
 import torch
 
 from ..utils import prng
-from .histogram import (leaf_stats, masked_histogram, multi_histogram,
-                        routed_histogram)
-from .split import NEG_INF, SplitParams, find_best_split, fma32, leaf_output
+from .histogram import (lanes_window_histogram, leaf_stats,
+                        masked_histogram, multi_histogram, routed_histogram,
+                        window_histogram)
+from .split import (NEG_INF, SplitParams, choose_window, find_best_split,
+                    find_best_split_c2f, fma32, leaf_output)
 
 __all__ = ["GrowParams", "build_tree", "quantize_gradients", "row_uniform",
            "route_rows"]
@@ -59,7 +71,8 @@ class GrowParams:
     lanes.  ``two_col``: quantized wave passes sum grad and hess only and
     the count channel is a hess copy (``split.counts_proxy`` must be
     set); legal only under the driver's gate (min_data_in_leaf <= 1,
-    min_sum_hessian_in_leaf > 0)."""
+    min_sum_hessian_in_leaf > 0).  ``refine_shift`` > 0 (wave growth
+    only): coarse-to-fine refinement at that shift."""
     split: SplitParams
     num_leaves: int
     max_depth: int = -1
@@ -67,6 +80,7 @@ class GrowParams:
     two_col: bool = False
     wave: bool = False
     speculate: int = 0
+    refine_shift: int = 0
 
 
 def _pick(t: torch.Tensor, i1: torch.Tensor) -> torch.Tensor:
@@ -109,14 +123,16 @@ def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
     (grad_q, hess_q, hist_scale).  ``key`` is the tree's (2,) uint32
     Threefry key; ``hist_scale`` (3,) dequantizes a histogram (the count
     channel takes the hess scale under ``two_col``, where it is a hess
-    copy).  The divisions are IEEE float32, so the card, the CPU and the
+    copy).  The scales are ``max|v| * f32(1 / quantize)``: the reference's
+    compile turns its division by the constant into that product.  The
+    divisions by a scale are IEEE float32, so the card, the CPU and the
     JAX package round to the same integers."""
     kg, kh = prng.split(key)
-    q = float(quantize)
+    inv_q = (torch.ones((), dtype=torch.float32) / quantize).item()
     g_w = grad * mask
     h_w = hess * mask
-    sg = torch.clamp(g_w.abs().max(), min=1e-30) / q
-    sh = torch.clamp(h_w.abs().max(), min=1e-30) / q
+    sg = torch.clamp(g_w.abs().max(), min=1e-30) * inv_q
+    sh = torch.clamp(h_w.abs().max(), min=1e-30) * inv_q
     n, dev = grad.shape[0], grad.device
     gq = torch.floor(g_w / sg + row_uniform(n, prng.key_word(kg), dev))
     hq = torch.floor(h_w / sh + row_uniform(n, prng.key_word(kh), dev))
@@ -178,16 +194,21 @@ def build_tree(xt: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     }
 
 
+def _depth_limit(b: dict, depth, p: GrowParams) -> dict:
+    """No split where the children would pass ``max_depth``."""
+    if p.max_depth > 0:
+        b["gain"] = torch.where(depth < p.max_depth, b["gain"],
+                                torch.full_like(b["gain"], NEG_INF))
+    return b
+
+
 def _best_splits(hists, stats, depth, num_bins, missing_type, feature_mask,
                  p: GrowParams) -> dict:
     """Best split of each of a batch of leaves (one kernel-S launch on the
     card), no split where the children would pass ``max_depth``."""
     b = find_best_split(hists.contiguous(), stats.contiguous(), num_bins,
                         missing_type, feature_mask, p.split)
-    if p.max_depth > 0:
-        b["gain"] = torch.where(depth < p.max_depth, b["gain"],
-                                torch.full_like(b["gain"], NEG_INF))
-    return b
+    return _depth_limit(b, depth, p)
 
 
 def larger_child(parent: torch.Tensor, raw_small: torch.Tensor,
@@ -343,8 +364,8 @@ def _value_operand(grad, hess, mask, p: GrowParams) -> torch.Tensor:
 
 def _grow_wave(xt, grad, hess, sample_mask, feature_mask, num_bins,
                missing_type, p, hist_scale, li_dtype) -> dict:
-    """Wave growth: ``wave_body`` and ``commit_wave`` (:1293-1339,
-    :1432-1584) under ``wave_cond`` (:1221-1223)."""
+    """Wave growth: ``wave_body`` / ``wave_body_c2f`` and ``commit_wave``
+    (:1293-1339, :1432-1724) under ``wave_cond`` (:1221-1223)."""
     sp = p.split
     L = p.num_leaves
     B = sp.max_bin
@@ -357,6 +378,14 @@ def _grow_wave(xt, grad, hess, sample_mask, feature_mask, num_bins,
                            torch.full_like(num_bins, -1)).to(i32) \
         if sp.any_missing else None
     leaf_bound = 256 if li_dtype == torch.uint8 else L + 1
+    shift = p.refine_shift
+    if shift:
+        # the last coarse slot is reserved for the missing bin, which
+        # value bins (at most B - 2) never reach (:696-706)
+        Bp = ((B - 1) >> shift) + 1 + int(sp.any_missing)
+        R = 2 << shift               # two coarse bins at fine resolution
+    else:
+        Bp = B
 
     def dequant(h):
         return h if hist_scale is None else h * hist_scale
@@ -365,21 +394,37 @@ def _grow_wave(xt, grad, hess, sample_mask, feature_mask, num_bins,
         return _best_splits(hists, stats, depth, num_bins, missing_type,
                             feature_mask, p)
 
+    def scan_c2f(coarse, win, lo, stats, depth):
+        b = find_best_split_c2f(coarse, win, lo, stats, num_bins,
+                                missing_type, feature_mask, sp, shift)
+        return _depth_limit(b, depth, p)
+
+    def window(coarse, stats):
+        return choose_window(coarse, stats, num_bins, missing_type, sp, shift)
+
     leaf_idx = torch.zeros(N, dtype=li_dtype, device=dev)
     root_stats = _root_stats(grad, hess, sample_mask, p.two_col, hist_scale)
-    # the batched pass with one live lane
-    root_hist = dequant(multi_histogram(
-        xt, kvals, torch.zeros(N, dtype=torch.int8, device=dev), B, 1,
-        p.two_col)[0])
-    root_best = scan(root_hist[None], root_stats[None],
-                     torch.zeros(1, dtype=i32, device=dev))
+    zero1 = torch.zeros(1, dtype=i32, device=dev)
+    sel0 = torch.zeros(N, dtype=torch.int8, device=dev)
+    # the batched pass with one live lane: coarse then windowed under
+    # c2f (:908-919), where no pass runs at full resolution
+    root_hist = dequant(multi_histogram(xt, kvals, sel0, Bp, 1, p.two_col,
+                                        shift, miss_bin))
+    if shift:
+        lo0 = window(root_hist, root_stats[None])
+        root_win = dequant(window_histogram(xt, kvals, sel0, lo0, R, 1,
+                                            p.two_col, miss_bin))
+        root_best = scan_c2f(root_hist, root_win, lo0, root_stats[None],
+                             zero1)
+    else:
+        root_best = scan(root_hist, root_stats[None], zero1)
 
     # per-leaf state with a dummy row L: the target of invalid lanes
     def per_leaf(shape, dtype, fill=0):
         return torch.full((L + 1,) + shape, fill, dtype=dtype, device=dev)
 
-    pool = per_leaf((F, B, 3), f32)
-    pool[0] = root_hist
+    pool = per_leaf((F, Bp, 3), f32)     # coarse under c2f (:973-985)
+    pool[0] = root_hist[0]
     leaf_stats_ = per_leaf((3,), f32)
     leaf_stats_[0] = root_stats
     leaf_depth = per_leaf((), i32)
@@ -399,11 +444,6 @@ def _grow_wave(xt, grad, hess, sample_mask, feature_mask, num_bins,
     n_waves = 0
 
     while True:
-        flags = torch.stack([n_leaves.to(f32),
-                             best["gain"][:L].max()]).tolist()
-        if not (flags[0] < L and flags[1] > 0):
-            break
-        n_waves += 1
         t0 = n_leaves.to(i64) - 1          # next free split-record slot
         remaining = (L - 1) - t0
         # top_k order: descending, ties to the lower leaf id
@@ -411,6 +451,13 @@ def _grow_wave(xt, grad, hess, sample_mask, feature_mask, num_bins,
         topg, ids = srt.values[:W], srt.indices[:W]
         # valid lanes form a prefix, so record slots stay contiguous
         valid_w = (topg > 0) & (w_ar < remaining)
+        # the one read of the wave: wave_cond and the live lane count
+        flags = torch.stack([n_leaves.to(f32), best["gain"][:L].max(),
+                             valid_w.sum().to(f32)]).tolist()
+        if not (flags[0] < L and flags[1] > 0):
+            break
+        live = int(flags[2])
+        n_waves += 1
         dummy = torch.full_like(ids, L)
         ids_leaf = torch.where(valid_w, ids, dummy)
         t_j = t0 + w_ar
@@ -430,21 +477,46 @@ def _grow_wave(xt, grad, hess, sample_mask, feature_mask, num_bins,
             rows.append(cw["default_left"])
         tbl = torch.stack([r.to(i32) for r in rows])
         hist_small, leaf_idx, _ = routed_histogram(
-            xt, kvals, leaf_idx, tbl, B, W, p.two_col, miss_bin,
-            leaf_bound=leaf_bound)
+            xt, kvals, leaf_idx, tbl, Bp, W, p.two_col, miss_bin,
+            leaf_bound=leaf_bound, shift=shift)
         hist_large = larger_child(pool.index_select(0, ids), hist_small,
                                   hist_scale)
         hist_small = dequant(hist_small)
         sl4 = small_left_w[:, None, None, None]
         hist_l = torch.where(sl4, hist_small, hist_large)
         hist_r = torch.where(sl4, hist_large, hist_small)
-        ch_hist = torch.cat([hist_l, hist_r])
-        ch_stats = torch.cat([lstat_w, rstat_w])
-        ch_depth = torch.cat([depth_w, depth_w])
-        # all 2W children's best splits in one batched scan
-        bests = scan(ch_hist, ch_stats, ch_depth)
+        if shift:
+            # children interleaved [l0, r0, l1, r1, ...]: live children
+            # form a prefix, so the second windowed group runs only when
+            # more than W/2 lanes are live (:1648-1688)
+            def pair(a, b):
+                return torch.stack([a, b], 1).reshape((2 * W,) + a.shape[1:])
 
-        ch_ids = torch.cat([ids_leaf, new_leaf])
+            ch_ids = pair(ids_leaf, new_leaf)
+            ch_hist = pair(hist_l, hist_r)
+            ch_stats = pair(lstat_w, rstat_w)
+            ch_depth = pair(depth_w, depth_w)
+            win_lo = window(ch_hist, ch_stats)                 # (2W, F)
+            lane_ids = ch_ids.to(i32)
+            groups = [lanes_window_histogram(
+                xt, kvals, leaf_idx, lane_ids[:W], win_lo[:W], R, W,
+                p.two_col, miss_bin, leaf_bound)]
+            if 2 * live > W:
+                groups.append(lanes_window_histogram(
+                    xt, kvals, leaf_idx, lane_ids[W:], win_lo[W:], R, W,
+                    p.two_col, miss_bin, leaf_bound))
+            else:
+                groups.append(torch.zeros_like(groups[0]))
+            win = dequant(torch.cat(groups))
+            bests = scan_c2f(ch_hist, win, win_lo, ch_stats, ch_depth)
+        else:
+            ch_ids = torch.cat([ids_leaf, new_leaf])
+            ch_hist = torch.cat([hist_l, hist_r])
+            ch_stats = torch.cat([lstat_w, rstat_w])
+            ch_depth = torch.cat([depth_w, depth_w])
+            # all 2W children's best splits in one batched scan
+            bests = scan(ch_hist, ch_stats, ch_depth)
+
         pool.index_copy_(0, ch_ids, ch_hist)
         leaf_stats_.index_copy_(0, ch_ids, ch_stats)
         leaf_depth.index_copy_(0, ch_ids, ch_depth)

@@ -10,12 +10,21 @@ PyTorch version beside it:
   :func:`masked_histogram_plain` over :func:`histogram_plain`
   (``histogram_segsum``, :64);
 - ``histogram_pallas_multi`` (:396) -> kernel M (``csrc/multi_hist.cu``)
-  through :func:`multi_histogram`; plain version
-  :func:`multi_histogram_plain` (``histogram_segsum_multi``, :528);
+  through :func:`multi_histogram`, at full resolution or coarse
+  (``shift``, ``miss_bin``); plain version :func:`multi_histogram_plain`
+  (``histogram_segsum_multi``, :528);
 - ``histogram_pallas_multi_routed`` (:872, mode "small") -> kernel R
-  (``csrc/routed_hist.cu``) through :func:`routed_histogram`; plain
-  version :func:`routed_histogram_plain`
+  (``csrc/routed_hist.cu``) through :func:`routed_histogram`, full or
+  coarse; plain version :func:`routed_histogram_plain`
   (``histogram_segsum_multi_routed``, :1013);
+- ``histogram_pallas_multi_win`` (:628) -> kernel V
+  (``csrc/window_hist.cu``) through :func:`window_histogram`; plain
+  version :func:`window_histogram_plain` (``histogram_segsum_multi_win``,
+  :1269);
+- ``histogram_pallas_multi_win_lanes`` (:1113) -> kernel V-lanes
+  (``csrc/window_hist.cu``) through :func:`lanes_window_histogram`; plain
+  version :func:`lanes_window_histogram_plain`
+  (``histogram_segsum_multi_win_lanes``, :1186);
 - ``leaf_stats_pallas`` (:1239) -> kernel Q (``csrc/leaf_stats.cu``)
   through :func:`leaf_stats`; plain version :func:`leaf_stats_plain`
   (the ``histogram(leaf_idx ...)`` fallback,
@@ -36,13 +45,16 @@ from . import kernels
 
 __all__ = ["histogram_plain", "masked_histogram_plain", "masked_histogram",
            "multi_width", "multi_histogram_plain", "multi_histogram",
-           "routed_histogram_plain", "routed_histogram", "leaf_stats_plain",
-           "leaf_stats", "LAUNCHES"]
+           "routed_histogram_plain", "routed_histogram",
+           "window_histogram_plain", "window_histogram",
+           "lanes_window_histogram_plain", "lanes_window_histogram",
+           "leaf_stats_plain", "leaf_stats", "LAUNCHES"]
 
 # kernel launches through the wrappers below, one per call: H
-# (masked_histogram), M (multi_histogram), R (routed_histogram) and Q
-# (leaf_stats)
+# (masked_histogram), M (multi_histogram), R (routed_histogram), V
+# (window_histogram), V-lanes (lanes_window_histogram) and Q (leaf_stats)
 LAUNCHES = {"histogram": 0, "multi_histogram": 0, "routed_histogram": 0,
+            "window_histogram": 0, "lanes_window_histogram": 0,
             "leaf_stats": 0}
 
 _THREADS = 512
@@ -133,7 +145,7 @@ def masked_histogram(bins: torch.Tensor, grad: torch.Tensor,
     return out
 
 
-# ---- batched passes: kernels M and R ----------------------------------
+# ---- batched passes: kernels M, R, V and V-lanes -----------------------
 
 _MULTI_THREADS = 1024
 _MAX_LANES = 64
@@ -147,44 +159,119 @@ def multi_width(quantized: bool, two_col: bool = False) -> int:
     return 42 if quantized else 21
 
 
+def _subset_sums(sel, vals, width, F, nbins, two_col, cell_of):
+    """(W, F, nbins, 3) float32 sums of ``vals`` over the rows with
+    ``sel >= 0``: ``cell_of(f, s, keep)`` gives each kept row's bin in
+    feature ``f``, or ``nbins`` for a row that adds nowhere.  Float64
+    ``index_add_`` (exact on integers), one rounding; with ``two_col``
+    only grad and hess are summed and the count channel is a hess copy."""
+    cols = 2 if two_col else 3
+    keep = torch.nonzero(sel >= 0).squeeze(1)
+    s = sel.index_select(0, keep).to(torch.int64)
+    v = vals[:, :cols].index_select(0, keep).to(torch.float64)
+    slots = nbins + 1
+    out = torch.zeros(width * F * slots, cols, dtype=torch.float64,
+                      device=vals.device)
+    for f in range(F):
+        out.index_add_(0, (s * F + f) * slots + cell_of(f, s, keep), v)
+    out = out.to(torch.float32).reshape(width, F, slots, cols)[:, :, :nbins]
+    if two_col:
+        out = torch.cat([out, out[..., 1:2]], dim=-1)
+    return out.contiguous()
+
+
 def multi_histogram_plain(bins: torch.Tensor, vals: torch.Tensor,
                           sel: torch.Tensor, max_bin: int, width: int,
-                          two_col: bool = False) -> torch.Tensor:
+                          two_col: bool = False, shift: int = 0,
+                          miss_bin=None) -> torch.Tensor:
     """Histograms of ``width`` row-disjoint subsets -> (W, F, B, 3)
     float32 — plain PyTorch.
 
     bins (F, N); vals (N, C) float32 or int8, C >= 3 (C >= 2 with
     ``two_col``); sel (N,) subset id per row, -1 = none.  With
     ``two_col`` only grad and hess are summed and the count channel is a
-    copy of hess.  Sums in float64 (exact on integers), one rounding."""
-    F, _ = bins.shape
-    cols = 2 if two_col else 3
-    keep = torch.nonzero(sel >= 0).squeeze(1)
-    s = sel.index_select(0, keep).to(torch.int64)
-    v = vals[:, :cols].index_select(0, keep).to(torch.float64)
-    out = torch.zeros(width * F * max_bin, cols, dtype=torch.float64,
-                      device=bins.device)
-    for f in range(F):
-        ids = (s * F + f) * max_bin + \
-            bins[f].index_select(0, keep).to(torch.int64)
-        out.index_add_(0, ids, v)
-    out = out.to(torch.float32).reshape(width, F, max_bin, cols)
-    if two_col:
-        out = torch.cat([out, out[..., 1:2]], dim=-1)
-    return out
+    copy of hess.  With ``shift`` > 0 the fine bins collapse
+    ``2^shift``-to-1 and ``max_bin`` is the coarse bin count; ``miss_bin``
+    (F,) int32 (-1 = none, read only with a shift) sends a row at its
+    feature's missing bin to the reserved last coarse slot
+    ``max_bin - 1``.  Sums in float64 (exact on integers), one
+    rounding."""
+    F = bins.shape[0]
+    mb = miss_bin.to(torch.int64) if shift and miss_bin is not None else None
+
+    def cell_of(f, s, keep):
+        b = bins[f].index_select(0, keep).to(torch.int64)
+        if not shift:
+            return b
+        cb = b >> shift
+        return cb if mb is None else torch.where(b == mb[f], max_bin - 1, cb)
+
+    return _subset_sums(sel, vals, width, F, max_bin, two_col, cell_of)
+
+
+def window_histogram_plain(bins: torch.Tensor, vals: torch.Tensor,
+                           sel: torch.Tensor, win_lo: torch.Tensor,
+                           r_bins: int, width: int, two_col: bool = False,
+                           miss_bin=None) -> torch.Tensor:
+    """Windowed histograms of ``width`` row-disjoint subsets -> (W, F, R,
+    3) float32 — plain PyTorch.  Per (subset, feature) only the fine bins
+    in ``[win_lo[s, f], win_lo[s, f] + r_bins)`` count, at relative
+    positions; with ``miss_bin`` (F,) int32 (-1 = none) a row at its
+    feature's missing bin is left out.  Otherwise as
+    :func:`multi_histogram_plain`."""
+    F = bins.shape[0]
+    lo = win_lo.to(torch.int64)
+
+    def cell_of(f, s, keep):
+        b = bins[f].index_select(0, keep).to(torch.int64)
+        rb = b - lo[:, f].index_select(0, s)
+        ok = (rb >= 0) & (rb < r_bins)
+        if miss_bin is not None:
+            ok = ok & (b != miss_bin[f])
+        return torch.where(ok, rb, torch.full_like(rb, r_bins))
+
+    return _subset_sums(sel, vals, width, F, r_bins, two_col, cell_of)
+
+
+def _lanes_of(leaf_idx: torch.Tensor, lane_ids: torch.Tensor,
+              width: int) -> torch.Tensor:
+    """(N,) lane of each row, -1 = none: the lane whose id equals the
+    row's leaf id, compared in int64 (the last matching lane wins)."""
+    li = leaf_idx.to(torch.int64)
+    ids = lane_ids.to(torch.int64)
+    lane = torch.full_like(li, -1)
+    for w in range(width):
+        lane = torch.where(li == ids[w], torch.full_like(lane, w), lane)
+    return lane
+
+
+def lanes_window_histogram_plain(bins: torch.Tensor, vals: torch.Tensor,
+                                 leaf_idx: torch.Tensor,
+                                 lane_ids: torch.Tensor,
+                                 win_lo: torch.Tensor, r_bins: int,
+                                 width: int, two_col: bool = False,
+                                 miss_bin=None) -> torch.Tensor:
+    """:func:`window_histogram_plain` with a row's subset the lane whose
+    child-leaf id ``lane_ids[w]`` equals its leaf id — plain PyTorch."""
+    sel = _lanes_of(leaf_idx, lane_ids, width).to(torch.int32)
+    return window_histogram_plain(bins, vals, sel, win_lo, r_bins, width,
+                                  two_col, miss_bin)
 
 
 def _multi_plan(F: int, n: int, device) -> int:
-    """Row blocks of kernel M: about two blocks per SM over the F feature
-    blocks (one 126-128 KB tile per SM), and at most 2^24 rows a block so
-    an int32 partial of int8 values cannot overflow."""
+    """Row blocks of kernels M, V and V-lanes: about two blocks per SM over
+    the F feature blocks, and at most 2^24 rows a block so an int32
+    partial of int8 values cannot overflow."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     rb = max(1, -(-2 * sms // F))
     rb = min(rb, max(1, -(-n // _MULTI_THREADS)))
     return max(rb, -(-n // (1 << 24)))
 
 
-def _check_multi_inputs(bins, vals, two_col, width, max_bin):
+def _check_multi_inputs(bins, vals, two_col, width, max_bin, *others):
+    """Checks of the batched wrappers: types, shapes, the shared-memory
+    tile of one feature, contiguity and one device for ``bins``, ``vals``
+    and ``others`` (tensors or None)."""
     F, n = bins.shape
     if bins.dtype not in (torch.uint8, torch.int16):
         raise TypeError(f"bins must be uint8/int16, got {bins.dtype}")
@@ -202,38 +289,85 @@ def _check_multi_inputs(bins, vals, two_col, width, max_bin):
                          f"{_SMEM_MAX})")
     if not (bins.is_contiguous() and vals.is_contiguous()):
         raise ValueError("inputs must be contiguous")
+    if any(x is not None and x.device != bins.device
+           for x in (vals,) + others):
+        raise ValueError("all inputs must be on one device")
     return F, n
+
+
+def _check_sel(sel, n):
+    if sel.dtype not in (torch.int32, torch.int8) or sel.shape != (n,) or \
+            not sel.is_contiguous():
+        raise ValueError("sel must be contiguous int32/int8 (N,)")
+
+
+def _check_leaf_idx(leaf_idx, n, leaf_bound):
+    """The leaf vector's checks; returns the bound below every leaf id
+    (256 for uint8)."""
+    if leaf_idx.dtype not in (torch.uint8, torch.int32) or \
+            leaf_idx.shape != (n,) or not leaf_idx.is_contiguous():
+        raise ValueError("leaf_idx must be contiguous uint8/int32 (N,)")
+    if leaf_idx.dtype == torch.uint8:
+        leaf_bound = 256
+    if not 1 <= leaf_bound <= 32768:
+        raise ValueError("leaf_bound must be in [1, 32768]")
+    return leaf_bound
+
+
+def _check_miss_bin(miss_bin, F):
+    """``miss_bin`` contiguous, or None."""
+    if miss_bin is None:
+        return None
+    if miss_bin.dtype != torch.int32 or miss_bin.shape != (F,):
+        raise ValueError(f"miss_bin must be int32 ({F},)")
+    return miss_bin.contiguous()
+
+
+def _check_win_lo(win_lo, width, F):
+    if win_lo.dtype != torch.int32 or win_lo.shape != (width, F):
+        raise ValueError(f"win_lo must be int32 ({width}, {F})")
+    return win_lo.contiguous()
+
+
+def _partial(rb, F, width, nbins, two_col, vals):
+    """Per-row-block partials: int32 for int8 values, float64 else."""
+    return torch.empty(rb * F * width * nbins * (2 if two_col else 3),
+                       dtype=torch.int32 if vals.dtype == torch.int8
+                       else torch.float64, device=vals.device)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def multi_histogram(bins: torch.Tensor, vals: torch.Tensor,
                     sel: torch.Tensor, max_bin: int, width: int,
-                    two_col: bool = False) -> torch.Tensor:
-    """Batched histogram over ``width`` disjoint row subsets, as
-    :func:`multi_histogram_plain`.  CUDA tensors go to kernel M (sel
-    int32 or int8; vals int8 for quantized values, exact, or float32);
-    CPU tensors to the plain version."""
+                    two_col: bool = False, shift: int = 0,
+                    miss_bin=None) -> torch.Tensor:
+    """Batched histogram over ``width`` disjoint row subsets, full or
+    coarse, as :func:`multi_histogram_plain`.  CUDA tensors go to kernel
+    M (sel int32 or int8; vals int8 for quantized values, exact, or
+    float32); CPU tensors to the plain version."""
     if bins.device.type == "cpu":
-        return multi_histogram_plain(bins, vals, sel, max_bin, width, two_col)
-    F, n = _check_multi_inputs(bins, vals, two_col, width, max_bin)
-    if sel.dtype not in (torch.int32, torch.int8) or sel.shape != (n,) or \
-            not sel.is_contiguous():
-        raise ValueError("sel must be contiguous int32/int8 (N,)")
-    if sel.device != bins.device or vals.device != bins.device:
-        raise ValueError("all inputs must be on one device")
+        return multi_histogram_plain(bins, vals, sel, max_bin, width,
+                                     two_col, shift, miss_bin)
+    F, n = _check_multi_inputs(bins, vals, two_col, width, max_bin, sel,
+                               miss_bin)
+    _check_sel(sel, n)
+    mb = _check_miss_bin(miss_bin, F) if shift else None
+    if not 0 <= shift <= 15:
+        raise ValueError("shift must be in [0, 15]")
     lib = kernels.load()
-    cols = 2 if two_col else 3
     rb = _multi_plan(F, n, bins.device)
-    part = torch.empty(rb * F * width * max_bin * cols,
-                       dtype=torch.int32 if vals.dtype == torch.int8
-                       else torch.float64, device=bins.device)
+    part = _partial(rb, F, width, max_bin, two_col, vals)
     out = torch.empty(width, F, max_bin, 3, dtype=torch.float32,
                       device=bins.device)
     stream = torch.cuda.current_stream(bins.device).cuda_stream
     rc = lib.ltt_multi_hist(
         bins.data_ptr(), bins.element_size(), sel.data_ptr(),
         sel.element_size(), vals.data_ptr(), int(vals.dtype == torch.int8),
-        vals.shape[1], int(two_col), n, F, max_bin, width, rb,
-        part.data_ptr(), out.data_ptr(), stream)
+        vals.shape[1], int(two_col), n, F, max_bin, width, shift, _ptr(mb),
+        rb, part.data_ptr(), out.data_ptr(), stream)
     kernels.check(rc, "kernel M (ltt_multi_hist)")
     LAUNCHES["multi_histogram"] += 1
     return out
@@ -242,7 +376,7 @@ def multi_histogram(bins: torch.Tensor, vals: torch.Tensor,
 def routed_histogram_plain(bins: torch.Tensor, vals: torch.Tensor,
                            leaf_idx: torch.Tensor, tables: torch.Tensor,
                            max_bin: int, width: int, two_col: bool = False,
-                           miss_bin=None):
+                           miss_bin=None, shift: int = 0):
     """Route the rows of a wave and histogram the smaller children ->
     (hist (W, F, B, 3), new leaf_idx, sel (N,) int32) — plain PyTorch.
 
@@ -250,14 +384,13 @@ def routed_histogram_plain(bins: torch.Tensor, vals: torch.Tensor,
     new (right) leaf ids, smaller-is-left flags and, in row 5, default
     left; miss_bin (F,) int32 per-feature missing bin (-1 = none) or
     None.  A row at its lane feature's missing bin goes left when the
-    lane's default is left."""
+    lane's default is left.  Routing compares fine bins; with ``shift``
+    the histogram is coarse, as :func:`multi_histogram_plain`'s."""
     W = width
     t = tables.to(torch.int64)
-    ids, colw, thrw, neww, slw = (t[k, :W] for k in range(5))
+    colw, thrw, neww, slw = (t[k, :W] for k in range(1, 5))
     li = leaf_idx.to(torch.int64)
-    lane = torch.full_like(li, -1)
-    for w in range(W):                    # the last matching lane wins
-        lane = torch.where(li == ids[w], torch.full_like(lane, w), lane)
+    lane = _lanes_of(leaf_idx, tables[0], W)
     in_wave = lane >= 0
     safe = lane.clamp(min=0)
     col_id = colw[safe]
@@ -272,7 +405,8 @@ def routed_histogram_plain(bins: torch.Tensor, vals: torch.Tensor,
     to_small = gl == (slw[safe] > 0)
     sel = torch.where(in_wave & to_small, lane,
                       torch.full_like(lane, -1)).to(torch.int32)
-    hist = multi_histogram_plain(bins, vals, sel, max_bin, width, two_col)
+    hist = multi_histogram_plain(bins, vals, sel, max_bin, width, two_col,
+                                 shift, miss_bin)
     return hist, li_new, sel
 
 
@@ -280,7 +414,7 @@ def routed_histogram(bins: torch.Tensor, vals: torch.Tensor,
                      leaf_idx: torch.Tensor, tables: torch.Tensor,
                      max_bin: int, width: int, two_col: bool = False,
                      miss_bin=None, want_sel: bool = False,
-                     leaf_bound: int = 256):
+                     leaf_bound: int = 256, shift: int = 0):
     """As :func:`routed_histogram_plain`.  CUDA tensors go to kernel R
     (a routing launch, then kernel M over its one-byte subset ids); the
     int32 ``sel`` is written only with ``want_sel`` (None otherwise).
@@ -288,53 +422,109 @@ def routed_histogram(bins: torch.Tensor, vals: torch.Tensor,
     CPU tensors go to the plain version, which always returns ``sel``."""
     if bins.device.type == "cpu":
         return routed_histogram_plain(bins, vals, leaf_idx, tables, max_bin,
-                                      width, two_col, miss_bin)
-    F, n = _check_multi_inputs(bins, vals, two_col, width, max_bin)
-    if leaf_idx.dtype not in (torch.uint8, torch.int32) or \
-            leaf_idx.shape != (n,) or not leaf_idx.is_contiguous():
-        raise ValueError("leaf_idx must be contiguous uint8/int32 (N,)")
+                                      width, two_col, miss_bin, shift)
+    F, n = _check_multi_inputs(bins, vals, two_col, width, max_bin, leaf_idx,
+                               tables, miss_bin)
+    leaf_bound = _check_leaf_idx(leaf_idx, n, leaf_bound)
     if tables.dtype != torch.int32 or tables.dim() != 2 or \
             tables.shape[0] not in (5, 6) or tables.shape[1] != width:
         raise ValueError(f"tables must be int32 (5 or 6, {width})")
-    if leaf_idx.dtype == torch.uint8:
-        leaf_bound = 256
-    if not 1 <= leaf_bound <= 32768:
-        raise ValueError("leaf_bound must be in [1, 32768]")
-    if miss_bin is not None and (miss_bin.dtype != torch.int32 or
-                                 miss_bin.shape != (F,)):
-        raise ValueError(f"miss_bin must be int32 ({F},)")
+    mb = _check_miss_bin(miss_bin, F)
     if F > 2048:
         raise ValueError("kernel R routes at most 2048 features")
-    ins = (vals, leaf_idx, tables) + (() if miss_bin is None else (miss_bin,))
-    if any(x.device != bins.device for x in ins):
-        raise ValueError("all inputs must be on one device")
+    if not 0 <= shift <= 15:
+        raise ValueError("shift must be in [0, 15]")
     lib = kernels.load()
     dev = bins.device
     tables = tables.contiguous()
-    mb = None if miss_bin is None else miss_bin.contiguous()
-    cols = 2 if two_col else 3
     rb = _multi_plan(F, n, dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     route_blocks = max(1, min(8 * sms, -(-n // 256)))
     leaf_out = torch.empty_like(leaf_idx)
     lane = torch.empty(n, dtype=torch.int8, device=dev)
     sel = torch.empty(n, dtype=torch.int32, device=dev) if want_sel else None
-    part = torch.empty(rb * F * width * max_bin * cols,
-                       dtype=torch.int32 if vals.dtype == torch.int8
-                       else torch.float64, device=dev)
+    part = _partial(rb, F, width, max_bin, two_col, vals)
     out = torch.empty(width, F, max_bin, 3, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.ltt_routed_hist(
         bins.data_ptr(), bins.element_size(), vals.data_ptr(),
         int(vals.dtype == torch.int8), vals.shape[1], int(two_col),
         leaf_idx.data_ptr(), leaf_idx.element_size(), tables.data_ptr(),
-        tables.shape[0], None if mb is None else mb.data_ptr(), leaf_bound,
-        n, F, max_bin, width, route_blocks, rb, leaf_out.data_ptr(),
-        lane.data_ptr(), None if sel is None else sel.data_ptr(),
+        tables.shape[0], _ptr(mb), leaf_bound, n, F, max_bin, width, shift,
+        route_blocks, rb, leaf_out.data_ptr(), lane.data_ptr(), _ptr(sel),
         part.data_ptr(), out.data_ptr(), stream)
     kernels.check(rc, "kernel R (ltt_routed_hist)")
     LAUNCHES["routed_histogram"] += 1
     return out, leaf_out, sel
+
+
+def window_histogram(bins: torch.Tensor, vals: torch.Tensor,
+                     sel: torch.Tensor, win_lo: torch.Tensor, r_bins: int,
+                     width: int, two_col: bool = False,
+                     miss_bin=None) -> torch.Tensor:
+    """Windowed batched histogram, as :func:`window_histogram_plain`.
+    CUDA tensors go to kernel V (sel int32 or int8, win_lo int32 (W, F));
+    CPU tensors to the plain version."""
+    if bins.device.type == "cpu":
+        return window_histogram_plain(bins, vals, sel, win_lo, r_bins, width,
+                                      two_col, miss_bin)
+    F, n = _check_multi_inputs(bins, vals, two_col, width, r_bins, sel,
+                               win_lo, miss_bin)
+    _check_sel(sel, n)
+    lo = _check_win_lo(win_lo, width, F)
+    mb = _check_miss_bin(miss_bin, F)
+    lib = kernels.load()
+    rb = _multi_plan(F, n, bins.device)
+    part = _partial(rb, F, width, r_bins, two_col, vals)
+    out = torch.empty(width, F, r_bins, 3, dtype=torch.float32,
+                      device=bins.device)
+    stream = torch.cuda.current_stream(bins.device).cuda_stream
+    rc = lib.ltt_window_hist(
+        bins.data_ptr(), bins.element_size(), sel.data_ptr(),
+        sel.element_size(), vals.data_ptr(), int(vals.dtype == torch.int8),
+        vals.shape[1], int(two_col), lo.data_ptr(), _ptr(mb), n, F, r_bins,
+        width, rb, part.data_ptr(), out.data_ptr(), stream)
+    kernels.check(rc, "kernel V (ltt_window_hist)")
+    LAUNCHES["window_histogram"] += 1
+    return out
+
+
+def lanes_window_histogram(bins: torch.Tensor, vals: torch.Tensor,
+                           leaf_idx: torch.Tensor, lane_ids: torch.Tensor,
+                           win_lo: torch.Tensor, r_bins: int, width: int,
+                           two_col: bool = False, miss_bin=None,
+                           leaf_bound: int = 256) -> torch.Tensor:
+    """Windowed batched histogram with lanes from the leaf vector, as
+    :func:`lanes_window_histogram_plain`.  CUDA tensors go to kernel
+    V-lanes (leaf_idx uint8/int32 with every id below ``leaf_bound``, 256
+    for uint8; lane_ids int32 (W,)); CPU tensors to the plain version."""
+    if bins.device.type == "cpu":
+        return lanes_window_histogram_plain(bins, vals, leaf_idx, lane_ids,
+                                            win_lo, r_bins, width, two_col,
+                                            miss_bin)
+    F, n = _check_multi_inputs(bins, vals, two_col, width, r_bins, leaf_idx,
+                               lane_ids, win_lo, miss_bin)
+    leaf_bound = _check_leaf_idx(leaf_idx, n, leaf_bound)
+    if lane_ids.dtype != torch.int32 or lane_ids.shape != (width,):
+        raise ValueError(f"lane_ids must be int32 ({width},)")
+    ids = lane_ids.contiguous()
+    lo = _check_win_lo(win_lo, width, F)
+    mb = _check_miss_bin(miss_bin, F)
+    lib = kernels.load()
+    rb = _multi_plan(F, n, bins.device)
+    part = _partial(rb, F, width, r_bins, two_col, vals)
+    out = torch.empty(width, F, r_bins, 3, dtype=torch.float32,
+                      device=bins.device)
+    stream = torch.cuda.current_stream(bins.device).cuda_stream
+    rc = lib.ltt_lanes_window_hist(
+        bins.data_ptr(), bins.element_size(), leaf_idx.data_ptr(),
+        leaf_idx.element_size(), ids.data_ptr(), leaf_bound, vals.data_ptr(),
+        int(vals.dtype == torch.int8), vals.shape[1], int(two_col),
+        lo.data_ptr(), _ptr(mb), n, F, r_bins, width, rb, part.data_ptr(),
+        out.data_ptr(), stream)
+    kernels.check(rc, "kernel V-lanes (ltt_lanes_window_hist)")
+    LAUNCHES["lanes_window_histogram"] += 1
+    return out
 
 
 # ---- leaf renewal sums: kernel Q ---------------------------------------

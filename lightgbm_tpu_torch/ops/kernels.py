@@ -24,11 +24,13 @@ import time
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["load", "build_info", "SOURCES"]
+__all__ = ["load", "build_info", "SOURCES", "HEADERS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("histogram.cu", "split.cu", "lookup.cu", "multi_hist.cu",
-           "routed_hist.cu", "leaf_stats.cu")
+           "routed_hist.cu", "leaf_stats.cu", "window_hist.cu")
+# included by the sources above; part of the library's hash
+HEADERS = ("subset_hist.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -48,10 +50,15 @@ _SIGNATURES = {
                        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "ltt_leaf_add": [_P, _I, _P, _I, _P, _I64, _I, _P],
     "ltt_multi_hist": [_P, _I, _P, _I, _P, _I, _I, _I, _I64, _I, _I, _I, _I,
-                       _P, _P, _P],
+                       _P, _I, _P, _P, _P],
     "ltt_routed_hist": [_P, _I, _P, _I, _I, _I, _P, _I, _P, _I, _P, _I,
-                        _I64, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+                        _I64, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                        _P],
     "ltt_leaf_stats": [_P, _I, _P, _P, _P, _I64, _I, _I, _P, _P, _P],
+    "ltt_window_hist": [_P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _I64, _I,
+                        _I, _I, _I, _P, _P, _P],
+    "ltt_lanes_window_hist": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P,
+                              _P, _I64, _I, _I, _I, _I, _P, _P, _P],
 }
 
 
@@ -112,7 +119,7 @@ def load() -> ctypes.CDLL:
     if _LIB is not None:
         return _LIB
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update((CSRC / src).read_bytes())
     out = _build_dir() / f"libltt_kernels_{h.hexdigest()[:16]}.so"
     t0 = time.perf_counter()

@@ -30,7 +30,8 @@ from . import kernels
 
 __all__ = ["EPS", "NEG_INF", "SplitParams", "leaf_output", "leaf_gain",
            "lane_scalars", "prefix_sum", "find_best_split_plain",
-           "find_best_split", "LAUNCHES"]
+           "find_best_split", "choose_window", "find_best_split_c2f",
+           "LAUNCHES"]
 
 EPS = 1e-15
 NEG_INF = -1e30
@@ -149,6 +150,47 @@ def prefix_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     return out.reshape(x.shape)[..., :n].movedim(-1, dim)
 
 
+def _scan_gains(L, pst, gshift, ok, p: SplitParams, fuse_first: bool):
+    """Net gains of the candidates whose left side is ``L`` (..., 3):
+    ``parent - L`` on the right, NEG_INF where ``ok`` is false or a side
+    fails min_data / min_sum_hessian.  ``fuse_first``: which product of
+    the gain the multiply-add takes (:func:`_gain_given_output`)."""
+    R = pst - L
+    g = _split_gain(L[..., 0], L[..., 1] + EPS, R[..., 0], R[..., 1] + EPS,
+                    p.lambda_l1, p.lambda_l2, p.max_delta_step,
+                    fuse_first=fuse_first) - gshift
+    msh = p.min_sum_hessian_in_leaf
+    if p.counts_proxy:
+        hmin = max(msh, EPS)
+        ok = ok & (L[..., 1] >= hmin) & (R[..., 1] >= hmin)
+    else:
+        md = max(p.min_data_in_leaf, 1)
+        ok = ok & (L[..., 2] >= md) & (R[..., 2] >= md) & \
+            (L[..., 1] >= msh) & (R[..., 1] >= msh)
+    return torch.where(ok, g, torch.full_like(g, NEG_INF))
+
+
+def _scan_both(cum, miss, no_miss, pst, gshift, ok, p: SplitParams,
+               left_fuse_first: bool = False):
+    """Both default directions over prefix stats ``cum`` (W, F, K, 3)
+    -> (gain, left stats, default left), each per candidate.  ``miss``
+    (W, F, 3) holds the missing bin's stats (None without missing
+    values); default left is scanned only where the leaf has missing
+    rows (``~no_miss``) and wins only when strictly better.  The
+    default-right gains fuse their first product; the default-left ones
+    the first with ``left_fuse_first``, else the second — the
+    contractions of the reference's CPU compile of each scan."""
+    g_r = _scan_gains(cum, pst, gshift, ok, p, fuse_first=True)
+    if miss is None:
+        return g_r, cum, torch.zeros_like(g_r, dtype=torch.bool)
+    L_l = cum + miss[:, :, None, :]
+    g_l = _scan_gains(L_l, pst, gshift, ok, p, fuse_first=left_fuse_first)
+    g_l = torch.where(no_miss[..., None], torch.full_like(g_l, NEG_INF), g_l)
+    dirl = g_l > g_r
+    return (torch.where(dirl, g_l, g_r),
+            torch.where(dirl[..., None], L_l, cum), dirl)
+
+
 def _empty_record(W, B, device):
     return {
         "gain": torch.empty(W, dtype=torch.float32, device=device),
@@ -173,76 +215,165 @@ def find_best_split_plain(hist: torch.Tensor, parent: torch.Tensor,
     min_gain_to_split, <= 0 meaning "do not split"."""
     W, F, B, _ = hist.shape
     dev = hist.device
-    l1, l2, mds = p.lambda_l1, p.lambda_l2, p.max_delta_step
     lane = lane_scalars(parent, p)
     pst = lane[:, None, None, :3]                          # (W,1,1,3)
     gshift = lane[:, 3][:, None, None]                     # (W,1,1)
     nb = num_bins.to(torch.int64)
     jidx = torch.arange(B, device=dev)
-    if p.any_missing:
-        has_missing = missing_type != 0
-        nv = nb - has_missing.to(torch.int64)
-    else:
-        has_missing = torch.zeros(F, dtype=torch.bool, device=dev)
-        nv = nb
+    nv, has_missing = _nv_missing(num_bins, missing_type, p)
     in_value = jidx[None, :] < nv[:, None]                 # (F, B)
     hv = hist * in_value[None, :, :, None].to(hist.dtype)
     cum = prefix_sum(hv, dim=2)
-    cand_ok = jidx[None, :] <= nv[:, None] - 2             # (F, B)
-    md = max(p.min_data_in_leaf, 1)
-    msh = p.min_sum_hessian_in_leaf
-
-    def scan_dir(L, left=False):
-        R = pst - L
-        g = _split_gain(L[..., 0], L[..., 1] + EPS, R[..., 0],
-                        R[..., 1] + EPS, l1, l2, mds,
-                        fuse_first=not left) - gshift
-        if p.counts_proxy:
-            hmin = max(msh, EPS)
-            ok = cand_ok[None] & (L[..., 1] >= hmin) & (R[..., 1] >= hmin)
-        else:
-            ok = cand_ok[None] & (L[..., 2] >= md) & (R[..., 2] >= md) & \
-                (L[..., 1] >= msh) & (R[..., 1] >= msh)
-        return torch.where(ok, g, torch.full_like(g, NEG_INF))
-
-    g_r = scan_dir(cum)
+    cand_ok = (jidx[None, :] <= nv[:, None] - 2)[None]     # (1, F, B)
+    miss = no_miss = None
     if p.any_missing:
         miss = hist[:, torch.arange(F, device=dev), nb - 1, :] * \
             has_missing[None, :, None].to(hist.dtype)        # (W, F, 3)
-        L_l = cum + miss[:, :, None, :]
-        g_l = scan_dir(L_l, left=True)
         no_miss = miss[..., 2] <= 0                          # (W, F)
-        g_l = torch.where(no_miss[..., None], torch.full_like(g_l, NEG_INF),
-                          g_l)
-        dirl = g_l > g_r
-        gain = torch.where(dirl, g_l, g_r)
-        L_win = torch.where(dirl[..., None], L_l, cum)
-    else:
-        dirl = torch.zeros_like(g_r, dtype=torch.bool)
-        gain = g_r
-        L_win = cum
+    gain, L_win, dirl = _scan_both(cum, miss, no_miss, pst, gshift, cand_ok,
+                                   p)
+    return _record(gain, L_win, dirl, jidx.expand(W, F, B), num_bins,
+                   has_missing, feature_mask, B)
+
+
+def _record(gain, L, dirl, thr, num_bins, has_missing, feature_mask,
+            B: int) -> dict:
+    """The split record of the best candidate of each leaf: candidates
+    (W, F, K) with their gains, left stats, default directions and
+    threshold bins; the first maximum over candidates, then over
+    features.  The left mask holds the value bins up to the threshold
+    and, for a default-left split, the feature's missing bin."""
+    W, F, _ = gain.shape
+    dev = gain.device
     gain = torch.where(feature_mask[None, :, None], gain,
                        torch.full_like(gain, NEG_INF))
-    best_pf, best_j = torch.max(gain, dim=2)               # first max
+    best_pf, best_k = torch.max(gain, dim=2)               # first max
     f_star = torch.argmax(best_pf, dim=1)                  # (W,) first max
     w_idx = torch.arange(W, device=dev)
-    j_star = best_j[w_idx, f_star]
-    dl = dirl[w_idx, f_star, j_star]
-    nb_f = nb[f_star]
-    nv_f = nv[f_star]
+    k_star = best_k[w_idx, f_star]
+    j_star = thr[w_idx, f_star, k_star].to(torch.int64)
+    dl = dirl[w_idx, f_star, k_star]
+    nb_f = num_bins.to(torch.int64)[f_star]
+    hm_f = has_missing[f_star]
+    jidx = torch.arange(B, device=dev)
     left_mask = (jidx[None, :] <= j_star[:, None]) & \
-        (jidx[None, :] < nv_f[:, None])
-    if p.any_missing:
-        left_mask = left_mask | (dl[:, None] & has_missing[f_star][:, None] &
-                                 (jidx[None, :] == nb_f[:, None] - 1))
+        (jidx[None, :] < (nb_f - hm_f.to(torch.int64))[:, None])
+    left_mask = left_mask | (dl[:, None] & hm_f[:, None] &
+                             (jidx[None, :] == nb_f[:, None] - 1))
     return {
         "gain": best_pf[w_idx, f_star],
         "feature": f_star.to(torch.int32),
         "threshold": j_star.to(torch.int32),
         "default_left": dl,
-        "left_stats": L_win[w_idx, f_star, j_star],
+        "left_stats": L[w_idx, f_star, k_star],
         "left_mask": left_mask,
     }
+
+
+# ---- coarse-to-fine split search --------------------------------------
+#
+# The c2f scans of ``lightgbm_tpu/ops/split.py:355-550``, batched over a
+# leading dimension of leaves where the JAX package vmaps one leaf.  They
+# are XLA there, not Pallas, so plain tensor code is their port.  A leaf's
+# coarse histogram (F, Bc, 3) holds the fine bins collapsed 2^shift-to-1,
+# with the LAST slot reserved for the feature's missing bin when the
+# dataset has missing values; its window (F, R, 3) holds the R = 2 << shift
+# fine bins from ``win_lo[f]`` on.  Candidates are the coarse boundaries
+# and the fine thresholds inside the window.
+
+
+def _c2f_miss(coarse, missing_type, p: SplitParams):
+    """(value slots (W, F, Bcv, 3), missing-bin stats (W, F, 3) or None,
+    no missing rows (W, F) or None) of coarse histograms (W, F, Bc, 3)
+    (``_c2f_miss``, :373-388); under the counts proxy ``no_miss`` reads
+    the hess copy, as every count test does."""
+    if not p.any_missing:
+        return coarse, None, None
+    has = (missing_type != 0).to(coarse.dtype)
+    miss = coarse[:, :, -1, :] * has[None, :, None]
+    return coarse[:, :, :-1, :], miss, miss[..., 2] <= 0
+
+
+def _nv_missing(num_bins, missing_type, p: SplitParams):
+    """(value bins, has a missing bin) per feature."""
+    if p.any_missing:
+        has = missing_type != 0
+        return num_bins.to(torch.int64) - has.to(torch.int64), has
+    return num_bins.to(torch.int64), torch.zeros_like(num_bins,
+                                                      dtype=torch.bool)
+
+
+def _c2f_coarse_scan(coarse, parent, num_bins, missing_type,
+                     p: SplitParams, shift: int):
+    """Gains at the coarse boundaries (``_c2f_coarse_scan``, :391-432) ->
+    (gains (W, F, Bcv), left stats (W, F, Bcv, 3), fine thresholds
+    (Bcv,), default left (W, F, Bcv)); boundary ``c`` is the fine
+    threshold ``((c + 1) << shift) - 1``."""
+    lane = lane_scalars(parent, p)
+    pst = lane[:, None, None, :3]
+    gshift = lane[:, 3][:, None, None]
+    vals, miss, no_miss = _c2f_miss(coarse, missing_type, p)
+    Bcv = vals.shape[2]
+    nv, _ = _nv_missing(num_bins, missing_type, p)
+    thr = ((torch.arange(Bcv, device=coarse.device) + 1) << shift) - 1
+    ok = (thr[None, :] <= nv[:, None] - 2)[None]
+    g, L, dirl = _scan_both(prefix_sum(vals, dim=2), miss, no_miss, pst,
+                            gshift, ok, p, left_fuse_first=True)
+    return g, L, thr, dirl
+
+
+def choose_window(coarse: torch.Tensor, parent: torch.Tensor,
+                  num_bins: torch.Tensor, missing_type: torch.Tensor,
+                  p: SplitParams, shift: int) -> torch.Tensor:
+    """Refine-window starts (W, F) int32, fine-bin ids aligned to coarse
+    bins: the two coarse bins straddling each feature's best coarse
+    boundary (``choose_window``, :435-447)."""
+    g, _, _, _ = _c2f_coarse_scan(coarse, parent, num_bins, missing_type, p,
+                                  shift)
+    c_star = torch.argmax(g, dim=2)                        # first max
+    win_c = c_star.clamp(0, max(g.shape[2] - 2, 0))
+    return (win_c << shift).to(torch.int32)
+
+
+def find_best_split_c2f(coarse: torch.Tensor, win: torch.Tensor,
+                        win_lo: torch.Tensor, parent: torch.Tensor,
+                        num_bins: torch.Tensor, missing_type: torch.Tensor,
+                        feature_mask: torch.Tensor, p: SplitParams,
+                        shift: int) -> dict:
+    """Best split of each of a batch of W leaves from its coarse
+    histogram and refine window (``find_best_split_c2f``, :450-550).
+
+    coarse (W, F, Bc, 3), win (W, F, R, 3) dequantized; win_lo (W, F)
+    int32; parent (W, 3).  The record is :func:`find_best_split_plain`'s.
+    A fine threshold's left side is the coarse prefix before the window
+    plus the window's own prefix; the candidates are the coarse
+    boundaries, then the window's thresholds, and the first maximum wins,
+    so a threshold in both halves is taken from the coarse one on a tie.
+    """
+    W, F, R, _ = win.shape
+    g_c, L_c, thr_c, dirl_c = _c2f_coarse_scan(coarse, parent, num_bins,
+                                               missing_type, p, shift)
+    lane = lane_scalars(parent, p)
+    pst = lane[:, None, None, :3]
+    gshift = lane[:, 3][:, None, None]
+    vals_c, miss, no_miss = _c2f_miss(coarse, missing_type, p)
+    nv, has_missing = _nv_missing(num_bins, missing_type, p)
+    cum_c = prefix_sum(vals_c, dim=2)
+    cpad = torch.cat([cum_c.new_zeros(W, F, 1, 3), cum_c], dim=2)
+    win_c0 = (win_lo.to(torch.int64) >> shift)[..., None, None]
+    base = cpad.gather(2, win_c0.expand(W, F, 1, 3))       # (W, F, 1, 3)
+    Lf_base = base + prefix_sum(win, dim=2)
+    thr_f = win_lo.to(torch.int64)[..., None] + \
+        torch.arange(R, device=win.device)                  # (W, F, R)
+    ok_f = thr_f <= nv[None, :, None] - 2
+    g_f, L_f, dirl_f = _scan_both(
+        Lf_base, miss, no_miss, pst, gshift, ok_f, p,
+        left_fuse_first=not (p.counts_proxy and R > _CHUNK))
+    Bcv = g_c.shape[2]
+    return _record(torch.cat([g_c, g_f], dim=2), torch.cat([L_c, L_f], dim=2),
+                   torch.cat([dirl_c, dirl_f], dim=2),
+                   torch.cat([thr_c.expand(W, F, Bcv), thr_f], dim=2),
+                   num_bins, has_missing, feature_mask, p.max_bin)
 
 
 def find_best_split(hist: torch.Tensor, parent: torch.Tensor,

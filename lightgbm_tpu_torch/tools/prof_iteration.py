@@ -2,13 +2,15 @@
 
 Run from the root of a checkout on a machine with one NVIDIA card:
 
-    python3 -m lightgbm_tpu_torch.tools.prof_iteration [--rows N] [--wave]
+    python3 -m lightgbm_tpu_torch.tools.prof_iteration [--rows N]
+        [--wave [--no-c2f]]
 
 It trains the configuration ``chip_smoke.py`` drives at full width
 (10.5M x 28, num_leaves=255, max_bin=255; data from the same generator):
-the exact path, or with ``--wave`` the wave path (bench.py's wave255:
-wave growth with quantized two-column passes, hist_refinement=false),
-and reports, after one warm-up iteration:
+the exact path, or with ``--wave`` bench.py's wave255 as it ships (wave
+growth with quantized two-column passes and coarse-to-fine refinement),
+with ``--wave --no-c2f`` the same with hist_refinement=false, and
+reports, after one warm-up iteration:
 
 - ``iteration_s``: host clock around ``Booster.update()`` ending in a
   synchronise (median of 3);
@@ -17,7 +19,8 @@ and reports, after one warm-up iteration:
   (Python and launch overhead) sets the pace and the card waits;
 - from ``torch.profiler`` over one more iteration: the device's busy time
   (the union of kernel intervals), its idle share of the iteration's
-  wall time, kernel launches, and device time by kernel name.
+  wall time, kernel launches, and device time by kernel name (the
+  shared histogram body of kernels M, V and V-lanes by kernel).
 
 The JSON is the last line of standard output.  Without a card it exits
 non-zero.
@@ -35,9 +38,23 @@ ROOT = Path(__file__).resolve().parents[2]
 
 # kernels of this package, by the name of their __global__ function
 OWN_KERNELS = ("hist_masked_kernel", "hist_reduce_kernel", "split_scan_kernel",
-               "split_finish_kernel", "leaf_add_kernel", "multi_hist_kernel",
-               "multi_reduce_kernel", "route_kernel",
+               "split_finish_kernel", "leaf_add_kernel", "subset_hist_kernel",
+               "subset_reduce_kernel", "route_kernel",
                "leaf_stats_reduce_kernel", "leaf_stats_kernel")
+# the shared body's instantiations, by their policies (subset_hist.cuh)
+SUBSET_KINDS = (("LaneMember", "V-lanes"), ("WindowMap", "V"),
+                ("CoarseMap", "M"))
+
+
+def _key(name: str):
+    """(row name, one of this package's kernels)."""
+    own = next((k for k in OWN_KERNELS if k in name), None)
+    if own is None:
+        return name[:80], False
+    if own == "subset_hist_kernel":
+        kind = next(v for k, v in SUBSET_KINDS if k in name)
+        return f"{own} [{kind}]", True
+    return own, True
 
 
 def _kernel_table(prof, torch):
@@ -48,9 +65,8 @@ def _kernel_table(prof, torch):
             continue
         start, end = evt.time_range.start, evt.time_range.end
         spans.append((start, end))
-        own = next((k for k in OWN_KERNELS if k in evt.name), None)
-        key = own or evt.name[:80]
-        row = by_name.setdefault(key, {"name": key, "own": own is not None,
+        key, own = _key(evt.name)
+        row = by_name.setdefault(key, {"name": key, "own": own,
                                        "launches": 0, "us": 0.0})
         row["launches"] += 1
         row["us"] += end - start
@@ -73,7 +89,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=10_500_000)
     ap.add_argument("--wave", action="store_true",
-                    help="profile the wave path (wave255 without c2f)")
+                    help="profile the wave path (wave255 as it ships)")
+    ap.add_argument("--no-c2f", action="store_true",
+                    help="with --wave: hist_refinement=false")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import torch
@@ -90,7 +108,8 @@ def main(argv=None) -> int:
                                         seed=0)
     params = dict(chip_smoke.TRAIN_PARAMS, device_type="cuda")
     if args.wave:
-        params.update(chip_smoke.WAVE_PARAMS)
+        params.update(chip_smoke.WAVE_PARAMS if args.no_c2f
+                      else chip_smoke.WAVE255_PARAMS)
     booster = ltt.Booster(params=params,
                           train_set=ltt.Dataset(X, label=y, params=params))
     del X
@@ -125,7 +144,9 @@ def main(argv=None) -> int:
     own_us = sum(r["us"] for r in rows if r["own"])
     out = {
         "card": card, "rows": args.rows,
-        "path": "wave" if args.wave else "exact",
+        "path": ("wave-noc2f" if args.no_c2f else "wave-c2f")
+        if args.wave else "exact",
+        "refine_shift": g.grow_params.refine_shift,
         "iteration_s": statistics.median(iters), "iteration_runs_s": iters,
         "enqueue_s": enqueue_s, "tree_s": tree_s,
         "profiled_iteration_s": prof_wall_s,

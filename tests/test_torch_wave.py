@@ -1,6 +1,7 @@
 """Wave growth: the JAX package's wave loop vs the port's, on the CPU.
 
-``lightgbm_tpu.ops.grow.build_tree_impl`` with ``wave=True`` runs the
+``lightgbm_tpu.ops.grow.build_tree`` (``build_tree_impl`` compiled
+whole, as the training path runs it) with ``wave=True`` runs the
 segsum histograms and the XLA split scan; the port's ``build_tree`` runs
 its plain versions (the routed pass routes the rows, kernel M's plain
 version builds the root).  Then ``ltt.train`` against ``lgb.train`` with
@@ -52,7 +53,7 @@ import torch  # noqa: E402
 import lightgbm_tpu as lgb  # noqa: E402
 import lightgbm_tpu_torch as ltt  # noqa: E402
 from lightgbm_tpu.ops.grow import GrowParams as JGrowParams  # noqa: E402
-from lightgbm_tpu.ops.grow import build_tree_impl  # noqa: E402
+from lightgbm_tpu.ops.grow import build_tree as jax_build_tree  # noqa: E402
 from lightgbm_tpu.ops.split import SplitParams as JSplitParams  # noqa: E402
 from lightgbm_tpu_torch.ops.grow import GrowParams, build_tree  # noqa: E402
 from lightgbm_tpu_torch.ops.split import SplitParams  # noqa: E402
@@ -90,11 +91,11 @@ def _both(L, W, with_missing, quantize=0, two_col=False):
     jp = JGrowParams(split=JSplitParams(any_cat=False, **kw), num_leaves=L,
                      hist_impl="segsum", wave=True, speculate=W,
                      quantize=quantize, two_col=two_col)
-    ref = build_tree_impl(jnp.asarray(bins), jnp.asarray(grad),
-                          jnp.asarray(hess), jnp.ones(N, jnp.float32),
-                          jnp.ones(F, bool), jnp.asarray(nb),
-                          jnp.asarray(mt), jnp.zeros(F, bool), jp,
-                          quant_key=jnp.asarray(key))
+    ref = jax_build_tree(jnp.asarray(bins), jnp.asarray(grad),
+                         jnp.asarray(hess), jnp.ones(N, jnp.float32),
+                         jnp.ones(F, bool), jnp.asarray(nb),
+                         jnp.asarray(mt), jnp.zeros(F, bool), jp,
+                         quant_key=jnp.asarray(key))
     tp = GrowParams(split=SplitParams(**kw), num_leaves=L, quantize=quantize,
                     two_col=two_col, wave=True, speculate=W)
     t = lambda a: torch.from_numpy(np.array(a))
@@ -106,7 +107,7 @@ def _both(L, W, with_missing, quantize=0, two_col=False):
     return ref, got, grad, bins
 
 
-def _assert_same_tree(ref, got, grad, quantized):
+def _assert_same_tree(ref, got, grad, quantized, float_atol=1e-6):
     valid = ref["valid"]
     assert valid.any()
     np.testing.assert_array_equal(got["valid"], valid)
@@ -124,7 +125,8 @@ def _assert_same_tree(ref, got, grad, quantized):
     for k in ("leaf_stats", "left_stats", "right_stats"):
         np.testing.assert_allclose(got[k], ref[k], rtol=RTOL_STATS,
                                    atol=0 if quantized else
-                                   1e-6 * np.abs(grad).sum(), err_msg=k)
+                                   float_atol * np.abs(grad).sum(),
+                                   err_msg=k)
     if quantized:
         ex_r, ex_g = ref["leaf_stats_exact"], got["leaf_stats_exact"]
         assert np.all(np.abs(ex_g - ex_r) <= RTOL_STATS * np.abs(ex_r) +
@@ -192,15 +194,37 @@ def test_wave_training_matches_jax(case):
             assert int(tr.internal_count[0]) == len(y)
 
 
+def _gate_data(F, seed=41, n=2000):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, F)
+    return X, (X[:, 0] + 0.5 * X[:, 1] > 0).astype(float)
+
+
 def test_c2f_gate_raises_and_trains_without_refinement():
-    rng = np.random.RandomState(41)
-    X = rng.randn(2000, 28)
-    y = (X[:, 0] + 0.5 * X[:, 1] > 0).astype(float)
+    """The coarse-to-fine gate (``refine_shift``) resolves as the JAX
+    package's on the same data: 4 at 255 bins, 3 at 63 bins (with the
+    features x padded bins >= 7000 stream gate met), 0 below the stream
+    gate or with hist_refinement=false; and wave255's tier trains."""
+    X28, y28 = _gate_data(28)
+    X112, y112 = _gate_data(112, n=600)
+    cases = [(X28, y28, 255, {}, 4), (X112, y112, 63, {}, 3),
+             (X28, y28, 63, {}, 0),
+             (X28, y28, 255, {"hist_refinement": False}, 0)]
+    for X, y, max_bin, extra, want in cases:
+        p = {"objective": "binary", "max_bin": max_bin, "num_leaves": 15,
+             "wave_splits": True, "verbose": -1, **extra}
+        bj = lgb.Booster(params=p, train_set=lgb.Dataset(X, label=y,
+                                                         params=p))
+        pt = dict(p, device_type="cpu")
+        bt = ltt.Booster(params=pt, train_set=ltt.Dataset(X, label=y,
+                                                          params=pt))
+        got = bt._gbdt.grow_params.refine_shift
+        assert got == bj._gbdt.grow_params.refine_shift == want, \
+            (max_bin, extra)
     p = {"objective": "binary", "max_bin": 255, "num_leaves": 15,
          "wave_splits": True, "verbose": -1, "device_type": "cpu"}
-    with pytest.raises(NotImplementedError, match="hist_refinement=false"):
-        ltt.train(p, ltt.Dataset(X, label=y, params=p), num_boost_round=1)
-    p["hist_refinement"] = False
-    bt = ltt.train(p, ltt.Dataset(X, label=y, params=p), num_boost_round=2)
+    bt = ltt.train(p, ltt.Dataset(X28, label=y28, params=p),
+                   num_boost_round=2)
+    assert bt._gbdt.grow_params.refine_shift == 4
     assert bt.num_trees() == 2 and bt._gbdt.max_bin == 256
     assert bt.models[0].num_leaves == 15
