@@ -10,10 +10,15 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
 1. prints the card (name and power limit, from nvidia-smi) and builds the
    kernels (one nvcc per source, all started together);
 2. holds every kernel against its plain PyTorch version on the same CUDA
-   tensors, at the main paths' full-width shapes and at one ragged shape,
+   tensors, at the main paths' full-width shapes and at ragged shapes,
    and times kernel, plain version and, where one exists, the one-call
-   PyTorch equivalent (CUDA events, median): kernels H, S and L of the
-   exact path, and kernels M (W=64 two-column int8, exact; W=21 float),
+   PyTorch equivalent (``cuda_ms``: one CUDA event pair around a run of
+   back-to-back launches): kernel H at leaf densities 1 (the root pass),
+   1/8, 1/32 and 1/255 with float, integer and wide-exponent values (each
+   also a repeat launch compared bit for bit, and its device time from
+   ``torch.profiler``), kernels S and L of the exact path (L exact for
+   uint8 and int32 ids and ragged lengths), and kernels M (W=64
+   two-column int8, exact; W=21 float),
    R (W=64, 6-row lane tables, exact), Q (exact) and S at the wave's 128
    children with the counts proxy; and the coarse-to-fine kernels: M
    coarse (the root pass, one live lane, and W=64, two-column int8, shift
@@ -57,6 +62,8 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12           # H100 SXM float32 outside tensor cores
 DEVICE = "cuda"
+# kernel H's two launches (csrc/histogram.cu), by their function names
+KERNEL_H_NAMES = ("hist_masked_kernel", "hist_reduce_kernel")
 N_ROWS = 10_500_000
 N_FEATURES = 28
 N_HOLDOUT = 500_000
@@ -96,20 +103,43 @@ def fail(msg):
 
 
 def cuda_ms(fn, reps, warmup=1):
-    """Median milliseconds of ``fn`` over ``reps`` timed launches."""
+    """Milliseconds of one call of ``fn``: after ``warmup`` calls, one
+    event, ``reps`` calls back to back, one event, a synchronise, and the
+    elapsed time over ``reps`` (the host's per-call overhead then hides
+    behind the card's queue, as it does in a training loop)."""
     import torch
     for _ in range(warmup):
         fn()
-    times = []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, reps, names, warmup=1):
+    """Device milliseconds of one call of ``fn``: the summed durations of
+    the CUDA kernels whose names contain one of ``names``, from
+    ``torch.profiler`` over ``reps`` calls, over ``reps``.  Unlike
+    ``cuda_ms`` it leaves out the time the card waits on the host."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and
+             any(k in e.name for k in names))
+    if us == 0:
+        fail(f"the profiler recorded no kernel named {names}")
+    return us / 1e3 / reps
 
 
 def card_line():
@@ -132,39 +162,67 @@ def bound(nbytes, flops):
                                                            "operations")
 
 
-def check_histogram(th, torch, dev, F, N, B, leaf_mode, integer, seed):
-    """Kernel H vs its plain version; returns (max abs diff, max rel
-    diff, inputs)."""
+def hist_inputs(torch, dev, F, N, B, parts, values, seed, bin_dtype=None,
+                idx_dtype=None):
+    """Kernel H's arguments: random bins below ``B - 1``, a leaf vector
+    whose ids are drawn uniformly from ``parts`` leaves (1: the root
+    pass) with leaf 0 the one histogrammed, so about ``N / parts`` rows
+    are in the leaf, in no particular order.  ``values``: "float" (grad
+    N(0, 1), hess U(0.05, 1.05)), "integer" (quantized-like integers) or
+    "wide" (binary-logloss grad p - y and hess p(1 - p) at logits up to
+    +-16, so hessians reach about 1e-7)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     bins = torch.randint(0, B - 1, (F, N), generator=g, device=dev,
-                         dtype=torch.int32).to(torch.uint8)
-    if integer:
+                         dtype=torch.int32).to(bin_dtype or torch.uint8)
+    if values == "integer":
         grad = torch.randint(-8, 9, (N,), generator=g, device=dev).float()
         hess = torch.randint(1, 5, (N,), generator=g, device=dev).float()
+    elif values == "wide":
+        logit = (torch.rand(N, generator=g, device=dev) * 2 - 1) * 16
+        prob = torch.sigmoid(logit)
+        y = (torch.rand(N, generator=g, device=dev) < prob).float()
+        grad, hess = prob - y, prob * (1 - prob)
     else:
         grad = torch.randn(N, generator=g, device=dev)
         hess = torch.rand(N, generator=g, device=dev) + 0.05
     mask = torch.ones(N, device=dev)
-    if leaf_mode == "root":
-        leaf_idx = torch.zeros(N, dtype=torch.uint8, device=dev)
-    else:
-        leaf_idx = torch.randint(0, 255, (N,), generator=g, device=dev,
-                                 dtype=torch.int32).to(torch.uint8)
+    leaf_idx = torch.randint(0, parts, (N,), generator=g, device=dev,
+                             dtype=torch.int32).to(idx_dtype or torch.uint8)
     leaf_id = torch.zeros((), dtype=torch.int32, device=dev)
-    args = (bins, grad, hess, mask, leaf_idx, leaf_id, B)
+    return bins, grad, hess, mask, leaf_idx, leaf_id, B
+
+
+def check_histogram(th, torch, args, ctx, integer):
+    """Kernel H vs its plain version, and a repeat launch bit for bit;
+    returns (max abs diff, max rel diff)."""
     k = th.masked_histogram(*args)
+    k2 = th.masked_histogram(*args)
     p = th.masked_histogram_plain(*args)
     torch.cuda.synchronize()
+    if not torch.equal(k, k2):
+        fail(f"kernel H gave other bits on a repeat launch ({ctx})")
     diff = (k - p).abs()
     rel = diff / p.abs().clamp_min(1e-30)
     rel = torch.where(diff == 0, torch.zeros_like(rel), rel)
     if integer and float(diff.max()) != 0.0:
-        fail(f"kernel H is not exact on integer inputs ({leaf_mode}, "
-             f"F={F}, N={N}, B={B}): max diff {float(diff.max())}")
+        fail(f"kernel H is not exact on integer inputs ({ctx}): max diff "
+             f"{float(diff.max())}")
     if float(rel.max()) > 1e-5:
-        fail(f"kernel H differs from plain ({leaf_mode}, F={F}, N={N}, "
-             f"B={B}): max rel diff {float(rel.max())}")
-    return float(diff.max()), float(rel.max()), args
+        fail(f"kernel H differs from plain ({ctx}): max rel diff "
+             f"{float(rel.max())}")
+    return float(diff.max()), float(rel.max())
+
+
+def hist_bound(torch, args):
+    """(kernel H's bound, rows in the leaf): every row's leaf id, the
+    leaf's bins, grad, hess and mask, the output; per leaf row 2
+    multiplies and 3 adds a feature."""
+    bins, _, _, _, leaf_idx, leaf_id, B = args
+    F, N = bins.shape
+    rows = int((leaf_idx.to(torch.int32) == leaf_id).sum())
+    return bound(N * leaf_idx.element_size() +
+                 rows * (F * bins.element_size() + 12) + F * B * 3 * 4,
+                 rows * (2 + 3 * F)), rows
 
 
 def check_split(torch, ts, hist, parent, nb, mt, fm, p, ctx):
@@ -209,13 +267,46 @@ def phase_kernels(torch, dev):
     out = {}
 
     # ---- kernel H ---------------------------------------------------
-    check_histogram(th, torch, dev, 3, 100_003, 64, "leaf", False, 1)
-    check_histogram(th, torch, dev, 3, 100_003, 64, "root", True, 2)
-    check_histogram(th, torch, dev, F, N, B, "leaf", True, 3)
-    err_h, rel_h, args = check_histogram(th, torch, dev, F, N, B, "root",
-                                         False, 4)
+    # ragged shapes: both bin types, both leaf-id types
+    for i, (bdt, idt, parts, vals) in enumerate((
+            (torch.uint8, torch.uint8, 255, "float"),
+            (torch.uint8, torch.uint8, 1, "integer"),
+            (torch.int16, torch.int32, 8, "integer"),
+            (torch.int16, torch.uint8, 3, "wide"))):
+        check_histogram(th, torch, hist_inputs(torch, dev, 3, 100_003, 64,
+                                               parts, vals, 1 + i, bdt, idt),
+                        f"F=3 N=100003 B=64 {bdt} bins {idt} ids 1/{parts} "
+                        f"{vals}", vals == "integer")
+    # full width at leaf densities 1 (the root pass), 1/8, 1/32 and 1/255,
+    # float and integer values; wide-exponent float values at 1 and 1/255
+    dens = []
+    for parts in (1, 8, 32, 255):
+        for vals in ("float", "integer", "wide"):
+            if vals == "wide" and parts not in (1, 255):
+                continue
+            a = hist_inputs(torch, dev, F, N, B, parts, vals, 3 + parts)
+            err, rel = check_histogram(th, torch, a,
+                                       f"F={F} N={N} B={B} 1/{parts} {vals}",
+                                       vals == "integer")
+            ms = cuda_ms(lambda: th.masked_histogram(*a), reps=10)
+            dev_ms = device_ms(lambda: th.masked_histogram(*a), 10,
+                               KERNEL_H_NAMES)
+            (b_ms, b_by), rows = hist_bound(torch, a)
+            dens.append(dict(density=f"1/{parts}", values=vals, rows=rows,
+                             ms=ms, device_ms=dev_ms, bound_ms=b_ms,
+                             bound_by=b_by, max_abs_err=err,
+                             max_rel_err=rel))
+            print(f"kernel H 1/{parts} {vals}: {rows} rows; max abs "
+                  f"{err:.3g} max rel {rel:.3g}; {ms:.4f} ms, device "
+                  f"{dev_ms:.4f} ms (bound {b_ms:.4f} by {b_by})",
+                  flush=True)
+            if parts == 1 and vals == "float":
+                args, err_h, rel_h, ms_h, b_h = a, err, rel, ms, (b_ms, b_by)
+                root_dev = dev_ms
+            del a
+    thin = next(d for d in dens if d["density"] == "1/255" and
+                d["values"] == "float")
     bins, grad, hess, mask, leaf_idx, leaf_id, _ = args
-    ms_h = cuda_ms(lambda: th.masked_histogram(*args), reps=10)
     plain_h = cuda_ms(lambda: th.masked_histogram_plain(*args), reps=3)
     flat_ids = (bins.to(torch.int64) +
                 torch.arange(F, device=dev)[:, None] * B).reshape(-1)
@@ -224,16 +315,14 @@ def phase_kernels(torch, dev):
     lib_h = cuda_ms(lambda: lib_out.zero_().index_add_(0, flat_ids,
                                                        flat_vals), reps=3)
     del flat_ids, flat_vals, lib_out
-    # root pass: every row is in the leaf, so every input byte is needed
-    # and each row adds [g*m, h*m, m] (2 multiplies) into F cells
-    b_h = bound(N * F + N * 4 * 3 + N * 1 + F * B * 3 * 4, N * (2 + 3 * F))
     out["histogram"] = dict(max_abs_err=err_h, ms=ms_h, plain_ms=plain_h,
                             bound_ms=b_h[0], bound_by=b_h[1],
-                            library_ms=lib_h)
-    print(f"kernel H: max abs {err_h:.3g} max rel {rel_h:.3g}; "
+                            library_ms=lib_h, by_density=dens)
+    print(f"kernel H root pass: max abs {err_h:.3g} max rel {rel_h:.3g}; "
           f"{ms_h:.4f} ms (plain {plain_h:.3f}, index_add_ {lib_h:.3f}, "
-          f"bound {b_h[0]:.4f} by {b_h[1]}) at F={F} N={N} B={B}",
-          flush=True)
+          f"bound {b_h[0]:.4f} by {b_h[1]}) at F={F} N={N} B={B}; 1/255 "
+          f"float at {thin['ms'] / ms_h:.4f} of the root pass "
+          f"({thin['device_ms'] / root_dev:.4f} in device time)", flush=True)
 
     # ---- kernel S: the two children of a split at full width ---------
     # two leaf histograms of the full-width matrix, as the loop builds
@@ -291,15 +380,19 @@ def phase_kernels(torch, dev):
           f"B={B}", flush=True)
 
     # ---- kernel L ---------------------------------------------------
-    check_lookup(torch, tl, dev, 100_003, torch.int32, 6)
-    check_lookup(torch, tl, dev, 100_003, torch.uint8, 7)
+    # ragged lengths (not multiples of 16, shorter than a warp's tile) and
+    # a full-width int32 vector one row short of a multiple of 4
+    cases = [(n_, idt) for n_ in (1, 17, 100_003, N - 1)
+             for idt in (torch.int32, torch.uint8)]
+    for seed, (n_, idt) in enumerate(cases, start=20):
+        check_lookup(torch, tl, dev, n_, idt, seed)
     err_l, (score, vals, idx) = check_lookup(torch, tl, dev, N, torch.uint8,
                                              8)
-    ms_l = cuda_ms(lambda: tl.take_small_add(score, vals, idx), reps=20)
+    ms_l = cuda_ms(lambda: tl.take_small_add(score, vals, idx), reps=50)
     plain_l = cuda_ms(lambda: tl.take_small_add_plain(score, vals, idx),
                       reps=10)
     idx64 = idx.to(torch.int64)
-    lib_l = cuda_ms(lambda: vals[idx64], reps=10)
+    lib_l = cuda_ms(lambda: vals[idx64], reps=50)
     b_l = bound(N * (1 + 4 + 4) + vals.numel() * 4, N)
     out["leaf_lookup"] = dict(max_abs_err=err_l, ms=ms_l, plain_ms=plain_l,
                               bound_ms=b_l[0], bound_by=b_l[1],
@@ -1000,6 +1093,8 @@ def main():
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": repl, "launches": counts[name],
                **{k: s[k] for k in keys}}
+        if "by_density" in s:
+            row["by_density"] = s["by_density"]
         if f"c2f_{name}" in stats and name in stats:
             row["full_resolution"] = {"launches": wave_counts[name],
                                       **{k: stats[name][k] for k in keys}}

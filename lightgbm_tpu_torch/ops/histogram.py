@@ -32,10 +32,11 @@ PyTorch version beside it:
 
 Float values are summed in float64 and rounded once to float32, so a
 kernel, the plain version on the card and the plain version on the CPU
-agree whatever the order of the additions (the JAX reference sums in
-float32; the parity tests state the tolerance that follows).  Quantized
-(integer) values are summed exactly everywhere.  CPU tensors take the
-plain version; CUDA tensors launch the kernel or raise.
+agree while the float64 sums are exact, and within one float32 rounding
+otherwise (the JAX reference sums in float32; the parity tests state the
+tolerance that follows).  Quantized (integer) values are summed exactly
+everywhere.  CPU tensors take the plain version; CUDA tensors launch the
+kernel or raise.
 """
 from __future__ import annotations
 
@@ -44,7 +45,8 @@ import torch
 from . import kernels
 
 __all__ = ["histogram_plain", "masked_histogram_plain", "masked_histogram",
-           "multi_width", "multi_histogram_plain", "multi_histogram",
+           "hist_plan", "multi_width", "multi_histogram_plain",
+           "multi_histogram",
            "routed_histogram_plain", "routed_histogram",
            "window_histogram_plain", "window_histogram",
            "lanes_window_histogram_plain", "lanes_window_histogram",
@@ -57,9 +59,16 @@ LAUNCHES = {"histogram": 0, "multi_histogram": 0, "routed_histogram": 0,
             "window_histogram": 0, "lanes_window_histogram": 0,
             "leaf_stats": 0}
 
-_THREADS = 512
-_SMEM_BUDGET = 99 * 1024   # two blocks of the float64 tile per SM
 _SMEM_MAX = 232_448        # the most dynamic shared memory a block can have
+
+# kernel H's launch constants (csrc/histogram.cu)
+HIST_CHUNK = 8_192         # rows a block compacts at once (8 a thread)
+HIST_BATCH = 1_024         # queued rows staged at once
+HIST_CLUSTER = 8           # blocks whose tiles are summed on chip
+# the queue (a chunk and a carried part batch, uint32), the staged values
+# (3 x float32 a row) and the warp counts
+HIST_FIXED_SMEM = (HIST_CHUNK + HIST_BATCH) * 4 + HIST_BATCH * 12 + 33 * 4
+_ACTIVE_CLUSTERS: dict = {}
 
 
 def histogram_plain(bins: torch.Tensor, vals: torch.Tensor,
@@ -87,17 +96,48 @@ def masked_histogram_plain(bins, grad, hess, mask, leaf_idx, leaf_id,
     return histogram_plain(bins, vals, max_bin)
 
 
-def _plan(F: int, B: int, n: int, device) -> tuple:
-    """(features per block, row blocks) for kernel H."""
-    if B * 3 * 8 > _SMEM_MAX:
+def hist_plan(F: int, B: int, n: int, sms: int, active=None) -> dict:
+    """Kernel H's launch plan on a card with ``sms`` multiprocessors that
+    runs ``active`` of its clusters at once (default ``sms // 8``, the
+    most it could; the wrapper asks the card).
+
+    A block holds a (features, B, 3) float64 tile of its feature chunk
+    beside the fixed queue and staging buffers; the grid is
+    ``(row_blocks, chunks)`` with ``row_blocks`` a multiple of the
+    cluster size, one wave of clusters, and no more clusters than the
+    rows fill at one compaction chunk a block.  Row block ``i`` owns rows
+    ``[i * rows_per_block, min((i + 1) * rows_per_block, n))``, feature
+    chunk ``j`` features ``[j * fc, min((j + 1) * fc, F))``."""
+    fc = min(F, (_SMEM_MAX - HIST_FIXED_SMEM) // (B * 3 * 8))
+    if fc < 1:
         raise ValueError(f"kernel H holds one feature's {B} bins in shared "
-                         f"memory: at most {_SMEM_MAX // 24} bins")
-    fc = max(1, min(F, _SMEM_BUDGET // (B * 3 * 8)))
-    chunks = (F + fc - 1) // fc
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    row_blocks = max(1, min((2 * sms) // chunks, (n + _THREADS - 1)
-                            // _THREADS))
-    return fc, row_blocks
+                         f"memory: at most "
+                         f"{(_SMEM_MAX - HIST_FIXED_SMEM) // 24} bins")
+    chunks = -(-F // fc)
+    if active is None:
+        active = sms // HIST_CLUSTER
+    clusters = max(1, min(active // chunks,
+                          -(-n // (HIST_CLUSTER * HIST_CHUNK))))
+    row_blocks = clusters * HIST_CLUSTER
+    per_block = -(-n // row_blocks)
+    rows_per_block = -(-per_block // 16) * 16     # 16-row aligned ranges
+    return {"fc": fc, "chunks": chunks, "clusters": clusters,
+            "row_blocks": row_blocks, "rows_per_block": rows_per_block,
+            "nbits": max(1, (B - 1).bit_length()),
+            "smem": fc * B * 3 * 8 + HIST_FIXED_SMEM}
+
+
+def _active_clusters(lib, device, bin_bytes, idx_bytes, smem) -> int:
+    """Clusters of kernel H the card runs at once, asked once."""
+    key = (torch.device(device).index, bin_bytes, idx_bytes, smem)
+    if key not in _ACTIVE_CLUSTERS:
+        got = lib.ltt_hist_active_clusters(bin_bytes, idx_bytes, smem)
+        if got < 1:
+            raise RuntimeError(f"kernel H: no cluster of {HIST_CLUSTER} "
+                               f"blocks with {smem} bytes of shared memory "
+                               f"fits the card (occupancy query gave {got})")
+        _ACTIVE_CLUSTERS[key] = got
+    return _ACTIVE_CLUSTERS[key]
 
 
 def masked_histogram(bins: torch.Tensor, grad: torch.Tensor,
@@ -109,7 +149,9 @@ def masked_histogram(bins: torch.Tensor, grad: torch.Tensor,
     bins (F, N) uint8/int16; grad/hess/mask (N,) float32; leaf_idx (N,)
     uint8/int32; leaf_id a 0-dim int32 tensor on the same device (read by
     the kernel, so choosing the leaf needs no host sync).  CUDA tensors
-    go to kernel H; CPU tensors to :func:`masked_histogram_plain`."""
+    go to kernel H, whose work follows the leaf's rows (it compacts them
+    in the kernel) and whose sums are the same bits on every launch; CPU
+    tensors go to :func:`masked_histogram_plain`."""
     if bins.device.type == "cpu":
         return masked_histogram_plain(bins, grad, hess, mask, leaf_idx,
                                       leaf_id, max_bin)
@@ -129,17 +171,23 @@ def masked_histogram(bins: torch.Tensor, grad: torch.Tensor,
         raise ValueError("all inputs must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("inputs must be contiguous")
+    if leaf_idx.data_ptr() % 16:
+        leaf_idx = leaf_idx.clone()        # the kernel loads aligned words
     lib = kernels.load()
-    fc, row_blocks = _plan(F, max_bin, n, bins.device)
-    partial = torch.empty(row_blocks * F * max_bin * 3, dtype=torch.float64,
-                          device=bins.device)
+    sms = kernels.sm_count(bins.device)
+    smem = hist_plan(F, max_bin, n, sms)["smem"]
+    plan = hist_plan(F, max_bin, n, sms, _active_clusters(
+        lib, bins.device, bins.element_size(), leaf_idx.element_size(), smem))
+    partial = torch.empty(plan["clusters"] * F * max_bin * 3,
+                          dtype=torch.float64, device=bins.device)
     out = torch.empty(F, max_bin, 3, dtype=torch.float32, device=bins.device)
     stream = torch.cuda.current_stream(bins.device).cuda_stream
     rc = lib.ltt_hist_masked(
         bins.data_ptr(), bins.element_size(), grad.data_ptr(),
         hess.data_ptr(), mask.data_ptr(), leaf_idx.data_ptr(),
-        leaf_idx.element_size(), leaf_id.data_ptr(), n, F, max_bin, fc,
-        row_blocks, _THREADS, partial.data_ptr(), out.data_ptr(), stream)
+        leaf_idx.element_size(), leaf_id.data_ptr(), n, F, max_bin,
+        plan["fc"], plan["row_blocks"], plan["rows_per_block"],
+        plan["nbits"], partial.data_ptr(), out.data_ptr(), stream)
     kernels.check(rc, "kernel H (ltt_hist_masked)")
     LAUNCHES["histogram"] += 1
     return out
@@ -262,7 +310,7 @@ def _multi_plan(F: int, n: int, device) -> int:
     """Row blocks of kernels M, V and V-lanes: about two blocks per SM over
     the F feature blocks, and at most 2^24 rows a block so an int32
     partial of int8 values cannot overflow."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = kernels.sm_count(device)
     rb = max(1, -(-2 * sms // F))
     rb = min(rb, max(1, -(-n // _MULTI_THREADS)))
     return max(rb, -(-n // (1 << 24)))
@@ -438,7 +486,7 @@ def routed_histogram(bins: torch.Tensor, vals: torch.Tensor,
     dev = bins.device
     tables = tables.contiguous()
     rb = _multi_plan(F, n, dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = kernels.sm_count(dev)
     route_blocks = max(1, min(8 * sms, -(-n // 256)))
     leaf_out = torch.empty_like(leaf_idx)
     lane = torch.empty(n, dtype=torch.int8, device=dev)
@@ -565,7 +613,7 @@ def leaf_stats(leaf_idx: torch.Tensor, grad: torch.Tensor,
         raise ValueError(f"kernel Q holds at most {_SMEM_MAX // 24} leaves")
     lib = kernels.load()
     dev = leaf_idx.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = kernels.sm_count(dev)
     rb = max(1, min(2 * sms, -(-n // _LEAF_THREADS)))
     part = torch.empty(rb * num_leaves * 3, dtype=torch.float64, device=dev)
     out = torch.empty(num_leaves, 3, dtype=torch.float32, device=dev)

@@ -24,7 +24,7 @@ import time
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["load", "build_info", "SOURCES", "HEADERS"]
+__all__ = ["load", "build_info", "sm_count", "SOURCES", "HEADERS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("histogram.cu", "split.cu", "lookup.cu", "multi_hist.cu",
@@ -37,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 _LIB: Optional[ctypes.CDLL] = None
 _INFO: dict = {}
+_SMS: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,10 +46,11 @@ _F = ctypes.c_float
 
 _SIGNATURES = {
     "ltt_hist_masked": [_P, _I, _P, _P, _P, _P, _I, _P, _I64, _I, _I, _I,
-                        _I, _I, _P, _P, _P],
+                        _I, _I64, _I, _P, _P, _P],
+    "ltt_hist_active_clusters": [_I, _I, _I],
     "ltt_best_split": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
                        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    "ltt_leaf_add": [_P, _I, _P, _I, _P, _I64, _I, _P],
+    "ltt_leaf_add": [_P, _I, _P, _I, _P, _I64, _I, _I64, _P],
     "ltt_multi_hist": [_P, _I, _P, _I, _P, _I, _I, _I, _I64, _I, _I, _I, _I,
                        _P, _I, _P, _P, _P],
     "ltt_routed_hist": [_P, _I, _P, _I, _I, _I, _P, _I, _P, _I, _P, _I,
@@ -143,6 +145,18 @@ def build_info() -> dict:
     """Path, whether this process built it, seconds and the nvcc log
     (with ``-Xptxas -v``: registers, shared memory and spills)."""
     return dict(_INFO)
+
+
+def sm_count(device) -> int:
+    """The card's multiprocessor count, read once per device."""
+    import torch
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SMS[index]
 
 
 def check(rc: int, what: str) -> None:

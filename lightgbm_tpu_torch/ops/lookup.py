@@ -14,9 +14,13 @@ import torch
 from . import kernels
 
 __all__ = ["MAX_LOOKUP_TABLE", "take_small_plain", "take_small_add_plain",
-           "take_small_add", "LAUNCHES"]
+           "take_small_add", "lookup_plan", "LAUNCHES"]
 
 MAX_LOOKUP_TABLE = 512
+# kernel L's launch constants (csrc/lookup.cu)
+LOOKUP_TILE = 128            # rows a warp adds per tile, 4 a lane
+LOOKUP_WARPS_PER_BLOCK = 8   # 256 threads
+LOOKUP_BLOCKS_PER_SM = 4     # one sweep of the card
 
 # launches of kernel L through :func:`take_small_add`, one per call
 LAUNCHES = {"leaf_lookup": 0}
@@ -32,6 +36,21 @@ def take_small_add_plain(score: torch.Tensor, vals: torch.Tensor,
     """``score += vals[idx]`` in place — plain PyTorch."""
     score += take_small_plain(vals, idx)
     return score
+
+
+def lookup_plan(n: int, sms: int) -> dict:
+    """Kernel L's launch plan on a card with ``sms`` multiprocessors.
+
+    ``tiles`` whole 128-row tiles are split among ``warps`` warps in
+    contiguous ranges: warp ``w`` adds tiles ``[w * tiles // warps,
+    (w + 1) * tiles // warps)``, and the last warp also the ``n - 128 *
+    tiles`` rows after them.  The grid is one sweep of the card, fewer
+    blocks when there are fewer than 32 tiles a block."""
+    tiles = n // LOOKUP_TILE
+    per_block = 4 * LOOKUP_WARPS_PER_BLOCK   # four tiles in flight a warp
+    blocks = max(1, min(LOOKUP_BLOCKS_PER_SM * sms, -(-tiles // per_block)))
+    return {"blocks": blocks, "warps": blocks * LOOKUP_WARPS_PER_BLOCK,
+            "tiles": tiles}
 
 
 def take_small_add(score: torch.Tensor, vals: torch.Tensor,
@@ -57,12 +76,11 @@ def take_small_add(score: torch.Tensor, vals: torch.Tensor,
         raise ValueError("score and idx must be 16-byte aligned")
     lib = kernels.load()
     vals = vals.contiguous()
-    sms = torch.cuda.get_device_properties(score.device).multi_processor_count
-    per_block = 256 * (16 // idx.element_size())
-    blocks = max(1, min(8 * sms, (n + per_block - 1) // per_block))
+    plan = lookup_plan(n, kernels.sm_count(score.device))
     stream = torch.cuda.current_stream(score.device).cuda_stream
     rc = lib.ltt_leaf_add(idx.data_ptr(), idx.element_size(), vals.data_ptr(),
-                          vals.shape[0], score.data_ptr(), n, blocks, stream)
+                          vals.shape[0], score.data_ptr(), n, plan["blocks"],
+                          plan["tiles"], stream)
     kernels.check(rc, "kernel L (ltt_leaf_add)")
     LAUNCHES["leaf_lookup"] += 1
     return score

@@ -20,7 +20,10 @@ reports, after one warm-up iteration:
 - from ``torch.profiler`` over one more iteration: the device's busy time
   (the union of kernel intervals), its idle share of the iteration's
   wall time, kernel launches, and device time by kernel name (the
-  shared histogram body of kernels M, V and V-lanes by kernel).
+  shared histogram body of kernels M, V and V-lanes by kernel), and
+  kernel H's device time and launches (``kernel_h``: its histogram
+  launch and its reduction together; the launch count is that of the
+  histogram launch, one per call).
 
 The JSON is the last line of standard output.  Without a card it exits
 non-zero.
@@ -142,6 +145,11 @@ def main(argv=None) -> int:
         prof_wall_s = time.perf_counter() - t0
     busy_us, launches, rows = _kernel_table(prof, torch)
     own_us = sum(r["us"] for r in rows if r["own"])
+    kh = chip_smoke.KERNEL_H_NAMES       # the histogram launch, then its sum
+    h_rows = [r for r in rows if r["name"] in kh]
+    kernel_h = {"ms": sum(r["us"] for r in h_rows) / 1e3,
+                "launches": sum(r["launches"] for r in h_rows
+                                if r["name"] == kh[0])}
     out = {
         "card": card, "rows": args.rows,
         "path": ("wave-noc2f" if args.no_c2f else "wave-c2f")
@@ -155,6 +163,7 @@ def main(argv=None) -> int:
         if launches else None,
         "kernel_launches": launches,
         "own_kernels_s": own_us / 1e6 if launches else None,
+        "kernel_h": kernel_h if launches else None,
         "kernels": rows[:20],
     }
     if not launches:
@@ -167,6 +176,8 @@ def main(argv=None) -> int:
               f"{busy_us / 1e6:.3f} s (idle share "
               f"{out['device_idle_share']:.3f}), {launches} kernel launches",
               flush=True)
+        print(f"kernel H: {kernel_h['ms']:.3f} ms of device time in "
+              f"{kernel_h['launches']} launches", flush=True)
         for r in rows[:20]:
             print(f"  {r['us'] / 1e3:9.3f} ms {r['launches']:6d}x "
                   f"{'*' if r['own'] else ' '} {r['name']}", flush=True)
