@@ -16,15 +16,20 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    back-to-back launches): kernel H at leaf densities 1 (the root pass),
    1/8, 1/32 and 1/255 with float, integer and wide-exponent values (each
    also a repeat launch compared bit for bit, and its device time from
-   ``torch.profiler``), kernels S and L of the exact path (L exact for
-   uint8 and int32 ids and ragged lengths), and kernels M (W=64
-   two-column int8, exact; W=21 float),
-   R (W=64, 6-row lane tables, exact), Q (exact) and S at the wave's 128
-   children with the counts proxy; and the coarse-to-fine kernels: M
-   coarse (the root pass, one live lane, and W=64, two-column int8, shift
-   4 with the reserved missing slot; W=21 float), R coarse (W=64), V (the
-   root's window) and V-lanes (W=64, a uint8 leaf vector, dummy lanes),
-   all exact on integers;
+   ``torch.profiler``), kernels S and L of the exact path (S at W=2,
+   also with max_depth active, gains equal, in one CUDA launch a call
+   counted by ``torch.profiler``, with its device time beside the time of
+   back-to-back calls; L exact for uint8 and int32 ids and ragged
+   lengths), and kernels M (W=64 two-column int8, exact; W=21 float),
+   R (W=64, 6-row lane tables, two-column int8 exact and W=21 float within
+   rel 1e-5, each with a repeat launch bit for bit, its launches a call
+   and device time; and every edge table of ``ROUTED_EDGE_CASES``, exact),
+   Q (exact) and S at the wave's 128 children with the counts proxy; and
+   the coarse-to-fine kernels: M coarse (the root pass, one live lane, and
+   W=64, two-column int8, shift 4 with the reserved missing slot; W=21
+   float), R coarse (W=64, as R above), V (the root's window) and
+   V-lanes (W=64, a uint8 leaf vector, dummy lanes), all exact on
+   integers;
 3. the exact path: trains the Higgs-shaped configuration at full width
    (10.5M x 28, num_leaves=255, max_bin=255, learning_rate=0.1,
    min_sum_hessian_in_leaf=100) for 1 warm-up + 5 measured iterations
@@ -64,6 +69,9 @@ FP32_FLOPS_PER_S = 67e12           # H100 SXM float32 outside tensor cores
 DEVICE = "cuda"
 # kernel H's two launches (csrc/histogram.cu), by their function names
 KERNEL_H_NAMES = ("hist_masked_kernel", "hist_reduce_kernel")
+# kernel S's launch (csrc/split.cu) and kernel R's three (routed_hist.cu)
+SPLIT_NAMES = ("best_split_kernel",)
+ROUTED_NAMES = ("route_kernel", "routed_hist_kernel", "routed_reduce_kernel")
 N_ROWS = 10_500_000
 N_FEATURES = 28
 N_HOLDOUT = 500_000
@@ -120,26 +128,38 @@ def cuda_ms(fn, reps, warmup=1):
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, reps, names, warmup=1):
-    """Device milliseconds of one call of ``fn``: the summed durations of
-    the CUDA kernels whose names contain one of ``names``, from
-    ``torch.profiler`` over ``reps`` calls, over ``reps``.  Unlike
-    ``cuda_ms`` it leaves out the time the card waits on the host."""
+def profile_calls(fn, reps, names, warmup=1, tries=5):
+    """(device milliseconds of one call of ``fn``: the summed durations of
+    the CUDA kernels whose names contain one of ``names``; CUDA kernels
+    the card ran per call), from ``torch.profiler`` over ``reps`` calls
+    after ``warmup``.  Unlike ``cuda_ms`` it leaves out the time the card
+    waits on the host.  The profiler now and then drops the kernels
+    launched in the first milliseconds after it starts
+    (``lightgbm_tpu_torch/tools/prof_window.py`` counts how often), so
+    the host waits 20 ms before the first call.  A window with no kernel
+    named in ``names``, or whose kernel count is not a multiple of
+    ``reps``, is profiled again, up to ``tries`` times."""
     import torch
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
+    seen = []
+    for _ in range(tries):
         torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and
-             any(k in e.name for k in names))
-    if us == 0:
-        fail(f"the profiler recorded no kernel named {names}")
-    return us / 1e3 / reps
+        with torch.profiler.profile(activities=acts) as prof:
+            time.sleep(0.02)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evts = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = sum(e.time_range.end - e.time_range.start for e in evts
+                 if any(k in e.name for k in names))
+        if us > 0 and len(evts) % reps == 0:
+            return us / 1e3 / reps, len(evts) / reps
+        seen.append(len(evts))
+    fail(f"the profiler recorded no whole window of {reps} calls of "
+         f"{names} in {tries} tries (CUDA kernels a window: {seen})")
 
 
 def card_line():
@@ -162,6 +182,26 @@ def bound(nbytes, flops):
                                                            "operations")
 
 
+def split_bound(hist, B):
+    """Kernel S's bound: reads the histograms, the parents, the depths
+    and per-feature descriptors (9 bytes); writes the record.  Per (lane,
+    feature, bin): 3 scan adds, and per default direction the right-side
+    stats (3), two leaf outputs (4 each) and gains given output (6 each),
+    their sum and the gain shift (2): 3 + 2 * 25."""
+    W, F = hist.shape[:2]
+    return bound(hist.numel() * 4 + W * (3 * 4 + 4) + F * 9 +
+                 W * (4 * 3 + 1 + 12 + B), hist.numel() // 3 * 53)
+
+
+def wide_values(torch, g, dev, N):
+    """Binary-logloss grad p - y and hess p(1 - p) at logits up to +-16:
+    hessians reach about 1e-7, so a bucket's values span many exponents."""
+    logit = (torch.rand(N, generator=g, device=dev) * 2 - 1) * 16
+    prob = torch.sigmoid(logit)
+    y = (torch.rand(N, generator=g, device=dev) < prob).float()
+    return prob - y, prob * (1 - prob)
+
+
 def hist_inputs(torch, dev, F, N, B, parts, values, seed, bin_dtype=None,
                 idx_dtype=None):
     """Kernel H's arguments: random bins below ``B - 1``, a leaf vector
@@ -178,10 +218,7 @@ def hist_inputs(torch, dev, F, N, B, parts, values, seed, bin_dtype=None,
         grad = torch.randint(-8, 9, (N,), generator=g, device=dev).float()
         hess = torch.randint(1, 5, (N,), generator=g, device=dev).float()
     elif values == "wide":
-        logit = (torch.rand(N, generator=g, device=dev) * 2 - 1) * 16
-        prob = torch.sigmoid(logit)
-        y = (torch.rand(N, generator=g, device=dev) < prob).float()
-        grad, hess = prob - y, prob * (1 - prob)
+        grad, hess = wide_values(torch, g, dev, N)
     else:
         grad = torch.randn(N, generator=g, device=dev)
         hess = torch.rand(N, generator=g, device=dev) + 0.05
@@ -225,23 +262,47 @@ def hist_bound(torch, args):
                  rows * (2 + 3 * F)), rows
 
 
-def check_split(torch, ts, hist, parent, nb, mt, fm, p, ctx):
-    k = ts.find_best_split(hist, parent, nb, mt, fm, p)
-    q = ts.find_best_split_plain(hist, parent, nb, mt, fm, p)
+def check_split(torch, ts, hist, parent, nb, mt, fm, p, ctx, depth=None,
+                max_depth=0):
+    """Kernel S vs its plain version: the same record, gains equal."""
+    k = ts.find_best_split(hist, parent, nb, mt, fm, p, depth, max_depth)
+    q = ts.find_best_split_plain(hist, parent, nb, mt, fm, p, depth,
+                                 max_depth)
     torch.cuda.synchronize()
+    return same_record(torch, k, q, ctx)
+
+
+def check_split_streams(torch, ts, args, ctx):
+    """Kernel S launched on two streams at once, 20 times each (each stream
+    has its own completion counters): every record as the plain one."""
+    q = ts.find_best_split_plain(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    recs = []
+    for _ in range(20):
+        recs.append(ts.find_best_split(*args))
+        with torch.cuda.stream(side):
+            recs.append(ts.find_best_split(*args))
+    torch.cuda.synchronize()
+    for k in recs:
+        same_record(torch, k, q, ctx)
+
+
+def same_record(torch, k, q, ctx):
+    """Fails unless kernel S's record ``k`` is the plain record ``q``;
+    returns the largest gain difference (0)."""
     for key in ("feature", "threshold", "default_left", "left_mask"):
         if not torch.equal(k[key], q[key]):
             fail(f"kernel S {key} differs from plain ({ctx}): "
                  f"{k[key].tolist() if k[key].dim() < 2 else ''} vs "
                  f"{q[key].tolist() if q[key].dim() < 2 else ''}")
-    gd = (k["gain"] - q["gain"]).abs()
-    if bool((gd > 1e-6 * q["gain"].abs()).any()):
+    if not torch.equal(k["gain"], q["gain"]):
         fail(f"kernel S gain differs from plain ({ctx}): "
              f"{k['gain'].tolist()} vs {q['gain'].tolist()}")
     if not torch.allclose(k["left_stats"], q["left_stats"], rtol=1e-6,
                           atol=0):
         fail(f"kernel S left_stats differ from plain ({ctx})")
-    return float(gd.max())
+    return float((k["gain"] - q["gain"]).abs().max())
 
 
 def check_lookup(torch, tl, dev, N, idx_dtype, seed):
@@ -256,6 +317,105 @@ def check_lookup(torch, tl, dev, N, idx_dtype, seed):
     if not torch.equal(k, q):
         fail(f"kernel L differs from plain (N={N}, {idx_dtype})")
     return 0.0, (score, vals, idx)
+
+
+# kernel R's edge tables; tests/test_torch_kernel_plans.py holds the
+# plain version against the JAX package on the same cases
+ROUTED_EDGE_CASES = ("missing, default left", "missing, default right",
+                     "dummy lanes at 256", "a leaf in two lanes",
+                     "int32 ids, leaf_bound 32768", "no row selected",
+                     "coarse shift 3", "coarse shift 4")
+
+
+def routed_edge_case(name, n, seed=0, F=5, W=16):
+    """Kernel R's arguments for one edge case, as numpy arrays: bins (F,
+    n) uint8 in 0..254 (254 is the missing bin of the even features),
+    two-column int8 values, a leaf vector (uint8 ids below 40, or int32
+    ids below 32768), 6-row lane tables, miss_bin, and the case's
+    max_bin, width, leaf_bound and shift."""
+    rng = np.random.RandomState(seed)
+    miss_bin = np.full(F, -1, np.int32)
+    miss_bin[::2] = 254
+    bins = rng.randint(0, 255, size=(F, n)).astype(np.uint8)
+    vals = np.stack([rng.randint(-120, 121, n), rng.randint(0, 121, n)],
+                    -1).astype(np.int8)
+    li = rng.randint(0, 40, n).astype(np.uint8)
+    ids = rng.choice(40, W, replace=False)
+    new = 40 + np.arange(W)
+    leaf_bound, shift = 256, 0
+    dl = rng.randint(0, 2, W)
+    if name == "missing, default left":
+        dl[:] = 1
+    elif name == "missing, default right":
+        dl[:] = 0
+    elif name == "dummy lanes at 256":
+        ids[-3:] = 256
+    elif name == "a leaf in two lanes":
+        ids[5] = ids[2]                  # the last lane listing it wins
+    elif name == "int32 ids, leaf_bound 32768":
+        li = rng.randint(0, 32768, n).astype(np.int32)
+        ids = rng.choice(np.unique(li), W, replace=False)
+        ids[-2:] = 32768
+        new = 30000 + np.arange(W)
+        leaf_bound = 32768
+    elif name == "no row selected":
+        ids[:] = 256
+    elif name.startswith("coarse shift"):
+        shift = int(name.split()[-1])
+    elif name not in ROUTED_EDGE_CASES:
+        raise ValueError(name)
+    tables = np.stack([ids, rng.randint(0, F, W), rng.randint(0, 253, W),
+                       new, rng.randint(0, 2, W), dl]).astype(np.int32)
+    max_bin = (254 >> shift) + 2 if shift else 256
+    return dict(bins=bins, vals=vals, leaf_idx=li, tables=tables,
+                miss_bin=miss_bin, max_bin=max_bin, width=W,
+                leaf_bound=leaf_bound, shift=shift)
+
+
+def check_routed(torch, th, args, kw, exact, ctx):
+    """Kernel R vs its plain version: the histogram exact (``exact``) or
+    within rel 1e-5, leaf vector and selector exact, and a repeat launch
+    bit for bit; returns (max abs, max rel) of the histogram."""
+    plain_kw = {k: v for k, v in kw.items()
+                if k not in ("want_sel", "leaf_bound")}
+    kh, kl, ks = th.routed_histogram(*args, want_sel=True, **kw)
+    kh2, kl2, ks2 = th.routed_histogram(*args, want_sel=True, **kw)
+    qh, ql, qs = th.routed_histogram_plain(*args, **plain_kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(kh, kh2) and torch.equal(kl, kl2) and
+            torch.equal(ks, ks2)):
+        fail(f"kernel R gave other bits on a repeat launch ({ctx})")
+    if not (torch.equal(kl, ql) and torch.equal(ks, qs)):
+        fail(f"kernel R routes otherwise than plain ({ctx}): leaf ids "
+             f"{int((kl != ql).sum())}, sel {int((ks != qs).sum())}")
+    diff = (kh - qh).abs()
+    rel = torch.where(diff == 0, torch.zeros_like(diff),
+                      diff / qh.abs().clamp_min(1e-30))
+    if exact and float(diff.max()) != 0.0:
+        fail(f"kernel R is not exact on integer values ({ctx}): max diff "
+             f"{float(diff.max())}")
+    if float(rel.max()) > 1e-5:
+        fail(f"kernel R differs from plain ({ctx}): max rel "
+             f"{float(rel.max())}")
+    return float(diff.max()), float(rel.max())
+
+
+def check_routed_edges(torch, th, dev):
+    """Kernel R on every edge table, at a ragged length (a tail group and
+    unaligned feature rows) and at a multiple of 16."""
+    for n in (100_003, 65_536):
+        for i, name in enumerate(ROUTED_EDGE_CASES):
+            c = routed_edge_case(name, n, seed=40 + i)
+            t = {k: torch.from_numpy(v).to(dev) for k, v in c.items()
+                 if isinstance(v, np.ndarray)}
+            args = (t["bins"], t["vals"], t["leaf_idx"], t["tables"],
+                    c["max_bin"], c["width"], True)
+            check_routed(torch, th, args,
+                         dict(miss_bin=t["miss_bin"], shift=c["shift"],
+                              leaf_bound=c["leaf_bound"]), True,
+                         f"edge table: {name}, N={n}")
+    print(f"kernel R edge tables: {len(ROUTED_EDGE_CASES)} cases at N=100003 "
+          f"and N=65536, exact, repeat launches bit for bit", flush=True)
 
 
 def phase_kernels(torch, dev):
@@ -289,8 +449,8 @@ def phase_kernels(torch, dev):
                                        f"F={F} N={N} B={B} 1/{parts} {vals}",
                                        vals == "integer")
             ms = cuda_ms(lambda: th.masked_histogram(*a), reps=10)
-            dev_ms = device_ms(lambda: th.masked_histogram(*a), 10,
-                               KERNEL_H_NAMES)
+            dev_ms, _ = profile_calls(lambda: th.masked_histogram(*a), 10,
+                                      KERNEL_H_NAMES)
             (b_ms, b_by), rows = hist_bound(torch, a)
             dens.append(dict(density=f"1/{parts}", values=vals, rows=rows,
                              ms=ms, device_ms=dev_ms, bound_ms=b_ms,
@@ -362,22 +522,35 @@ def phase_kernels(torch, dev):
                 torch.tensor([64, 40, 63], dtype=torch.int32, device=dev),
                 torch.tensor([2, 0, 2], dtype=torch.int32, device=dev),
                 torch.ones(3, dtype=torch.bool, device=dev), rp, "ragged")
-    ms_s = cuda_ms(lambda: ts.find_best_split(hist, parent, nb, mt, fm, p),
-                   reps=50)
+    # the depth limit, as the growth loop passes it: lane 1 at max_depth
+    dep = torch.tensor([3, 4], dtype=torch.int32, device=dev)
+    check_split(torch, ts, hist, parent, nb, mt, fm, p, "full, max_depth 4",
+                dep, 4)
+    check_split(torch, ts, hist, parent, nb, mt, fm, p,
+                "full, max_depth 4, one depth for both lanes", dep[1:], 4)
+    check_split_streams(torch, ts, (hist, parent, nb, mt, fm, p, dep, 4),
+                        "two streams at once")
+
+    def call_s():
+        return ts.find_best_split(hist, parent, nb, mt, fm, p, dep, 0)
+
+    dev_s, n_launch = profile_calls(call_s, 50, SPLIT_NAMES)
+    if n_launch != 1:
+        fail(f"kernel S made {n_launch} CUDA launches in one call, not 1")
+    ms_s = cuda_ms(call_s, reps=50)
     plain_s = cuda_ms(lambda: ts.find_best_split_plain(hist, parent, nb, mt,
-                                                       fm, p), reps=10)
-    # reads: hist, parent, per-feature descriptors; writes: the record.
-    # Per (lane, feature, bin): 3 scan adds, and per default direction the
-    # right-side stats (3), two leaf outputs (4 each) and gains given
-    # output (6 each), their sum and the gain shift (2): 3 + 2 * 25.
-    b_s = bound(hist.numel() * 4 + parent.numel() * 4 + F * 9 +
-                2 * (4 * 3 + 1 + 12 + B), hist.numel() // 3 * 53)
-    out["best_split"] = dict(max_abs_err=err_s, ms=ms_s, plain_ms=plain_s,
+                                                       fm, p, dep, 0),
+                      reps=10)
+    b_s = split_bound(hist, B)
+    out["best_split"] = dict(max_abs_err=err_s, ms=ms_s, device_ms=dev_s,
+                             launches_per_call=n_launch, plain_ms=plain_s,
                              bound_ms=b_s[0], bound_by=b_s[1],
                              library_ms=None)
-    print(f"kernel S: max gain diff {err_s:.3g}; {ms_s:.4f} ms (plain "
-          f"{plain_s:.3f}, bound {b_s[0]:.5f} by {b_s[1]}) at W=2 F={F} "
-          f"B={B}", flush=True)
+    print(f"kernel S: gains equal, max_depth applied, two streams at once; "
+          f"{ms_s:.4f} ms a call "
+          f"back to back, device {dev_s:.4f} ms, {n_launch:g} launch a call "
+          f"(plain {plain_s:.3f}, bound {b_s[0]:.6f} by {b_s[1]}) at W=2 "
+          f"F={F} B={B}", flush=True)
 
     # ---- kernel L ---------------------------------------------------
     # ragged lengths (not multiples of 16, shorter than a warp's tile) and
@@ -440,6 +613,67 @@ def check_multi(torch, th, bins, vals, sel, W, B, two_col, exact, ctx,
         fail(f"kernel M differs from plain ({ctx}): max rel "
              f"{float(rel.max())}")
     return float(diff.max()), float(rel.max())
+
+
+def measure_routed(torch, th, dev, g, bins, qv, li, tbl, miss_bin, B,
+                   shift, mode):
+    """Kernel R at a W=64 wave (two-column int8, exact) and at W=21 with
+    float values (the wave's first 21 lanes, rel 1e-5; N(0, 1) and U(0.05,
+    1.05) values, and wide-exponent ones), each against its plain version
+    with a repeat launch bit for bit; times, device time, launches a call
+    and the bound of the W=64 wave."""
+    F, N = bins.shape
+    W = tbl.shape[1]
+    kw = dict(miss_bin=miss_bin, shift=shift)
+    args = (bins, qv, li, tbl, B, W, True)
+    err, _ = check_routed(torch, th, args, kw, True,
+                          f"{mode}, W={W} two-column int8")
+    fv = torch.stack([torch.randn(N, generator=g, device=dev),
+                      torch.rand(N, generator=g, device=dev) + 0.05,
+                      torch.ones(N, device=dev)], -1).contiguous()
+    fargs = (bins, fv, li, tbl[:, :21].contiguous(), B, 21, False)
+    _, rel_f = check_routed(torch, th, fargs, kw, False,
+                            f"{mode}, W=21 float")
+    ms_f = cuda_ms(lambda: th.routed_histogram(*fargs, **kw), reps=5)
+    fv[:, 0], fv[:, 1] = wide_values(torch, g, dev, N)
+    _, rel_w = check_routed(torch, th, fargs, kw, False,
+                            f"{mode}, W=21 wide-exponent float")
+    del fv, fargs
+
+    def call_r():
+        return th.routed_histogram(*args, **kw)
+
+    dev_ms, n_launch = profile_calls(call_r, 10, ROUTED_NAMES)
+    if n_launch != 3:
+        fail(f"kernel R made {n_launch} CUDA launches in one call, not 3")
+    ms = cuda_ms(call_r, reps=10)
+    plain = cuda_ms(lambda: th.routed_histogram_plain(*args, **kw), reps=2)
+    sel = th.routed_histogram(*args, want_sel=True, **kw)[2]
+    n_wave = int(torch.isin(li.to(torch.int32), tbl[0]).sum())
+    n_sel = int((sel >= 0).sum())
+    # needs: the leaf ids, one split bin per row of the wave, the bins and
+    # values of the selected rows; writes the leaf ids and the histogram
+    b = bound(N + n_wave + N + n_sel * F + n_sel * 2 + W * F * B * 3 * 4,
+              n_sel * F * 2)
+    # what the feature-major bins let a pass read at best: every 32-byte
+    # sector of bins (and of values) that holds a selected row
+    full = N // 32 * 32
+    sect = int((sel[:full].reshape(-1, 32) >= 0).any(1).sum()) + \
+        int(bool((sel[full:] >= 0).any()))
+    floor_ms = bound(N + n_wave + N + sect * 32 * F + n_sel * 2 +
+                     W * F * B * 3 * 4, 0)[0]
+    print(f"kernel R {mode} (W={W}, 6-row tables, shift {shift}): hist, leaf "
+          f"ids and sel exact, repeat launch bit for bit; W=21 float max rel "
+          f"{rel_f:.3g}, {ms_f:.4f} ms, wide-exponent float max rel "
+          f"{rel_w:.3g}; {ms:.4f} ms, device {dev_ms:.4f} ms, "
+          f"{n_launch:g} launches a call (plain {plain:.3f}, bound {b[0]:.4f} "
+          f"by {b[1]}, sector floor {floor_ms:.4f}) at F={F} N={N} B={B} "
+          f"selected {n_sel}", flush=True)
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
+                launches_per_call=n_launch, plain_ms=plain, bound_ms=b[0],
+                bound_by=b[1], library_ms=None,
+                float_w21_ms=ms_f, float_w21_max_rel_err=rel_f,
+                float_w21_wide_max_rel_err=rel_w)
 
 
 def phase_kernels_wave(torch, dev, th, ts, bins):
@@ -518,32 +752,9 @@ def phase_kernels_wave(torch, dev, th, ts, bins):
                       dtype=torch.int32),
         torch.randint(0, 2, (64,), generator=g, device=dev,
                       dtype=torch.int32)]).contiguous()
-    kh, kl, ks = th.routed_histogram(bins, qv, li, tbl, B, 64, True, miss_bin,
-                                     want_sel=True)
-    qh, ql, qs = th.routed_histogram_plain(bins, qv, li, tbl, B, 64, True,
-                                           miss_bin)
-    torch.cuda.synchronize()
-    if not (torch.equal(kh, qh) and torch.equal(kl, ql) and
-            torch.equal(ks, qs)):
-        fail("kernel R differs from plain: hist "
-             f"{float((kh - qh).abs().max())}, leaf ids "
-             f"{int((kl != ql).sum())}, sel {int((ks != qs).sum())}")
-    ms_r = cuda_ms(lambda: th.routed_histogram(bins, qv, li, tbl, B, 64, True,
-                                               miss_bin), reps=10)
-    plain_r = cuda_ms(lambda: th.routed_histogram_plain(
-        bins, qv, li, tbl, B, 64, True, miss_bin), reps=2)
-    n_wave = int(torch.isin(li.to(torch.int32), tbl[0]).sum())
-    n_sel = int((qs >= 0).sum())
-    # needs: the leaf ids, one split bin per row of the wave, the bins and
-    # values of the selected rows; writes the leaf ids and the histogram
-    b_r = bound(N + n_wave + N + n_sel * F + n_sel * 2 +
-                64 * F * B * 3 * 4, n_sel * F * 2)
-    out["routed_histogram"] = dict(max_abs_err=0.0, ms=ms_r, plain_ms=plain_r,
-                                   bound_ms=b_r[0], bound_by=b_r[1],
-                                   library_ms=None)
-    print(f"kernel R (W=64, 6-row tables): hist, leaf ids and sel exact; "
-          f"{ms_r:.4f} ms (plain {plain_r:.3f}, bound {b_r[0]:.4f} by "
-          f"{b_r[1]}) at F={F} N={N} B={B}", flush=True)
+    out["routed_histogram"] = measure_routed(
+        torch, th, dev, g, bins, qv, li, tbl, miss_bin, B, 0, "full")
+    check_routed_edges(torch, th, dev)
 
     # ---- kernel S at the wave's 2W = 128 children, counts proxy -------
     ch = th.multi_histogram(bins, qv, sel, B, 64, True)
@@ -556,12 +767,24 @@ def phase_kernels_wave(torch, dev, th, ts, bins):
     pw = ts.SplitParams(max_bin=B, min_data_in_leaf=0,
                         min_sum_hessian_in_leaf=100.0, any_missing=True,
                         counts_proxy=True)
+    dep = torch.ones(128, dtype=torch.int32, device=dev)
     check_split(torch, ts, ch, par, nb, mt, fm, pw, "W=128 counts proxy")
-    ms_s = cuda_ms(lambda: ts.find_best_split(ch, par, nb, mt, fm, pw),
-                   reps=20)
+
+    def call_s():
+        return ts.find_best_split(ch, par, nb, mt, fm, pw, dep, 0)
+
+    ms_s = cuda_ms(call_s, reps=20)
+    dev_s, n_launch = profile_calls(call_s, 20, SPLIT_NAMES)
+    b_s = split_bound(ch, B)
+    if n_launch != 1:
+        fail(f"kernel S made {n_launch} CUDA launches in one call, not 1")
+    out["best_split_2w"] = dict(ms=ms_s, device_ms=dev_s,
+                                launches_per_call=n_launch, bound_ms=b_s[0],
+                                bound_by=b_s[1])
     print(f"kernel S (2W=128 children, counts proxy): identical to plain; "
-          f"{ms_s:.4f} ms", flush=True)
-    del ch, kh, kl, ks, qh, ql, qs
+          f"{ms_s:.4f} ms, device {dev_s:.4f} ms, {n_launch:g} launch a call "
+          f"(bound {b_s[0]:.5f} by {b_s[1]})", flush=True)
+    del ch
 
     # ---- kernel Q ---------------------------------------------------
     lq = torch.randint(0, 255, (N,), generator=g, device=dev,
@@ -666,32 +889,10 @@ def phase_kernels_c2f(torch, dev, th, bins, qv, g):
                       dtype=torch.int32),
         torch.randint(0, 2, (W,), generator=g, device=dev,
                       dtype=torch.int32)]).contiguous()
-    kh, kl, ks = th.routed_histogram(bins, qv, li, tbl, Bc, W, True,
-                                     miss_bin, want_sel=True, shift=shift)
-    qh, ql, qs = th.routed_histogram_plain(bins, qv, li, tbl, Bc, W, True,
-                                           miss_bin, shift)
-    torch.cuda.synchronize()
-    if not (torch.equal(kh, qh) and torch.equal(kl, ql) and
-            torch.equal(ks, qs)):
-        fail("kernel R (coarse) differs from plain: hist "
-             f"{float((kh - qh).abs().max())}, leaf ids "
-             f"{int((kl != ql).sum())}, sel {int((ks != qs).sum())}")
-    ms_r = cuda_ms(lambda: th.routed_histogram(bins, qv, li, tbl, Bc, W,
-                                               True, miss_bin, shift=shift),
-                   reps=10)
-    plain_r = cuda_ms(lambda: th.routed_histogram_plain(
-        bins, qv, li, tbl, Bc, W, True, miss_bin, shift), reps=2)
-    n_wave = int(torch.isin(li.to(torch.int32), tbl[0]).sum())
-    n_sel = int((qs >= 0).sum())
-    b_r = bound(N + n_wave + N + n_sel * F + n_sel * 2 +
-                W * F * Bc * 3 * 4, n_sel * F * 2)
-    out["routed_histogram"] = dict(max_abs_err=0.0, ms=ms_r,
-                                   plain_ms=plain_r, bound_ms=b_r[0],
-                                   bound_by=b_r[1], library_ms=None)
-    print(f"kernel R coarse (W=64, 6-row tables, shift {shift}): hist, leaf "
-          f"ids and sel exact; {ms_r:.4f} ms (plain {plain_r:.3f}, bound "
-          f"{b_r[0]:.4f} by {b_r[1]}) at F={F} N={N} Bc={Bc}", flush=True)
-    del kh, ks, qh, ql, qs
+    out["routed_histogram"] = measure_routed(
+        torch, th, dev, g, bins, qv, li, tbl, miss_bin, Bc, shift, "coarse")
+    kl = th.routed_histogram(bins, qv, li, tbl, Bc, W, True, miss_bin,
+                             shift=shift)[1]
 
     # ---- kernel V: the root's window ----------------------------------
     lo0 = (torch.randint(0, Bc - 2, (1, F), generator=g, device=dev,
@@ -1090,14 +1291,16 @@ def main():
     rows = []
     for name, (src, repl, counts) in meta.items():
         s = stats.get(f"c2f_{name}", stats.get(name))
+        # the contract's keys first, then the kernel's own figures
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": repl, "launches": counts[name],
-               **{k: s[k] for k in keys}}
-        if "by_density" in s:
-            row["by_density"] = s["by_density"]
+               **{k: s[k] for k in keys},
+               **{k: v for k, v in s.items() if k not in keys}}
         if f"c2f_{name}" in stats and name in stats:
             row["full_resolution"] = {"launches": wave_counts[name],
-                                      **{k: stats[name][k] for k in keys}}
+                                      **stats[name]}
+        if name == "best_split":
+            row["at_2w128"] = stats["best_split_2w"]
         rows.append(row)
     print(json.dumps({"card": card, "e2e_exact": e2e, "e2e_wave": e2e_wave,
                       "e2e_c2f": e2e_c2f, "launches_exact": exact_counts,

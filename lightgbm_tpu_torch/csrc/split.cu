@@ -1,50 +1,67 @@
-// Kernel S: best numerical split of a batch of leaf histograms.
+// Kernel S: best numerical split of a batch of leaf histograms, in one
+// launch.
 //
 // Replaces the TPU kernel `find_best_split_pallas` / `_split_scan_kernel`
 // (lightgbm_tpu/ops/split.py:899, :856) with its helpers `_scan_tile`
 // (:599), `_tile_best` (:676) and `finish_split_partials` (:806).
 //
-// Stage 1, one block per (feature, leaf lane): an inclusive float32 scan
-// over the B bins of [grad, hess, count] restricted to the value bins; the
-// missing bin's stats are added for the default-left direction; the gain
-// of every threshold is computed in float32 in exactly the order of
-// `_split_gain` (leaf output, then gain given output, then minus the
-// parent's gain shift) under the min_data / min_sum_hessian (or, with
-// counts_proxy, hessian-only) / candidate masks; the block keeps the first
-// maximum (lowest bin).  The scan adds in the order of the JAX reference's
-// jnp.cumsum on the CPU (sequential within chunks of 16 bins, chunk
-// totals scanned the same way, each chunk offset by the ones before it),
-// as the plain version (`prefix_sum`) does: the same histogram then gives
-// the same prefix sums, gains and choice on the card, on the CPU and in
-// the reference, which matters where quantized histograms (integers times
-// a scale) tie exactly.  The library is built with -fmad=false, so no
-// multiply-add is contracted and the gains match the plain PyTorch
-// expression bit for bit.
+// One block per (feature, leaf lane), in one launch:
 //
-// Stage 2, one block per lane: the first maximum over features (lowest
-// feature on ties), then the record: gain, feature, threshold,
-// default_left, left stats and the (B,) goes-left mask over bin ids, as
-// `finish_split_partials` builds it (ops/split.py:828-833).
+// - Lane scalars.  Every thread computes the lane's gain shift from the
+//   (W, 3) parent stats itself, with the operations and order of the plain
+//   `lane_scalars`: the leaf output in float32, minus the fused product-sum
+//   fma32(2 sg, out, (h + l2) out out), plus min_gain_to_split.
+// - Scan.  The block stages its feature's (B, 3) histogram in shared
+//   memory (bins from the missing bin on count as 0) and forms the prefix
+//   sums of [grad, hess, count] in the order of the JAX reference's
+//   jnp.cumsum on the CPU, which the plain version (`prefix_sum`) follows:
+//   a thread scans each (channel, 16-bin chunk) sequentially, threads 0-2
+//   scan the chunk totals the same way (one channel each), and every chunk
+//   after the first is offset by the total of the ones before it.  The same
+//   histogram then gives the same prefix sums, gains and choice on the
+//   card, on the CPU and in the reference, which matters where quantized
+//   histograms (integers times a scale) tie exactly.
+// - Gains.  A thread a bin: both default directions, every gain in float32
+//   in exactly the order of `_split_gain` under the min_data /
+//   min_sum_hessian (or, with counts_proxy, hessian-only) and candidate
+//   masks.  The library is built with -fmad=false, so no multiply-add is
+//   contracted and the gains match the plain PyTorch expression bit for
+//   bit.  The feature's first maximum (lowest bin on ties) goes to a
+//   scratch slot.
+// - Record.  The lane's last block to finish (a per-lane counter, which
+//   that block resets to 0 for the next launch) takes the first maximum
+//   over the features' slots (lowest feature on ties) and writes the
+//   record: gain (NEG_INF where the lane's depth has reached max_depth > 0,
+//   the growth loop's depth limit), feature, threshold, default_left, left
+//   stats and the (B,) goes-left mask over bin ids, as
+//   `finish_split_partials` builds it (ops/split.py:828-833).
 //
 // What bounds it on an H100: neither bytes nor operations.  One call reads
 // W x F x B x 3 floats (172 KB for the two children of a split at 28
-// features x 256 bins) and does a few dozen flops per bin; the two
-// launches and the block-wide scan's barriers are the cost.  It runs once
-// per split (both children in one launch), so it is latency that matters;
-// fusing it into the histogram pass is later work.
+// features x 256 bins) and does about 53 flops per (lane, feature, bin):
+// 0.05 us by bytes.  The exact growth loop calls it 255 times a tree, one
+// call at a time, so what counts is the call's latency on the card and
+// its cost to the host: one launch, no other kernel around it, and blocks
+// spread over the card, each with a short dependent chain: one load, 16 +
+// 16 adds of the scan, a bin's gains.  (One block per lane, a warp per
+// feature, measured 0.024 ms of device time at W=2 on an H100: one SM then
+// evaluates all 7,168 candidates of a lane.)
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr float kEps = 1e-15f;
 constexpr float kNegInf = -1e30f;
-constexpr int kMaxThreads = 256;
 constexpr int kChunk = 16;
-constexpr int kMaxBins = 2048;  // static shared scan buffer
+constexpr int kMaxBins = 2048;
+constexpr int kThreads = 256;
+constexpr int kMaxWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 
 struct SplitCfg {
-  float l1, l2, mds, min_data, min_hess;
+  float l1, l2, mds, min_data, min_hess, min_gain;
   int any_missing;
   int counts_proxy;  // count channel is a hess copy: hessian test only
 };
@@ -114,74 +131,133 @@ __device__ void chunked_scan_serial(float* a, int n, float* tot) {
   }
 }
 
-// per-(lane, feature) partial: [gain, bin, default_left, Lg, Lh, Lc, 0, 0]
-__global__ void split_scan_kernel(const float* __restrict__ hist,
+// A candidate: net gain, bin, direction and left stats.
+struct Cand {
+  float gain;
+  int j;
+  bool dl;
+  float lg, lh, lc;
+};
+
+// `o` wins over `a` when better, or equal at a lower index `k`
+__device__ __forceinline__ bool beats(float go, int ko, float ga, int ka) {
+  return go > ga || (go == ga && ko < ka);
+}
+
+__device__ __forceinline__ Cand shfl_cand(const Cand& a, int off) {
+  Cand o;
+  o.gain = __shfl_down_sync(kFull, a.gain, off);
+  o.j = __shfl_down_sync(kFull, a.j, off);
+  o.dl = __shfl_down_sync(kFull, (int)a.dl, off) != 0;
+  o.lg = __shfl_down_sync(kFull, a.lg, off);
+  o.lh = __shfl_down_sync(kFull, a.lh, off);
+  o.lc = __shfl_down_sync(kFull, a.lc, off);
+  return o;
+}
+
+// The block's first maximum of `c` (by gain, then lowest index j), in
+// thread 0; `red` holds a candidate per warp.
+__device__ Cand block_first_max(Cand c, Cand* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const Cand o = shfl_cand(c, off);
+    if (beats(o.gain, o.j, c.gain, c.j)) c = o;
+  }
+  if (lane == 0) red[warp] = c;
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int q = 1; q < (int)(blockDim.x >> 5); ++q)
+      if (beats(red[q].gain, red[q].j, c.gain, c.j)) c = red[q];
+  return c;
+}
+
+// Floats of a block's shared memory: the feature's (B, 3) histogram,
+// scanned in place, the chunk totals (3 x nc) and the totals' own chunk
+// totals (3 x (nc / 16 + 1)).
+__host__ __device__ inline int smem_floats(int B) {
+  const int nc = (B + kChunk - 1) / kChunk;
+  return 3 * B + 3 * nc + 3 * (nc / kChunk + 1);
+}
+
+// A feature's best candidate in the scratch: [gain, bin, default_left,
+// Lg, Lh, Lc] (bin and direction as float values, exact below 2^24).
+constexpr int kPart = 8;
+
+__global__ void best_split_kernel(const float* __restrict__ hist,
+                                  const float* __restrict__ parent,
                                   const int32_t* __restrict__ num_bins,
                                   const int32_t* __restrict__ missing_type,
                                   const uint8_t* __restrict__ feature_mask,
-                                  const float* __restrict__ lane, int F, int B,
-                                  int per_thread, SplitCfg cfg,
-                                  float* __restrict__ part) {
-  __shared__ float cum[3][kMaxBins];
-  __shared__ float tot[3][kMaxBins / kChunk];
-  __shared__ float tot2[3][kMaxBins / kChunk / kChunk + 1];
-  __shared__ float red_gain[kMaxThreads];
-  __shared__ int red_bin[kMaxThreads];
-  __shared__ int red_tid[kMaxThreads];
-
+                                  const int32_t* __restrict__ depth,
+                                  int depth_stride, int max_depth, int F,
+                                  int B, SplitCfg cfg,
+                                  float* __restrict__ part,
+                                  unsigned* __restrict__ done,
+                                  float* __restrict__ gain_out,
+                                  float* __restrict__ left_stats,
+                                  int32_t* __restrict__ feature_out,
+                                  int32_t* __restrict__ threshold_out,
+                                  uint8_t* __restrict__ default_left,
+                                  uint8_t* __restrict__ left_mask) {
+  extern __shared__ float smem[];
+  __shared__ Cand red[kMaxWarps];
+  __shared__ bool last;
   const int f = blockIdx.x;
   const int w = blockIdx.y;
   const int t = threadIdx.x;
+  const int nc = (B + kChunk - 1) / kChunk;
+  float* cum = smem;                  // [j * 3 + ch]
+  float* tot = cum + 3 * B;           // [ch * nc + c]
+  float* tot2 = tot + 3 * nc;         // [ch * (nc / 16 + 1) + k]
+
+  // the lane scalars, as `lane_scalars` computes them
+  const float pg = parent[w * 3], ph = parent[w * 3 + 1];
+  const float pc = parent[w * 3 + 2];
+  const float gshift =
+      gain_given_output(pg, ph, leaf_output(pg, ph, cfg), cfg, true) +
+      cfg.min_gain;
+
   const float* hf = hist + ((int64_t)w * F + f) * B * 3;
   const int nb = num_bins[f];
   const bool has_miss = cfg.any_missing && missing_type[f] != 0;
   const int nv = nb - (has_miss ? 1 : 0);
+  for (int i = t; i < 3 * B; i += blockDim.x)
+    cum[i] = i / 3 < nv ? hf[i] : 0.0f;    // bins from nv on count as 0
   float mg = 0.0f, mh = 0.0f, mc = 0.0f;
   if (has_miss) {
     mg = hf[(nb - 1) * 3];
     mh = hf[(nb - 1) * 3 + 1];
     mc = hf[(nb - 1) * 3 + 2];
   }
-  const float pg = lane[w * 4], ph = lane[w * 4 + 1], pc = lane[w * 4 + 2];
-  const float gshift = lane[w * 4 + 3];
-
-  // float32 prefix sums of the value bins (bins from nv on count as 0) in
-  // the order of XLA's CPU cumsum, which the plain version (`prefix_sum`)
-  // and the JAX reference's jnp.cumsum follow: sequential within chunks of
-  // kChunk bins (one thread per chunk and channel), the chunk totals
-  // scanned the same way (one thread per channel), then every chunk after
-  // the first offset by the total before it
-  const int nc = (B + kChunk - 1) / kChunk;
+  __syncthreads();
+  // sequential within each 16-bin chunk, a thread a (channel, chunk)
   for (int q = t; q < 3 * nc; q += blockDim.x) {
     const int ch = q / nc, c = q % nc;
-    const int e = min((c + 1) * kChunk, B);
-    float acc = 0.0f;
-    for (int j = c * kChunk; j < e; ++j) {
-      const float v = j < nv ? hf[j * 3 + ch] : 0.0f;
-      acc = j == c * kChunk ? v : acc + v;
-      cum[ch][j] = acc;
+    const int j0 = c * kChunk, e = min(j0 + kChunk, B);
+    float a = cum[j0 * 3 + ch];
+    for (int j = j0 + 1; j < e; ++j) {
+      a = a + cum[j * 3 + ch];
+      cum[j * 3 + ch] = a;
     }
-    tot[ch][c] = acc;
+    tot[ch * nc + c] = a;
   }
   __syncthreads();
-  if (t < 3 && nc > 1) chunked_scan_serial(tot[t], nc, tot2[t]);
+  // the chunk totals, a thread a channel
+  if (t < 3 && nc > 1)
+    chunked_scan_serial(tot + t * nc, nc, tot2 + t * (nc / kChunk + 1));
   __syncthreads();
-  for (int q = t; q < 3 * nc; q += blockDim.x) {
-    const int ch = q / nc, c = q % nc;
-    if (c == 0) continue;
-    const int e = min((c + 1) * kChunk, B);
-    for (int j = c * kChunk; j < e; ++j) cum[ch][j] = cum[ch][j] + tot[ch][c - 1];
-  }
-  __syncthreads();
-  const int j0 = t * per_thread;
-  const int j1 = min(j0 + per_thread, B);
 
   const bool fm = feature_mask[f] != 0;
-  float best = kNegInf;
-  int best_j = -1;
-  float best_dl = 0.0f, best_lg = 0.0f, best_lh = 0.0f, best_lc = 0.0f;
-  for (int j = j0; j < j1; ++j) {
-    const float Lg = cum[0][j], Lh = cum[1][j], Lc = cum[2][j];
+  Cand mine{-INFINITY, B, false, 0.f, 0.f, 0.f};
+  for (int j = t; j < B; j += blockDim.x) {
+    const int c = j / kChunk;
+    float Lg = cum[j * 3], Lh = cum[j * 3 + 1], Lc = cum[j * 3 + 2];
+    if (c > 0) {
+      Lg = Lg + tot[c - 1];
+      Lh = Lh + tot[nc + c - 1];
+      Lc = Lc + tot[2 * nc + c - 1];
+    }
     const bool cand = j <= nv - 2;
     const float Rg = pg - Lg, Rh = ph - Lh, Rc = pc - Lc;
     float g_r = split_gain(Lg, Lh + kEps, Rg, Rh + kEps, cfg, true) - gshift;
@@ -207,133 +283,102 @@ __global__ void split_scan_kernel(const float* __restrict__ hist,
       }
     }
     if (!fm) gain = kNegInf;
-    if (best_j < 0 || gain > best) {
-      best = gain;
-      best_j = j;
-      best_dl = dl ? 1.0f : 0.0f;
-      best_lg = wg;
-      best_lh = wh;
-      best_lc = wc;
-    }
+    // a thread's bins ascend: a later one wins only when better
+    if (mine.j == B || gain > mine.gain) mine = Cand{gain, j, dl, wg, wh, wc};
   }
-
-  // first maximum over threads: thread ranges ascend with t
-  red_gain[t] = best;
-  red_bin[t] = best_j < 0 ? B : best_j;
-  red_tid[t] = t;
-  __syncthreads();
-  for (int off = blockDim.x / 2; off > 0; off >>= 1) {
-    if (t < off) {
-      const float go = red_gain[t + off];
-      const int jo = red_bin[t + off];
-      if (go > red_gain[t] || (go == red_gain[t] && jo < red_bin[t])) {
-        red_gain[t] = go;
-        red_bin[t] = jo;
-        red_tid[t] = red_tid[t + off];
-      }
-    }
-    __syncthreads();
-  }
-  if (t == red_tid[0]) {
-    float* out = part + ((int64_t)w * F + f) * 8;
-    out[0] = best;
-    out[1] = (float)best_j;
-    out[2] = best_dl;
-    out[3] = best_lg;
-    out[4] = best_lh;
-    out[5] = best_lc;
-  }
-}
-
-__global__ void split_finish_kernel(const float* __restrict__ part,
-                                    const int32_t* __restrict__ num_bins,
-                                    const int32_t* __restrict__ missing_type,
-                                    int F, int B, int any_missing,
-                                    float* __restrict__ gain,
-                                    int32_t* __restrict__ feature,
-                                    int32_t* __restrict__ threshold,
-                                    uint8_t* __restrict__ default_left,
-                                    float* __restrict__ left_stats,
-                                    uint8_t* __restrict__ left_mask) {
-  __shared__ float red_gain[kMaxThreads];
-  __shared__ int red_f[kMaxThreads];
-  const int w = blockIdx.x;
-  const int t = threadIdx.x;
-  const float* pw = part + (int64_t)w * F * 8;
-  float best = kNegInf;
-  int bf = -1;
-  for (int f = t; f < F; f += blockDim.x) {
-    const float g = pw[f * 8];
-    if (bf < 0 || g > best) {
-      best = g;
-      bf = f;
-    }
-  }
-  red_gain[t] = best;
-  red_f[t] = bf < 0 ? F : bf;
-  __syncthreads();
-  for (int off = blockDim.x / 2; off > 0; off >>= 1) {
-    if (t < off) {
-      const float go = red_gain[t + off];
-      const int fo = red_f[t + off];
-      if (go > red_gain[t] || (go == red_gain[t] && fo < red_f[t])) {
-        red_gain[t] = go;
-        red_f[t] = fo;
-      }
-    }
-    __syncthreads();
-  }
-  const int fs = red_f[0];
-  const float* rec = pw + fs * 8;
-  const int js = (int)rec[1];
-  const bool dl = rec[2] > 0.5f;
-  const int nb = num_bins[fs];
-  const bool has_miss = any_missing && missing_type[fs] != 0;
-  const int nv = nb - (has_miss ? 1 : 0);
+  // the feature's first maximum (lowest bin on ties) into the scratch
+  const Cand best = block_first_max(mine, red);
   if (t == 0) {
-    gain[w] = rec[0];
-    feature[w] = fs;
-    threshold[w] = js;
-    default_left[w] = dl ? 1 : 0;
-    left_stats[w * 3] = rec[3];
-    left_stats[w * 3 + 1] = rec[4];
-    left_stats[w * 3 + 2] = rec[5];
+    float* out = part + ((int64_t)w * F + f) * kPart;
+    out[0] = best.gain;
+    out[1] = (float)best.j;
+    out[2] = best.dl ? 1.0f : 0.0f;
+    out[3] = best.lg;
+    out[4] = best.lh;
+    out[5] = best.lc;
+    __threadfence();
+    // the lane's last block to finish its feature writes the record
+    last = atomicAdd(done + w, 1u) == (unsigned)(F - 1);
   }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // first maximum over features (lowest feature on ties), from L2
+  const float* pw = part + (int64_t)w * F * kPart;
+  Cand fb{-INFINITY, F, false, 0.f, 0.f, 0.f};
+  for (int q = t; q < F; q += blockDim.x) {
+    const float g = __ldcg(pw + q * kPart);
+    if (fb.j == F || g > fb.gain) fb = Cand{g, q, false, 0.f, 0.f, 0.f};
+  }
+  __syncthreads();                     // `red` is reused
+  fb = block_first_max(fb, red);
+  __shared__ int s_f, s_j;
+  __shared__ bool s_dl;
+  if (t == 0) {
+    const float* r = pw + fb.j * kPart;
+    const int js = (int)__ldcg(r + 1);
+    const bool dls = __ldcg(r + 2) > 0.5f;
+    const bool limited = max_depth > 0 && depth != nullptr &&
+                         depth[w * depth_stride] >= max_depth;
+    gain_out[w] = limited ? kNegInf : fb.gain;
+    feature_out[w] = fb.j;
+    threshold_out[w] = js;
+    default_left[w] = dls ? 1 : 0;
+    left_stats[w * 3] = __ldcg(r + 3);
+    left_stats[w * 3 + 1] = __ldcg(r + 4);
+    left_stats[w * 3 + 2] = __ldcg(r + 5);
+    s_f = fb.j;
+    s_j = js;
+    s_dl = dls;
+    done[w] = 0u;                      // ready for the next launch
+  }
+  __syncthreads();
+  const int fs = s_f, js = s_j;
+  const bool dls = s_dl;
+  const int nbs = num_bins[fs];
+  const bool hm = cfg.any_missing && missing_type[fs] != 0;
+  const int nvs = nbs - (hm ? 1 : 0);
   for (int j = t; j < B; j += blockDim.x) {
-    const bool left =
-        (j <= js && j < nv) || (dl && has_miss && j == nb - 1);
+    const bool left = (j <= js && j < nvs) || (dls && hm && j == nbs - 1);
     left_mask[(int64_t)w * B + j] = left ? 1 : 0;
   }
 }
 
 }  // namespace
 
-extern "C" int ltt_best_split(const void* hist, const void* num_bins,
-                              const void* missing_type,
-                              const void* feature_mask, const void* lane,
-                              int W, int F, int B, float l1, float l2,
-                              float mds, float min_data, float min_hess,
-                              int any_missing, int counts_proxy, void* part,
-                              void* gain,
-                              void* feature, void* threshold,
-                              void* default_left, void* left_stats,
+// hist (W, F, B, 3) float32; parent (W, 3) float32; num_bins /
+// missing_type (F,) int32; feature_mask (F,) uint8; depth int32 or null,
+// lane w's at depth[w * depth_stride] (stride 0: one depth for all).
+// `part` is W x F x 8 float32 scratch; `done` W uint32 counters, zero
+// before the launch and zero again after it (the kernel resets
+// them), so launches that share them must be ordered on one stream.  The
+// record: gain (W,) float32, left_stats (W, 3) float32, feature /
+// threshold (W,) int32, default_left (W,) and left_mask (W, B) uint8.
+extern "C" int ltt_best_split(const void* hist, const void* parent,
+                              const void* num_bins, const void* missing_type,
+                              const void* feature_mask, const void* depth,
+                              int depth_stride, int max_depth, int W, int F,
+                              int B, float l1,
+                              float l2, float mds, float min_data,
+                              float min_hess, float min_gain, int any_missing,
+                              int counts_proxy, void* part, void* done,
+                              void* gain, void* left_stats, void* feature,
+                              void* threshold, void* default_left,
                               void* left_mask, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (B < 1 || B > kMaxBins) return (int)cudaErrorInvalidValue;
-  int threads = 32;
-  while (threads < B && threads < kMaxThreads) threads <<= 1;
-  const int per_thread = (B + threads - 1) / threads;
-  SplitCfg cfg{l1, l2, mds, min_data, min_hess, any_missing, counts_proxy};
-  split_scan_kernel<<<dim3(F, W), threads, 0, stream>>>(
-      (const float*)hist, (const int32_t*)num_bins,
+  if (W < 1 || W > 65535 || F < 1 || B < 1 || B > kMaxBins)
+    return (int)cudaErrorInvalidValue;
+  int threads = (B + 31) / 32 * 32;
+  if (threads > kThreads) threads = kThreads;
+  SplitCfg cfg{l1, l2, mds, min_data, min_hess, min_gain, any_missing,
+               counts_proxy};
+  best_split_kernel<<<dim3(F, W), threads, smem_floats(B) * sizeof(float),
+                      stream>>>(
+      (const float*)hist, (const float*)parent, (const int32_t*)num_bins,
       (const int32_t*)missing_type, (const uint8_t*)feature_mask,
-      (const float*)lane, F, B, per_thread, cfg, (float*)part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  split_finish_kernel<<<W, kMaxThreads, 0, stream>>>(
-      (const float*)part, (const int32_t*)num_bins,
-      (const int32_t*)missing_type, F, B, any_missing, (float*)gain,
-      (int32_t*)feature, (int32_t*)threshold, (uint8_t*)default_left,
-      (float*)left_stats, (uint8_t*)left_mask);
+      (const int32_t*)depth, depth_stride, max_depth, F, B, cfg, (float*)part,
+      (unsigned*)done, (float*)gain, (float*)left_stats, (int32_t*)feature,
+      (int32_t*)threshold, (uint8_t*)default_left, (uint8_t*)left_mask);
   return (int)cudaGetLastError();
 }

@@ -52,8 +52,8 @@ from ..utils import prng
 from .histogram import (lanes_window_histogram, leaf_stats,
                         masked_histogram, multi_histogram, routed_histogram,
                         window_histogram)
-from .split import (NEG_INF, SplitParams, choose_window, find_best_split,
-                    find_best_split_c2f, fma32, leaf_output)
+from .split import (NEG_INF, SplitParams, choose_window, depth_limit,
+                    find_best_split, find_best_split_c2f, fma32, leaf_output)
 
 __all__ = ["GrowParams", "build_tree", "quantize_gradients", "row_uniform",
            "route_rows"]
@@ -194,21 +194,14 @@ def build_tree(xt: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     }
 
 
-def _depth_limit(b: dict, depth, p: GrowParams) -> dict:
-    """No split where the children would pass ``max_depth``."""
-    if p.max_depth > 0:
-        b["gain"] = torch.where(depth < p.max_depth, b["gain"],
-                                torch.full_like(b["gain"], NEG_INF))
-    return b
-
-
 def _best_splits(hists, stats, depth, num_bins, missing_type, feature_mask,
                  p: GrowParams) -> dict:
-    """Best split of each of a batch of leaves (one kernel-S launch on the
-    card), no split where the children would pass ``max_depth``."""
-    b = find_best_split(hists.contiguous(), stats.contiguous(), num_bins,
-                        missing_type, feature_mask, p.split)
-    return _depth_limit(b, depth, p)
+    """Best split of each of a batch of leaves, no split where the children
+    would pass ``max_depth``: one kernel-S launch on the card, which
+    applies the depth limit itself."""
+    return find_best_split(hists.contiguous(), stats.contiguous(), num_bins,
+                           missing_type, feature_mask, p.split, depth,
+                           p.max_depth)
 
 
 def larger_child(parent: torch.Tensor, raw_small: torch.Tensor,
@@ -397,7 +390,7 @@ def _grow_wave(xt, grad, hess, sample_mask, feature_mask, num_bins,
     def scan_c2f(coarse, win, lo, stats, depth):
         b = find_best_split_c2f(coarse, win, lo, stats, num_bins,
                                 missing_type, feature_mask, sp, shift)
-        return _depth_limit(b, depth, p)
+        return depth_limit(b, depth, p.max_depth)
 
     def window(coarse, stats):
         return choose_window(coarse, stats, num_bins, missing_type, sp, shift)

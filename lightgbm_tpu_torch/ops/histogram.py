@@ -14,8 +14,9 @@ PyTorch version beside it:
   (``shift``, ``miss_bin``); plain version :func:`multi_histogram_plain`
   (``histogram_segsum_multi``, :528);
 - ``histogram_pallas_multi_routed`` (:872, mode "small") -> kernel R
-  (``csrc/routed_hist.cu``) through :func:`routed_histogram`, full or
-  coarse; plain version :func:`routed_histogram_plain`
+  (``csrc/routed_hist.cu``, its own accumulation body over 16-row groups,
+  launch plan :func:`routed_plan`) through :func:`routed_histogram`, full
+  or coarse; plain version :func:`routed_histogram_plain`
   (``histogram_segsum_multi_routed``, :1013);
 - ``histogram_pallas_multi_win`` (:628) -> kernel V
   (``csrc/window_hist.cu``) through :func:`window_histogram`; plain
@@ -47,7 +48,7 @@ from . import kernels
 __all__ = ["histogram_plain", "masked_histogram_plain", "masked_histogram",
            "hist_plan", "multi_width", "multi_histogram_plain",
            "multi_histogram",
-           "routed_histogram_plain", "routed_histogram",
+           "routed_histogram_plain", "routed_histogram", "routed_plan",
            "window_histogram_plain", "window_histogram",
            "lanes_window_histogram_plain", "lanes_window_histogram",
            "leaf_stats_plain", "leaf_stats", "LAUNCHES"]
@@ -458,16 +459,104 @@ def routed_histogram_plain(bins: torch.Tensor, vals: torch.Tensor,
     return hist, li_new, sel
 
 
+# kernel R's histogram launch constants (csrc/routed_hist.cu)
+ROUTED_GROUP = 16               # consecutive rows a thread takes at once
+ROUTED_SM_SMEM = 233_472        # shared memory of one SM (228 KB)
+_BLOCK_RESERVED_SMEM = 1_024    # shared memory the card keeps per block
+_ROUTED_PLANS: dict = {}
+
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def routed_smem(fpb: int, W: int, B: int, cols: int, acc_bytes: int) -> int:
+    """Kernel R's shared memory a block: ``fpb`` features' (W, B, cols)
+    tiles and their missing bins.  ``acc_bytes`` a cell: 4 (int32, int8
+    values) or 12 (an int64 and a uint32 word, float values)."""
+    cells = fpb * W * B * cols
+    tiles = _align16(cells * 4) if acc_bytes == 4 else \
+        _align16(cells * 8) + _align16(cells * 4)
+    return tiles + _align16(fpb * 4)
+
+
+def routed_row_cap(acc_bytes: int) -> int:
+    """Kernel R's most rows a block: no int32 partial of int8 values, and
+    no uint32 low word of float values (10 bits a row), can overflow."""
+    return 1 << 24 if acc_bytes == 4 else 1 << 22
+
+
+def routed_plan(F: int, B: int, W: int, cols: int, acc_bytes: int, n: int,
+                sms: int, per_sm=None) -> dict:
+    """Kernel R's histogram launch plan on a card with ``sms``
+    multiprocessors that runs ``per_sm`` of its blocks at once on each
+    (default: the most the threads and shared memory allow; the wrapper
+    asks the card).
+
+    A block holds the tiles of ``fpb`` features: as many as leave room for
+    two blocks an SM, and one where a tile is larger.  The features split
+    into ``groups`` of near-equal size; the grid is ``(groups,
+    row_blocks)``, one wave of the blocks the card runs at once, no more
+    row blocks than give every thread a 16-row group, and at most
+    :func:`routed_row_cap` rows a block.  Row
+    block ``i`` owns rows ``[i * rows_per_block, min((i + 1) *
+    rows_per_block, n))``, ``rows_per_block`` a multiple of 16; feature
+    group ``j`` features ``[j * fpb, min((j + 1) * fpb, F))``."""
+    tile = W * B * cols * acc_bytes
+    if routed_smem(1, W, B, cols, acc_bytes) > _SMEM_MAX:
+        raise ValueError(f"one feature's (W={W}, B={B}) tile needs {tile} "
+                         f"bytes of shared memory (at most {_SMEM_MAX})")
+    budget = ROUTED_SM_SMEM // 2 - _BLOCK_RESERVED_SMEM - 32
+    fpb = max(1, min(F, budget // (tile + 4)))
+    groups = -(-F // fpb)
+    fpb = -(-F // groups)
+    smem = routed_smem(fpb, W, B, cols, acc_bytes)
+    threads = 1024 if acc_bytes == 4 else 512
+    if per_sm is None:
+        per_sm = max(1, min(2048 // threads, ROUTED_SM_SMEM //
+                            (smem + _BLOCK_RESERVED_SMEM)))
+    n = max(n, 1)
+    rb = max(1, per_sm * sms // groups)
+    rb = min(rb, -(-n // (threads * ROUTED_GROUP)))  # a group a thread
+    rb = max(rb, -(-n // routed_row_cap(acc_bytes)))
+    rows_per_block = _align16(-(-n // rb))
+    rb = -(-n // rows_per_block)
+    return {"fpb": fpb, "groups": groups, "row_blocks": rb,
+            "rows_per_block": rows_per_block, "smem": smem}
+
+
+def _routed_launch_plan(lib, device, F, B, W, cols, acc_bytes, n,
+                        bin_bytes) -> dict:
+    """:func:`routed_plan` with the blocks an SM runs at once asked of the
+    card, once per shape."""
+    key = (torch.device(device).index, F, B, W, cols, acc_bytes, n,
+           bin_bytes)
+    plan = _ROUTED_PLANS.get(key)
+    if plan is None:
+        sms = kernels.sm_count(device)
+        smem = routed_plan(F, B, W, cols, acc_bytes, n, sms)["smem"]
+        got = lib.ltt_routed_active_blocks(bin_bytes, int(acc_bytes == 4),
+                                           cols, smem)
+        if got < 1:
+            raise RuntimeError(f"kernel R: no block with {smem} bytes of "
+                               f"shared memory fits the card (occupancy "
+                               f"query gave {got})")
+        plan = _ROUTED_PLANS[key] = routed_plan(F, B, W, cols, acc_bytes, n,
+                                                sms, got)
+    return plan
+
+
 def routed_histogram(bins: torch.Tensor, vals: torch.Tensor,
                      leaf_idx: torch.Tensor, tables: torch.Tensor,
                      max_bin: int, width: int, two_col: bool = False,
                      miss_bin=None, want_sel: bool = False,
                      leaf_bound: int = 256, shift: int = 0):
-    """As :func:`routed_histogram_plain`.  CUDA tensors go to kernel R
-    (a routing launch, then kernel M over its one-byte subset ids); the
-    int32 ``sel`` is written only with ``want_sel`` (None otherwise).
-    ``leaf_bound``: every leaf id is below it (256 for uint8 leaf ids).
-    CPU tensors go to the plain version, which always returns ``sel``."""
+    """As :func:`routed_histogram_plain`.  CUDA tensors go to kernel R (a
+    routing launch, then a histogram over 16-row groups of its one-byte
+    subset ids, planned by :func:`routed_plan`); the int32 ``sel`` is
+    written only with ``want_sel`` (None otherwise).  ``leaf_bound``:
+    every leaf id is below it (256 for uint8 leaf ids).  CPU tensors go to
+    the plain version, which always returns ``sel``."""
     if bins.device.type == "cpu":
         return routed_histogram_plain(bins, vals, leaf_idx, tables, max_bin,
                                       width, two_col, miss_bin, shift)
@@ -482,24 +571,35 @@ def routed_histogram(bins: torch.Tensor, vals: torch.Tensor,
         raise ValueError("kernel R routes at most 2048 features")
     if not 0 <= shift <= 15:
         raise ValueError("shift must be in [0, 15]")
+    cols = 2 if two_col else 3
+    if vals.shape[1] != cols:
+        vals = vals[:, :cols].contiguous()
+    if vals.data_ptr() % 16:
+        vals = vals.clone()                # the kernel loads 16-byte words
     lib = kernels.load()
     dev = bins.device
     tables = tables.contiguous()
-    rb = _multi_plan(F, n, dev)
+    acc = 4 if vals.dtype == torch.int8 else 12
+    plan = _routed_launch_plan(lib, dev, F, max_bin, width, cols, acc, n,
+                               bins.element_size())
     sms = kernels.sm_count(dev)
     route_blocks = max(1, min(8 * sms, -(-n // 256)))
     leaf_out = torch.empty_like(leaf_idx)
     lane = torch.empty(n, dtype=torch.int8, device=dev)
     sel = torch.empty(n, dtype=torch.int32, device=dev) if want_sel else None
-    part = _partial(rb, F, width, max_bin, two_col, vals)
+    part = _partial(plan["row_blocks"], F, width, max_bin, two_col, vals)
+    # float values: each routing block's largest exponent of each column
+    emax = None if acc == 4 else torch.empty(route_blocks * cols,
+                                             dtype=torch.int32, device=dev)
     out = torch.empty(width, F, max_bin, 3, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.ltt_routed_hist(
         bins.data_ptr(), bins.element_size(), vals.data_ptr(),
-        int(vals.dtype == torch.int8), vals.shape[1], int(two_col),
-        leaf_idx.data_ptr(), leaf_idx.element_size(), tables.data_ptr(),
-        tables.shape[0], _ptr(mb), leaf_bound, n, F, max_bin, width, shift,
-        route_blocks, rb, leaf_out.data_ptr(), lane.data_ptr(), _ptr(sel),
+        int(vals.dtype == torch.int8), int(two_col), leaf_idx.data_ptr(),
+        leaf_idx.element_size(), tables.data_ptr(), tables.shape[0],
+        _ptr(mb), leaf_bound, n, F, max_bin, width, shift, route_blocks,
+        plan["fpb"], plan["row_blocks"], plan["rows_per_block"],
+        leaf_out.data_ptr(), lane.data_ptr(), _ptr(sel), _ptr(emax),
         part.data_ptr(), out.data_ptr(), stream)
     kernels.check(rc, "kernel R (ltt_routed_hist)")
     LAUNCHES["routed_histogram"] += 1

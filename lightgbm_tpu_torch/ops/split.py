@@ -30,6 +30,7 @@ from . import kernels
 
 __all__ = ["EPS", "NEG_INF", "SplitParams", "leaf_output", "leaf_gain",
            "lane_scalars", "prefix_sum", "find_best_split_plain",
+           "depth_limit",
            "find_best_split", "choose_window", "find_best_split_c2f",
            "LAUNCHES"]
 
@@ -116,7 +117,8 @@ def _split_gain(gl, hl, gr, hr, l1, l2, mds, fuse_first=True):
 
 def lane_scalars(parent: torch.Tensor, p: SplitParams) -> torch.Tensor:
     """(W, 4) float32 per-lane operand: [parent_g, parent_h, parent_c,
-    gain_shift], gain_shift = parent leaf gain + min_gain_to_split."""
+    gain_shift], gain_shift = parent leaf gain + min_gain_to_split.  The
+    plain version of what kernel S computes for itself, bit for bit."""
     pgain = leaf_gain(parent[:, 0], parent[:, 1], p.lambda_l1, p.lambda_l2,
                       p.max_delta_step)
     gshift = pgain + p.min_gain_to_split
@@ -191,28 +193,53 @@ def _scan_both(cum, miss, no_miss, pst, gshift, ok, p: SplitParams,
             torch.where(dirl[..., None], L_l, cum), dirl)
 
 
-def _empty_record(W, B, device):
+def _record_views(W, F, B, device):
+    """The record's six outputs and kernel S's (W, F, 8) float32 scratch
+    as views into one buffer, the 4-byte fields first so every view is
+    aligned to its element -> (record dict, scratch)."""
+    buf = torch.empty(W * (25 + 32 * F + B), dtype=torch.uint8,
+                      device=device)
+    gain, ls, feat, thr, part, dl, lm = buf.split(
+        [4 * W, 12 * W, 4 * W, 4 * W, 32 * W * F, W, W * B])
     return {
-        "gain": torch.empty(W, dtype=torch.float32, device=device),
-        "feature": torch.empty(W, dtype=torch.int32, device=device),
-        "threshold": torch.empty(W, dtype=torch.int32, device=device),
-        "default_left": torch.empty(W, dtype=torch.bool, device=device),
-        "left_stats": torch.empty(W, 3, dtype=torch.float32, device=device),
-        "left_mask": torch.empty(W, B, dtype=torch.bool, device=device),
-    }
+        "gain": gain.view(torch.float32),
+        "left_stats": ls.view(torch.float32).view(W, 3),
+        "feature": feat.view(torch.int32),
+        "threshold": thr.view(torch.int32),
+        "default_left": dl.view(torch.bool),
+        "left_mask": lm.view(torch.bool).view(W, B),
+    }, part
+
+
+_DONE: dict = {}
+
+
+def _done_counters(W: int, device, stream: int) -> torch.Tensor:
+    """Kernel S's per-lane completion counters for launches on ``stream``
+    of ``device``: zeroed once; each launch leaves them zero again.  Each
+    stream has its own, so launches on two streams cannot mix counts."""
+    key = (torch.device(device).index, stream)
+    done = _DONE.get(key)
+    if done is None or done.numel() < W:
+        done = torch.zeros(max(W, 4096), dtype=torch.int32, device=device)
+        _DONE[key] = done
+    return done
 
 
 def find_best_split_plain(hist: torch.Tensor, parent: torch.Tensor,
                           num_bins: torch.Tensor, missing_type: torch.Tensor,
-                          feature_mask: torch.Tensor,
-                          p: SplitParams) -> dict:
+                          feature_mask: torch.Tensor, p: SplitParams,
+                          depth=None, max_depth: int = 0) -> dict:
     """Best split for a batch of W leaves — plain PyTorch.
 
     hist (W, F, B, 3) float32; parent (W, 3) float32; num_bins /
     missing_type (F,) int32; feature_mask (F,) bool.  Returns the record
     dict (gain, feature, threshold, default_left, left_stats (W, 3),
     left_mask (W, B)); gain is net of the parent's gain and
-    min_gain_to_split, <= 0 meaning "do not split"."""
+    min_gain_to_split, <= 0 meaning "do not split".  With ``depth`` (W,)
+    int32 (or (1,), one depth for all) and ``max_depth`` > 0, a lane whose
+    depth has reached ``max_depth`` gets gain NEG_INF (the growth loop's
+    depth limit)."""
     W, F, B, _ = hist.shape
     dev = hist.device
     lane = lane_scalars(parent, p)
@@ -232,8 +259,18 @@ def find_best_split_plain(hist: torch.Tensor, parent: torch.Tensor,
         no_miss = miss[..., 2] <= 0                          # (W, F)
     gain, L_win, dirl = _scan_both(cum, miss, no_miss, pst, gshift, cand_ok,
                                    p)
-    return _record(gain, L_win, dirl, jidx.expand(W, F, B), num_bins,
-                   has_missing, feature_mask, B)
+    rec = _record(gain, L_win, dirl, jidx.expand(W, F, B), num_bins,
+                  has_missing, feature_mask, B)
+    return depth_limit(rec, depth, max_depth)
+
+
+def depth_limit(rec: dict, depth, max_depth: int) -> dict:
+    """Gain NEG_INF where ``depth >= max_depth > 0``: no split where the
+    children would pass ``max_depth``."""
+    if max_depth > 0 and depth is not None:
+        rec["gain"] = torch.where(depth < max_depth, rec["gain"],
+                                  torch.full_like(rec["gain"], NEG_INF))
+    return rec
 
 
 def _record(gain, L, dirl, thr, num_bins, has_missing, feature_mask,
@@ -378,43 +415,55 @@ def find_best_split_c2f(coarse: torch.Tensor, win: torch.Tensor,
 
 def find_best_split(hist: torch.Tensor, parent: torch.Tensor,
                     num_bins: torch.Tensor, missing_type: torch.Tensor,
-                    feature_mask: torch.Tensor, p: SplitParams) -> dict:
+                    feature_mask: torch.Tensor, p: SplitParams,
+                    depth=None, max_depth: int = 0) -> dict:
     """Best split for a batch of W leaves, as :func:`find_best_split_plain`.
-    CUDA tensors go to kernel S (one launch for the batch); CPU tensors
-    to the plain version."""
+    CUDA tensors go to kernel S: one launch for the batch, which computes
+    the lane scalars and the depth limit itself, into one buffer (calls on
+    one stream share its completion counters, and so run in stream
+    order); CPU tensors to the plain version."""
     if hist.device.type == "cpu":
         return find_best_split_plain(hist, parent, num_bins, missing_type,
-                                     feature_mask, p)
+                                     feature_mask, p, depth, max_depth)
     W, F, B, C = hist.shape
     if C != 3 or hist.dtype != torch.float32 or not hist.is_contiguous():
         raise ValueError("hist must be contiguous float32 (W, F, B, 3)")
-    if parent.shape != (W, 3) or parent.dtype != torch.float32:
-        raise ValueError("parent must be float32 (W, 3)")
+    if parent.shape != (W, 3) or parent.dtype != torch.float32 or \
+            not parent.is_contiguous():
+        raise ValueError("parent must be contiguous float32 (W, 3)")
     for name, t in (("num_bins", num_bins), ("missing_type", missing_type)):
         if t.shape != (F,) or t.dtype != torch.int32 or \
                 not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous int32 ({F},)")
     if feature_mask.shape != (F,) or feature_mask.dtype != torch.bool:
         raise ValueError(f"feature_mask must be bool ({F},)")
-    if any(t.device != hist.device for t in
-           (parent, num_bins, missing_type, feature_mask)):
+    if depth is not None and (depth.dim() != 1 or
+                              depth.shape[0] not in (1, W) or
+                              depth.dtype != torch.int32):
+        raise ValueError(f"depth must be int32 ({W},) or (1,)")
+    dev = hist.device
+    if any(t is not None and t.device != dev for t in
+           (parent, num_bins, missing_type, feature_mask, depth)):
         raise ValueError("all inputs must be on one device")
     lib = kernels.load()
-    lane = lane_scalars(parent, p)
     fmask = feature_mask.contiguous()
-    part = torch.empty(W, F, 8, dtype=torch.float32, device=hist.device)
-    rec = _empty_record(W, B, hist.device)
-    stream = torch.cuda.current_stream(hist.device).cuda_stream
+    rec, part = _record_views(W, F, B, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.ltt_best_split(
-        hist.data_ptr(), num_bins.data_ptr(), missing_type.data_ptr(),
-        fmask.data_ptr(), lane.data_ptr(), W, F, B, p.lambda_l1,
-        p.lambda_l2, p.max_delta_step, float(max(p.min_data_in_leaf, 1)),
+        hist.data_ptr(), parent.data_ptr(), num_bins.data_ptr(),
+        missing_type.data_ptr(), fmask.data_ptr(),
+        None if depth is None else depth.data_ptr(),
+        0 if depth is None or depth.shape[0] == 1 else depth.stride(0),
+        max_depth, W, F, B,
+        p.lambda_l1, p.lambda_l2, p.max_delta_step,
+        float(max(p.min_data_in_leaf, 1)),
         max(p.min_sum_hessian_in_leaf, EPS) if p.counts_proxy
-        else p.min_sum_hessian_in_leaf, int(p.any_missing),
-        int(p.counts_proxy), part.data_ptr(),
-        rec["gain"].data_ptr(), rec["feature"].data_ptr(),
+        else p.min_sum_hessian_in_leaf, p.min_gain_to_split,
+        int(p.any_missing), int(p.counts_proxy), part.data_ptr(),
+        _done_counters(W, dev, stream).data_ptr(), rec["gain"].data_ptr(),
+        rec["left_stats"].data_ptr(), rec["feature"].data_ptr(),
         rec["threshold"].data_ptr(), rec["default_left"].data_ptr(),
-        rec["left_stats"].data_ptr(), rec["left_mask"].data_ptr(), stream)
+        rec["left_mask"].data_ptr(), stream)
     kernels.check(rc, "kernel S (ltt_best_split)")
     LAUNCHES["best_split"] += 1
     return rec

@@ -20,10 +20,11 @@ reports, after one warm-up iteration:
 - from ``torch.profiler`` over one more iteration: the device's busy time
   (the union of kernel intervals), its idle share of the iteration's
   wall time, kernel launches, and device time by kernel name (the
-  shared histogram body of kernels M, V and V-lanes by kernel), and
-  kernel H's device time and launches (``kernel_h``: its histogram
-  launch and its reduction together; the launch count is that of the
-  histogram launch, one per call).
+  shared histogram body of kernels M, V and V-lanes by kernel), and the
+  device time and calls of kernels H, S and R (``kernel_h``: its
+  histogram launch and its reduction; ``kernel_s``: its one launch;
+  ``kernel_r``: its routing, histogram and reduction launches; the
+  count is that of the first launch, one per call).
 
 The JSON is the last line of standard output.  Without a card it exits
 non-zero.
@@ -40,9 +41,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 
 # kernels of this package, by the name of their __global__ function
-OWN_KERNELS = ("hist_masked_kernel", "hist_reduce_kernel", "split_scan_kernel",
-               "split_finish_kernel", "leaf_add_kernel", "subset_hist_kernel",
-               "subset_reduce_kernel", "route_kernel",
+OWN_KERNELS = ("hist_masked_kernel", "hist_reduce_kernel", "best_split_kernel",
+               "leaf_add_kernel", "subset_hist_kernel", "subset_reduce_kernel",
+               "route_kernel", "routed_hist_kernel", "routed_reduce_kernel",
                "leaf_stats_reduce_kernel", "leaf_stats_kernel")
 # the shared body's instantiations, by their policies (subset_hist.cuh)
 SUBSET_KINDS = (("LaneMember", "V-lanes"), ("WindowMap", "V"),
@@ -139,17 +140,23 @@ def main(argv=None) -> int:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(0.02)    # see chip_smoke.profile_calls
         t0 = time.perf_counter()
         booster.update()
         sync()
         prof_wall_s = time.perf_counter() - t0
     busy_us, launches, rows = _kernel_table(prof, torch)
     own_us = sum(r["us"] for r in rows if r["own"])
-    kh = chip_smoke.KERNEL_H_NAMES       # the histogram launch, then its sum
-    h_rows = [r for r in rows if r["name"] in kh]
-    kernel_h = {"ms": sum(r["us"] for r in h_rows) / 1e3,
-                "launches": sum(r["launches"] for r in h_rows
-                                if r["name"] == kh[0])}
+    # kernels H, S and R: device time of all their launches, and the
+    # count of the first (one a call)
+    by_kernel = {}
+    for key, names in (("kernel_h", chip_smoke.KERNEL_H_NAMES),
+                       ("kernel_s", chip_smoke.SPLIT_NAMES),
+                       ("kernel_r", chip_smoke.ROUTED_NAMES)):
+        k_rows = [r for r in rows if r["name"] in names]
+        by_kernel[key] = {"ms": sum(r["us"] for r in k_rows) / 1e3,
+                          "launches": sum(r["launches"] for r in k_rows
+                                          if r["name"] == names[0])}
     out = {
         "card": card, "rows": args.rows,
         "path": ("wave-noc2f" if args.no_c2f else "wave-c2f")
@@ -163,7 +170,7 @@ def main(argv=None) -> int:
         if launches else None,
         "kernel_launches": launches,
         "own_kernels_s": own_us / 1e6 if launches else None,
-        "kernel_h": kernel_h if launches else None,
+        **{k: v if launches else None for k, v in by_kernel.items()},
         "kernels": rows[:20],
     }
     if not launches:
@@ -176,8 +183,9 @@ def main(argv=None) -> int:
               f"{busy_us / 1e6:.3f} s (idle share "
               f"{out['device_idle_share']:.3f}), {launches} kernel launches",
               flush=True)
-        print(f"kernel H: {kernel_h['ms']:.3f} ms of device time in "
-              f"{kernel_h['launches']} launches", flush=True)
+        for key, v in by_kernel.items():
+            print(f"{key}: {v['ms']:.3f} ms of device time in "
+                  f"{v['launches']} calls", flush=True)
         for r in rows[:20]:
             print(f"  {r['us'] / 1e3:9.3f} ms {r['launches']:6d}x "
                   f"{'*' if r['own'] else ' '} {r['name']}", flush=True)

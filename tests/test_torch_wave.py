@@ -228,3 +228,34 @@ def test_c2f_gate_raises_and_trains_without_refinement():
     assert bt._gbdt.grow_params.refine_shift == 4
     assert bt.num_trees() == 2 and bt._gbdt.max_bin == 256
     assert bt.models[0].num_leaves == 15
+
+
+# (name, extra params): the exact loop, float waves and two-column
+# quantized waves, each with a binding depth limit (31 leaves > 2^4)
+DEPTH_CASES = [
+    ("exact", {}),
+    ("float_waves", {"wave_splits": True}),
+    ("two_col_w64", {"wave_splits": True, "use_quantized_grad": True,
+                     "min_data_in_leaf": 0, "min_sum_hessian_in_leaf": 5.0}),
+]
+
+
+@pytest.mark.parametrize("name,extra", DEPTH_CASES,
+                         ids=[c[0] for c in DEPTH_CASES])
+def test_max_depth_training_matches_jax(name, extra):
+    """The depth limit folded into the split scan (kernel S applies it on
+    the card; the plain version here) grows the JAX package's trees:
+    identical splits and counts at max_depth=4, no tree deeper than 4."""
+    X, y = _data(51, "regression", True)
+    p = {"objective": "regression", "max_bin": 63, "num_leaves": 31,
+         "max_depth": 4, "verbose": -1, "metric": "None", **extra}
+    bj = lgb.train(p, lgb.Dataset(X, label=y, params=p), num_boost_round=3,
+                   verbose_eval=False)
+    pt = dict(p, device_type="cpu")
+    bt = ltt.train(pt, ltt.Dataset(X, label=y, params=pt), num_boost_round=3)
+    assert bt._gbdt.grow_params.max_depth == 4
+    assert bt._gbdt.grow_params.wave == (name != "exact")
+    assert_same_trees(bj, bt, X, 3)
+    for tr in bt.models:
+        assert 1 < tr.num_leaves <= 16
+        assert int(np.max(tr.leaf_depth[:tr.num_leaves])) == 4
