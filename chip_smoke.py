@@ -20,16 +20,21 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    also with max_depth active, gains equal, in one CUDA launch a call
    counted by ``torch.profiler``, with its device time beside the time of
    back-to-back calls; L exact for uint8 and int32 ids and ragged
-   lengths), and kernels M (W=64 two-column int8, exact; W=21 float),
-   R (W=64, 6-row lane tables, two-column int8 exact and W=21 float within
-   rel 1e-5, each with a repeat launch bit for bit, its launches a call
-   and device time; and every edge table of ``ROUTED_EDGE_CASES``, exact),
-   Q (exact) and S at the wave's 128 children with the counts proxy; and
-   the coarse-to-fine kernels: M coarse (the root pass, one live lane, and
-   W=64, two-column int8, shift 4 with the reserved missing slot; W=21
-   float), R coarse (W=64, as R above), V (the root's window) and
-   V-lanes (W=64, a uint8 leaf vector, dummy lanes), all exact on
-   integers;
+   lengths), and kernels M (its root pass at full resolution: one lane,
+   every row, two-column int8, exact, in 2 CUDA launches a call; W=64
+   two-column int8, exact; W=21 float and wide-exponent float values
+   within rel 1e-5; each with a repeat launch bit for bit), R (W=64, 6-row
+   lane tables, two-column int8 exact and W=21 float within rel 1e-5, each
+   with a repeat launch bit for bit, its launches a call and device time;
+   and every edge table of ``ROUTED_EDGE_CASES``, exact), Q (exact) and S
+   at the wave's 128 children with the counts proxy; and the
+   coarse-to-fine kernels: M coarse (the root pass, and W=64, two-column
+   int8, shift 4 with the reserved missing slot; W=21 float), R coarse
+   (W=64, as R above), V (the root's window) and V-lanes (W=64 and a
+   wave's 2W=128 children in one call on a uint8 leaf vector with dummy
+   lanes and windows at both edges, each in 2 CUDA launches a call with
+   its sector floor; int32 leaf ids at leaf bound 32768 and ragged
+   lengths; float and wide-exponent values), all exact on integers;
 3. the exact path: trains the Higgs-shaped configuration at full width
    (10.5M x 28, num_leaves=255, max_bin=255, learning_rate=0.1,
    min_sum_hessian_in_leaf=100) for 1 warm-up + 5 measured iterations
@@ -43,8 +48,8 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
 5. wave255 as bench.py runs it, coarse-to-fine refinement on
    (refine_shift 4), on the same data, 1 warm-up + 5 iterations with the
    counters reset just before: seconds per iteration, waves per tree,
-   launches of M, V, R, V-lanes, Q and L per tree, none of S, and holdout
-   AUC no more than 0.02 below the exact path's;
+   launches of M, V, R, V-lanes (one a wave), Q and L per tree, none of S,
+   and holdout AUC no more than 0.02 below the exact path's;
 6. trains reduced copies (50k rows with missing values, 10 iterations:
    the exact path at 31 leaves, float waves, quantized two-column waves
    at 127 leaves, and both wave kinds with coarse-to-fine refinement) on
@@ -69,9 +74,13 @@ FP32_FLOPS_PER_S = 67e12           # H100 SXM float32 outside tensor cores
 DEVICE = "cuda"
 # kernel H's two launches (csrc/histogram.cu), by their function names
 KERNEL_H_NAMES = ("hist_masked_kernel", "hist_reduce_kernel")
-# kernel S's launch (csrc/split.cu) and kernel R's three (routed_hist.cu)
+# kernel S's launch (csrc/split.cu) and kernel R's three (routed_hist.cu:
+# the routing launch, then the shared body's histogram and reduction,
+# whose names carry the calling kernel's tag), M's and V-lanes' two
+MULTI_NAMES = ("MultiTag",)
+LANES_NAMES = ("LanesTag",)
 SPLIT_NAMES = ("best_split_kernel",)
-ROUTED_NAMES = ("route_kernel", "routed_hist_kernel", "routed_reduce_kernel")
+ROUTED_NAMES = ("route_kernel", "RoutedTag")
 N_ROWS = 10_500_000
 N_FEATURES = 28
 N_HOLDOUT = 500_000
@@ -596,23 +605,104 @@ def _index_add_ms(torch, dev, cells, vals, sel, W, nb):
     return ms
 
 
-def check_multi(torch, th, bins, vals, sel, W, B, two_col, exact, ctx,
-                shift=0, miss_bin=None):
-    """Kernel M vs its plain version; returns (max abs, max rel)."""
-    k = th.multi_histogram(bins, vals, sel, B, W, two_col, shift, miss_bin)
-    q = th.multi_histogram_plain(bins, vals, sel, B, W, two_col, shift,
-                                 miss_bin)
+def check_against(torch, kernel, plain, exact, name, ctx):
+    """``kernel()`` against ``plain()``: a repeat launch bit for bit, then
+    exact (``exact``, integer values) or within rel 1e-5; returns (max
+    abs, max rel)."""
+    k = kernel()
+    k2 = kernel()
+    q = plain()
     torch.cuda.synchronize()
+    if not torch.equal(k, k2):
+        fail(f"kernel {name} gave other bits on a repeat launch ({ctx})")
     diff = (k - q).abs()
     rel = torch.where(diff == 0, torch.zeros_like(diff),
                       diff / q.abs().clamp_min(1e-30))
     if exact and float(diff.max()) != 0.0:
-        fail(f"kernel M is not exact on integer values ({ctx}): max diff "
-             f"{float(diff.max())}")
+        fail(f"kernel {name} is not exact on integer values ({ctx}): max "
+             f"diff {float(diff.max())}")
     if float(rel.max()) > 1e-5:
-        fail(f"kernel M differs from plain ({ctx}): max rel "
+        fail(f"kernel {name} differs from plain ({ctx}): max rel "
              f"{float(rel.max())}")
     return float(diff.max()), float(rel.max())
+
+
+def check_multi(torch, th, bins, vals, sel, W, B, two_col, exact, ctx,
+                shift=0, miss_bin=None):
+    """Kernel M vs its plain version, and a repeat launch bit for bit;
+    returns (max abs, max rel)."""
+    args = (bins, vals, sel, B, W, two_col, shift, miss_bin)
+    return check_against(torch, lambda: th.multi_histogram(*args),
+                         lambda: th.multi_histogram_plain(*args), exact, "M",
+                         ctx)
+
+
+def check_launches_a_call(torch, fn, names, want, what):
+    """(device ms of one call, CUDA launches a call) from the profiler;
+    fails unless the call makes ``want`` launches."""
+    dev_ms, n_launch = profile_calls(fn, 10, names)
+    if n_launch != want:
+        fail(f"kernel {what} made {n_launch} CUDA launches in one call, not "
+             f"{want}")
+    return dev_ms, n_launch
+
+
+def measure_multi_root(torch, th, dev, bins, qv, B, shift, miss_bin, mode):
+    """Kernel M's root pass as the growth loops launch it (one lane, every
+    row in it: ``sel0``, two-column int8), exact against its plain
+    version with a repeat launch bit for bit; its time, device time,
+    launches a call (2), plain and ``index_add_`` times and bound."""
+    F, N = bins.shape
+    sel0 = torch.zeros(N, dtype=torch.int8, device=dev)
+    args = (bins, qv, sel0, B, 1, True, shift, miss_bin)
+    err, _ = check_multi(torch, th, bins, qv, sel0, 1, B, True, True,
+                         f"{mode} root pass", shift, miss_bin)
+
+    def call():
+        return th.multi_histogram(*args)
+
+    ms = cuda_ms(call, reps=10)
+    dev_ms, n_launch = check_launches_a_call(torch, call, MULTI_NAMES, 2,
+                                             f"M ({mode} root pass)")
+    plain = cuda_ms(lambda: th.multi_histogram_plain(*args), reps=2)
+    cells = bins
+    if shift:
+        b64 = bins.to(torch.int64)
+        cells = torch.where(b64 == miss_bin.to(torch.int64)[:, None], B - 1,
+                            b64 >> shift)
+    lib = _index_add_ms(torch, dev, cells, qv, sel0, 1, B)
+    del cells
+    # needs: every row's bins, values and selector, the output; one integer
+    # add per (row, feature, column)
+    b = bound(N * F + N * 2 + N + F * B * 3 * 4, N * F * 2)
+    print(f"kernel M {mode} root pass (W=1, two-column int8, shift "
+          f"{shift}): exact, repeat launch bit for bit; {ms:.4f} ms, device {dev_ms:.4f} ms, {n_launch:g} launches a "
+          f"call (plain {plain:.3f}, index_add_ {lib:.3f}, bound {b[0]:.4f} by "
+          f"{b[1]}) at F={F} N={N} B={B}", flush=True)
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
+                launches_per_call=n_launch, plain_ms=plain, bound_ms=b[0],
+                bound_by=b[1], library_ms=lib)
+
+
+def check_multi_float(torch, th, g, dev, bins, B, shift, miss_bin, mode):
+    """Kernel M at W=21 on float values: N(0, 1) and U(0.05, 1.05), then
+    wide-exponent ones, within rel 1e-5 of plain with a repeat launch bit
+    for bit; returns (ms, max rel, wide max rel)."""
+    F, N = bins.shape
+    fv = torch.stack([torch.randn(N, generator=g, device=dev),
+                      torch.rand(N, generator=g, device=dev) + 0.05,
+                      torch.ones(N, device=dev)], -1).contiguous()
+    fsel = torch.randint(-1, 21, (N,), generator=g, device=dev,
+                         dtype=torch.int32)
+    _, rel = check_multi(torch, th, bins, fv, fsel, 21, B, False, False,
+                         f"{mode} W=21 float", shift, miss_bin)
+    ms = cuda_ms(lambda: th.multi_histogram(bins, fv, fsel, B, 21, False,
+                                            shift, miss_bin), reps=5)
+    fv[:, 0], fv[:, 1] = wide_values(torch, g, dev, N)
+    _, rel_w = check_multi(torch, th, bins, fv, fsel, 21, B, False, False,
+                           f"{mode} W=21 wide-exponent float", shift,
+                           miss_bin)
+    return ms, rel, rel_w
 
 
 def measure_routed(torch, th, dev, g, bins, qv, li, tbl, miss_bin, B,
@@ -695,7 +785,7 @@ def phase_kernels_wave(torch, dev, th, ts, bins):
     check_multi(torch, th, rb, rv, rs, 42, 64, False, True, "ragged int16")
     check_multi(torch, th, rb, rv[:, :2].contiguous(), rs.to(torch.int8), 42,
                 64, True, True, "ragged int8 sel")
-    # full width, quantized two-column, W = 64: the wave255 pass
+    # full width, quantized two-column, W = 64 (a wave's width)
     qv = torch.stack([
         torch.randint(-120, 121, (N,), generator=g, device=dev,
                       dtype=torch.int32),
@@ -703,36 +793,35 @@ def phase_kernels_wave(torch, dev, th, ts, bins):
                       dtype=torch.int32)], -1).to(torch.int8).contiguous()
     sel = torch.randint(-1, 64, (N,), generator=g, device=dev,
                         dtype=torch.int32)
-    err_m, _ = check_multi(torch, th, bins, qv, sel, 64, B, True, True,
-                           "W=64 two-column int8")
-    ms_m = cuda_ms(lambda: th.multi_histogram(bins, qv, sel, B, 64, True),
+    check_multi(torch, th, bins, qv, sel, 64, B, True, True,
+                "W=64 two-column int8")
+    ms_w = cuda_ms(lambda: th.multi_histogram(bins, qv, sel, B, 64, True),
                    reps=10)
-    plain_m = cuda_ms(lambda: th.multi_histogram_plain(bins, qv, sel, B, 64,
+    plain_w = cuda_ms(lambda: th.multi_histogram_plain(bins, qv, sel, B, 64,
                                                        True), reps=2)
-    lib_m = _index_add_ms(torch, dev, bins, qv, sel, 64, B)
+    lib_w = _index_add_ms(torch, dev, bins, qv, sel, 64, B)
     n_sel = int((sel >= 0).sum())
     # needs: the bins and values of the selected rows, every selector,
     # the output; one integer add per (selected row, feature, column)
-    b_m = bound(n_sel * F + n_sel * 2 + N * 4 + 64 * F * B * 3 * 4,
+    b_w = bound(n_sel * F + n_sel * 2 + N * 4 + 64 * F * B * 3 * 4,
                 n_sel * F * 2)
-    out["multi_histogram"] = dict(max_abs_err=err_m, ms=ms_m,
-                                  plain_ms=plain_m, bound_ms=b_m[0],
-                                  bound_by=b_m[1], library_ms=lib_m)
-    print(f"kernel M (W=64 two-column int8): exact; {ms_m:.4f} ms (plain "
-          f"{plain_m:.3f}, index_add_ {lib_m:.3f}, bound {b_m[0]:.4f} by "
-          f"{b_m[1]}) at F={F} N={N} B={B}", flush=True)
-    # full width, float values, W = 21
-    fv = torch.stack([torch.randn(N, generator=g, device=dev),
-                      torch.rand(N, generator=g, device=dev) + 0.05,
-                      torch.ones(N, device=dev)], -1).contiguous()
-    fsel = torch.randint(-1, 21, (N,), generator=g, device=dev,
-                         dtype=torch.int32)
-    _, rel_f = check_multi(torch, th, bins, fv, fsel, 21, B, False, False,
-                           "W=21 float")
-    ms_f = cuda_ms(lambda: th.multi_histogram(bins, fv, fsel, B, 21), reps=5)
-    print(f"kernel M (W=21 float): max rel {rel_f:.3g}; {ms_f:.4f} ms",
+    print(f"kernel M (W=64 two-column int8, int32 sel): exact; {ms_w:.4f} ms "
+          f"(plain {plain_w:.3f}, index_add_ {lib_w:.3f}, bound "
+          f"{b_w[0]:.4f} by {b_w[1]}) at F={F} N={N} B={B}", flush=True)
+    # the root pass at full resolution: the no-c2f path's launch of M
+    out["multi_histogram"] = measure_multi_root(torch, th, dev, bins, qv, B,
+                                                0, None, "full")
+    out["multi_histogram"].update(w64_ms=ms_w, w64_plain_ms=plain_w,
+                                  w64_index_add_ms=lib_w,
+                                  w64_bound_ms=b_w[0])
+    ms_f, rel_f, rel_fw = check_multi_float(torch, th, g, dev, bins, B, 0,
+                                            None, "full")
+    out["multi_histogram"].update(float_w21_ms=ms_f,
+                                  float_w21_max_rel_err=rel_f,
+                                  float_w21_wide_max_rel_err=rel_fw)
+    print(f"kernel M (W=21 float): max rel {rel_f:.3g}, wide-exponent "
+          f"{rel_fw:.3g}, repeat launches bit for bit; {ms_f:.4f} ms",
           flush=True)
-    del fv, fsel
 
     # ---- kernel R: a wave of 64 splits with missing-value routing -----
     li = torch.randint(0, 127, (N,), generator=g, device=dev,
@@ -819,6 +908,125 @@ def phase_kernels_wave(torch, dev, th, ts, bins):
     return out
 
 
+def _lanes_windows(torch, g, dev, W, F, Bc, shift):
+    """(W, F) window starts on coarse boundaries, features 0 and 1 at the
+    two edges (the first window, and the last one below the missing
+    slot)."""
+    lo = (torch.randint(0, Bc - 2, (W, F), generator=g, device=dev,
+                        dtype=torch.int32) << shift).contiguous()
+    lo[:, 0] = 0
+    lo[:, 1] = (Bc - 3) << shift
+    return lo
+
+
+def measure_lanes(torch, th, dev, bins, qv, leaf, lane_ids, is_miss,
+                  miss_bin, Bc, shift, R, g, b64):
+    """Kernel V-lanes over ``lane_ids`` (W = 64: a window group; 128: a
+    wave's 2W children in one call) on a uint8 leaf vector: exact against
+    its plain version with a repeat launch bit for bit, launches a call
+    (2), times, bound and sector floor."""
+    F, N = bins.shape
+    W = lane_ids.shape[0]
+    lo = _lanes_windows(torch, g, dev, W, F, Bc, shift)
+    args = (bins, qv, leaf, lane_ids, lo, R, W, True, miss_bin)
+    check_against(torch, lambda: th.lanes_window_histogram(*args),
+                  lambda: th.lanes_window_histogram_plain(*args), True,
+                  "V-lanes", f"W={W} uint8 leaf vector")
+
+    def call():
+        return th.lanes_window_histogram(*args)
+
+    ms = cuda_ms(call, reps=10)
+    dev_ms, n_launch = check_launches_a_call(torch, call, LANES_NAMES, 2,
+                                             f"V-lanes (W={W})")
+    plain = cuda_ms(lambda: th.lanes_window_histogram_plain(*args), reps=2)
+    lane = th._lanes_of(leaf, lane_ids, W)
+    safe = lane.clamp(min=0)
+    rb = b64 - lo.to(torch.int64).t()[:, safe]      # (F, N)
+    in_win = (rb >= 0) & (rb < R) & ~is_miss & (lane >= 0)[None, :]
+    lib = _index_add_ms(torch, dev, torch.where(in_win, rb, R), qv, lane, W,
+                        R)
+    n_lane = int((lane >= 0).sum())
+    # needs: every row's leaf id, the lanes' rows' bins and values, the
+    # lane ids and window starts, the output; an add per in-window value
+    b = bound(N + n_lane * F + n_lane * 2 + W * 4 * (F + 1) +
+              W * F * R * 3 * 4, int(in_win.sum()) * 2)
+    # what the feature-major bins let a pass read at best: every 32-byte
+    # sector of bins that holds a lane row
+    full = N // 32 * 32
+    sect = int((lane[:full].reshape(-1, 32) >= 0).any(1).sum()) + \
+        int(bool((lane[full:] >= 0).any()))
+    floor_ms = bound(N + sect * 32 * F + n_lane * 2 + W * 4 * (F + 1) +
+                     W * F * R * 3 * 4, 0)[0]
+    print(f"kernel V-lanes (W={W}, uint8 leaf vector, 4 dummy lanes, "
+          f"windows at both edges): exact, repeat launch bit for bit; "
+          f"{ms:.4f} ms, device {dev_ms:.4f} ms, {n_launch:g} launches a call "
+          f"(plain {plain:.3f}, index_add_ {lib:.3f}, bound {b[0]:.4f} by "
+          f"{b[1]}, sector floor {floor_ms:.4f}) at F={F} N={N} rows in lanes "
+          f"{n_lane}", flush=True)
+    del rb, in_win, lane, safe
+    return dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms,
+                launches_per_call=n_launch, plain_ms=plain, bound_ms=b[0],
+                bound_by=b[1], library_ms=lib, sector_floor_ms=floor_ms,
+                rows_in_lanes=n_lane)
+
+
+def check_lanes_edges(torch, th, dev, g, Bc, shift, R):
+    """Kernel V-lanes at a ragged length: int32 leaf ids at leaf bound
+    32768 (a lane on leaf 32767, dummies at 32768) and uint8 ids with
+    dummies at 256, 64 and 128 lanes, two-column int8 exact; and float
+    values (W=21, three columns, then wide-exponent ones) within rel 1e-5,
+    each with a repeat launch bit for bit."""
+    F, N = 5, 100_003
+    bins = torch.randint(0, 255, (F, N), generator=g, device=dev,
+                         dtype=torch.int32).to(torch.uint8)
+    miss_bin = torch.tensor([254, -1, 254, -1, -1], dtype=torch.int32,
+                            device=dev)
+    qv = torch.randint(-120, 121, (N, 2), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.int8)
+    for W in (64, 128):
+        for idx, bound_ in ((torch.int32, 32768), (torch.uint8, 256)):
+            leaf = torch.randint(0, bound_, (N,), generator=g, device=dev,
+                                 dtype=torch.int32)
+            ids = torch.randperm(bound_, generator=g, device=dev)[:W].to(
+                torch.int32)
+            ids[0] = bound_ - 1
+            leaf[::7] = bound_ - 1
+            ids[-3:] = bound_                        # dummy lanes
+            pick = torch.randint(0, W - 3, (N,), generator=g, device=dev)
+            hit = torch.rand(N, generator=g, device=dev) < 0.3
+            leaf = torch.where(hit, ids[pick], leaf).to(idx).contiguous()
+            lo = _lanes_windows(torch, g, dev, W, F, Bc, shift)
+            args = (bins, qv, leaf, ids, lo, R, W, True, miss_bin)
+            check_against(
+                torch,
+                lambda: th.lanes_window_histogram(*args,
+                                                  leaf_bound=bound_),
+                lambda: th.lanes_window_histogram_plain(*args), True,
+                "V-lanes", f"W={W}, {idx} leaf ids, bound {bound_}, N={N}")
+    W = 21
+    leaf = torch.randint(0, 255, (N,), generator=g, device=dev,
+                         dtype=torch.int32).to(torch.uint8)
+    ids = torch.randperm(255, generator=g, device=dev)[:W].to(torch.int32)
+    lo = _lanes_windows(torch, g, dev, W, F, Bc, shift)
+    fv = torch.stack([torch.randn(N, generator=g, device=dev),
+                      torch.rand(N, generator=g, device=dev) + 0.05,
+                      torch.ones(N, device=dev)], -1).contiguous()
+    rels = []
+    for kind in ("float", "wide-exponent float"):
+        if kind != "float":
+            fv[:, 0], fv[:, 1] = wide_values(torch, g, dev, N)
+        args = (bins, fv, leaf, ids, lo, R, W, False, miss_bin)
+        rels.append(check_against(
+            torch, lambda: th.lanes_window_histogram(*args),
+            lambda: th.lanes_window_histogram_plain(*args), False, "V-lanes",
+            f"W={W} {kind}")[1])
+    print(f"kernel V-lanes edges: int32 ids at bound 32768 and uint8 ids, "
+          f"W=64 and 128, N={N}: exact; W=21 float max rel {rels[0]:.3g}, "
+          f"wide-exponent {rels[1]:.3g}; repeat launches bit for bit",
+          flush=True)
+
+
 def phase_kernels_c2f(torch, dev, th, bins, qv, g):
     """Phase 2, the coarse-to-fine kernels at wave255's shapes (shift 4,
     Bc = 17 with the reserved missing slot, R = 32): M and R coarse, V
@@ -835,43 +1043,26 @@ def phase_kernels_c2f(torch, dev, th, bins, qv, g):
     miss_bin[::4] = B - 2                           # bin 254 is missing
     b64 = bins.to(torch.int64)
     is_miss = b64 == miss_bin.to(torch.int64)[:, None]
-    coarse = torch.where(is_miss, Bc - 1, b64 >> shift)
 
     # ---- kernel M, coarse ---------------------------------------------
     sel0 = torch.zeros(N, dtype=torch.int8, device=dev)
-    err_m, _ = check_multi(torch, th, bins, qv, sel0, 1, Bc, True, True,
-                           "coarse root pass", shift, miss_bin)
-    ms_m = cuda_ms(lambda: th.multi_histogram(bins, qv, sel0, Bc, 1, True,
-                                              shift, miss_bin), reps=10)
-    plain_m = cuda_ms(lambda: th.multi_histogram_plain(
-        bins, qv, sel0, Bc, 1, True, shift, miss_bin), reps=2)
-    lib_m = _index_add_ms(torch, dev, coarse, qv, sel0, 1, Bc)
-    b_m = bound(N * F + N * 2 + N + F * Bc * 3 * 4, N * F * 2)
-    out["multi_histogram"] = dict(max_abs_err=err_m, ms=ms_m,
-                                  plain_ms=plain_m, bound_ms=b_m[0],
-                                  bound_by=b_m[1], library_ms=lib_m)
-    print(f"kernel M coarse (root pass, two-column int8, shift {shift}, "
-          f"missing slot): exact; {ms_m:.4f} ms (plain {plain_m:.3f}, "
-          f"index_add_ {lib_m:.3f}, bound {b_m[0]:.4f} by {b_m[1]}) at "
-          f"F={F} N={N} Bc={Bc}", flush=True)
+    out["multi_histogram"] = measure_multi_root(torch, th, dev, bins, qv, Bc,
+                                                shift, miss_bin, "coarse")
     sel = torch.randint(-1, W, (N,), generator=g, device=dev,
                         dtype=torch.int32)
     check_multi(torch, th, bins, qv, sel, W, Bc, True, True,
                 "coarse W=64 two-column int8", shift, miss_bin)
     ms_w = cuda_ms(lambda: th.multi_histogram(bins, qv, sel, Bc, W, True,
                                               shift, miss_bin), reps=5)
-    fv = torch.stack([torch.randn(N, generator=g, device=dev),
-                      torch.rand(N, generator=g, device=dev) + 0.05,
-                      torch.ones(N, device=dev)], -1).contiguous()
-    fsel = torch.randint(-1, 21, (N,), generator=g, device=dev,
-                         dtype=torch.int32)
-    _, rel_f = check_multi(torch, th, bins, fv, fsel, 21, Bc, False, False,
-                           "coarse W=21 float", shift, miss_bin)
-    ms_f = cuda_ms(lambda: th.multi_histogram(bins, fv, fsel, Bc, 21, False,
-                                              shift, miss_bin), reps=5)
+    ms_f, rel_f, rel_fw = check_multi_float(torch, th, g, dev, bins, Bc,
+                                            shift, miss_bin, "coarse")
+    out["multi_histogram"].update(w64_ms=ms_w, float_w21_ms=ms_f,
+                                  float_w21_max_rel_err=rel_f,
+                                  float_w21_wide_max_rel_err=rel_fw)
     print(f"kernel M coarse W=64 two-column int8: exact, {ms_w:.4f} ms; "
-          f"W=21 float: max rel {rel_f:.3g}, {ms_f:.4f} ms", flush=True)
-    del fv, fsel
+          f"W=21 float: max rel {rel_f:.3g}, wide-exponent {rel_fw:.3g}, "
+          f"{ms_f:.4f} ms", flush=True)
+    del sel
 
     # ---- kernel R, coarse: a wave of 64 splits ------------------------
     li = torch.randint(0, 127, (N,), generator=g, device=dev,
@@ -925,42 +1116,22 @@ def phase_kernels_c2f(torch, dev, th, bins, qv, g):
           f"{b_v[1]}) at F={F} N={N}", flush=True)
     del rb, in_win
 
-    # ---- kernel V-lanes: a wave's first window group -------------------
+    # ---- kernel V-lanes: a wave's window group, and its 2W children ------
     # kl is the leaf vector after kernel R's routing; lanes are child ids,
     # four of them dummies (256, past every uint8 leaf id)
-    lane_ids = torch.cat([tbl[0, :30], tbl[3, :30],
-                          torch.full((4,), 256, dtype=torch.int32,
-                                     device=dev)]).contiguous()
-    lo = (torch.randint(0, Bc - 2, (W, F), generator=g, device=dev,
-                        dtype=torch.int32) << shift).contiguous()
-    k = th.lanes_window_histogram(bins, qv, kl, lane_ids, lo, R, W, True,
-                                  miss_bin)
-    q = th.lanes_window_histogram_plain(bins, qv, kl, lane_ids, lo, R, W,
-                                        True, miss_bin)
-    torch.cuda.synchronize()
-    if not torch.equal(k, q):
-        fail(f"kernel V-lanes differs from plain: max diff "
-             f"{float((k - q).abs().max())}")
-    ms_vl = cuda_ms(lambda: th.lanes_window_histogram(
-        bins, qv, kl, lane_ids, lo, R, W, True, miss_bin), reps=10)
-    plain_vl = cuda_ms(lambda: th.lanes_window_histogram_plain(
-        bins, qv, kl, lane_ids, lo, R, W, True, miss_bin), reps=2)
-    lane = th._lanes_of(kl, lane_ids, W)
-    safe = lane.clamp(min=0)
-    rb = b64 - lo.to(torch.int64).t()[:, safe]      # (F, N)
-    in_win = (rb >= 0) & (rb < R) & ~is_miss & (lane >= 0)[None, :]
-    lib_vl = _index_add_ms(torch, dev, torch.where(in_win, rb, R), qv, lane,
-                           W, R)
-    n_lane = int((lane >= 0).sum())
-    b_vl = bound(N + n_lane * F + n_lane * 2 + W * 4 * (F + 1) +
-                 W * F * R * 3 * 4, int(in_win.sum()) * 2)
-    out["lanes_window_histogram"] = dict(
-        max_abs_err=0.0, ms=ms_vl, plain_ms=plain_vl, bound_ms=b_vl[0],
-        bound_by=b_vl[1], library_ms=lib_vl)
-    print(f"kernel V-lanes (W=64, uint8 leaf vector, 4 dummy lanes): "
-          f"exact; {ms_vl:.4f} ms (plain {plain_vl:.3f}, "
-          f"index_add_ {lib_vl:.3f}, bound {b_vl[0]:.4f} by {b_vl[1]}) at "
-          f"F={F} N={N} rows in lanes {n_lane}", flush=True)
+    dummies = torch.full((4,), 256, dtype=torch.int32, device=dev)
+    lane64 = torch.cat([tbl[0, :30], tbl[3, :30], dummies]).contiguous()
+    # a wave's 2W children interleaved [l0, r0, l1, r1, ...] as the c2f
+    # loop passes them: 60 live lanes, 4 dead ones
+    lane128 = torch.stack([tbl[0], tbl[3]], 1).reshape(-1).contiguous()
+    lane128[120:] = 256
+    out["lanes_window_histogram"] = measure_lanes(
+        torch, th, dev, bins, qv, kl, lane64, is_miss, miss_bin, Bc, shift,
+        R, g, b64)
+    out["lanes_window_histogram"]["at_2w128"] = measure_lanes(
+        torch, th, dev, bins, qv, kl, lane128, is_miss, miss_bin, Bc, shift,
+        R, g, b64)
+    check_lanes_edges(torch, th, dev, g, Bc, shift, R)
     return {f"c2f_{k}": v for k, v in out.items()}
 
 
@@ -1140,6 +1311,9 @@ def phase_c2f(torch, ltt, data, exact_auc):
     _check_launches(counts, ("multi_histogram", "window_histogram",
                              "routed_histogram", "lanes_window_histogram",
                              "leaf_stats", "leaf_lookup"), "c2f")
+    if counts["lanes_window_histogram"] != sum(waves):
+        fail(f"kernel V-lanes ran {counts['lanes_window_histogram']} times "
+             f"in {sum(waves)} waves: it runs once a wave")
     if counts["best_split"] != 0:
         fail(f"kernel S ran {counts['best_split']} times on the c2f path, "
              f"whose scans are plain tensor code")

@@ -1,19 +1,11 @@
-// The accumulation body shared by kernels M, V and V-lanes: histograms of
-// up to 64 row-disjoint subsets, one block per (feature, row range).
+// The accumulation body of kernel V: histograms of up to 64 row-disjoint
+// subsets, one block per (feature, row range).  (Kernels R, M and V-lanes
+// run on the body over 16-row groups in group_hist.cuh.)
 //
-// A row adds its values to one (subset, bin) cell of the block's feature.
-// Two policies say which:
-//
-//   membership  SelMember:  s = sel[r], -1 = no subset (kernels M, V);
-//               LaneMember: s = the lane whose child-leaf id equals the
-//                           row's leaf id, from a leaf -> lane table built
-//                           per block in shared memory (kernel V-lanes);
-//   bin map     CoarseMap:  b = (bin == miss_bin[f]) ? Bc - 1 : bin >> shift
-//                           (identity at shift 0 without a missing bin;
-//                           kernel M and the histogram half of kernel R);
-//               WindowMap:  b = bin - win_lo[s, f], kept when it lies in
-//                           [0, R) and the bin is not the feature's missing
-//                           bin (kernels V and V-lanes).
+// A row adds its values to one (subset, bin) cell of the block's feature:
+// the subset is s = sel[r] (-1 = no subset, `SelMember`), the cell b =
+// bin - win_lo[s, f], kept when it lies in [0, R) and the bin is not the
+// feature's missing bin (`SubsetWindowMap`).
 //
 // The block keeps its feature's (W, B, cols) tile in dynamic shared memory
 // and adds with atomics: int32 for int8 values (exact and independent of
@@ -26,17 +18,12 @@
 // copy of hess.
 #pragma once
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "group_hist.cuh"
 
 namespace {
 
 constexpr int kSubsetThreads = 1024;
 constexpr int kMaxSubsets = 64;
-
-__host__ __device__ inline size_t align16(size_t x) {
-  return (x + 15) & ~size_t(15);
-}
 
 template <typename SelT>
 struct SelMember {
@@ -50,53 +37,7 @@ struct SelMember {
   }
 };
 
-// Lane ids are compared as int32: dead lanes carry the dummy id L, which
-// must not wrap onto leaf 0 of a uint8 leaf vector at L = 256, so ids at
-// or above `leaf_bound` (every row's leaf id is below it) enter no table
-// slot.  A leaf listed twice maps to its last lane, the order of the
-// reference's select chain; live child ids are distinct.
-template <typename IdxT>
-struct LaneMember {
-  const IdxT* leaf_idx;
-  const int32_t* lane_ids;
-  int width;
-  int leaf_bound;
-  int8_t* table;
-  __host__ __device__ size_t smem_bytes() const {
-    return (size_t)leaf_bound;
-  }
-  __device__ void init(unsigned char* smem) {
-    table = reinterpret_cast<int8_t*>(smem);
-    for (int i = threadIdx.x; i < leaf_bound; i += blockDim.x) table[i] = -1;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int w = 0; w < width; ++w) {
-        const int id = lane_ids[w];
-        if (id >= 0 && id < leaf_bound) table[id] = (int8_t)w;
-      }
-    }
-  }
-  __device__ int lane(int64_t r) const {
-    const int li = (int)leaf_idx[r];
-    return (li >= 0 && li < leaf_bound) ? (int)table[li] : -1;
-  }
-};
-
-struct CoarseMap {
-  int shift;
-  const int32_t* miss_bin;   // (F,) or null
-  int miss_idx;              // the reserved last coarse slot
-  int mb;
-  __host__ __device__ size_t smem_bytes(int) const { return 0; }
-  __device__ void init(int f, int, int, unsigned char*) {
-    mb = miss_bin != nullptr ? miss_bin[f] : -1;
-  }
-  __device__ int bin(int b, int) const {
-    return b == mb ? miss_idx : b >> shift;
-  }
-};
-
-struct WindowMap {
+struct SubsetWindowMap {
   const int32_t* win_lo;     // (W, F)
   const int32_t* miss_bin;   // (F,) or null
   int mb;

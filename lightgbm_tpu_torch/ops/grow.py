@@ -480,8 +480,12 @@ def _grow_wave(xt, grad, hess, sample_mask, feature_mask, num_bins,
         hist_r = torch.where(sl4, hist_large, hist_small)
         if shift:
             # children interleaved [l0, r0, l1, r1, ...]: live children
-            # form a prefix, so the second windowed group runs only when
-            # more than W/2 lanes are live (:1648-1688)
+            # form a prefix, so the children past W hold rows only when
+            # more than W/2 lanes are live (:1648-1688).  Then one pass
+            # takes all 2W lanes (the reference's two passes of W come from
+            # its lane width; live child ids are distinct and dummy ids
+            # match no row, so the sums are the same), else W lanes and
+            # zeros for the rest.
             def pair(a, b):
                 return torch.stack([a, b], 1).reshape((2 * W,) + a.shape[1:])
 
@@ -491,16 +495,16 @@ def _grow_wave(xt, grad, hess, sample_mask, feature_mask, num_bins,
             ch_depth = pair(depth_w, depth_w)
             win_lo = window(ch_hist, ch_stats)                 # (2W, F)
             lane_ids = ch_ids.to(i32)
-            groups = [lanes_window_histogram(
-                xt, kvals, leaf_idx, lane_ids[:W], win_lo[:W], R, W,
-                p.two_col, miss_bin, leaf_bound)]
             if 2 * live > W:
-                groups.append(lanes_window_histogram(
-                    xt, kvals, leaf_idx, lane_ids[W:], win_lo[W:], R, W,
-                    p.two_col, miss_bin, leaf_bound))
+                win = lanes_window_histogram(
+                    xt, kvals, leaf_idx, lane_ids, win_lo, R, 2 * W,
+                    p.two_col, miss_bin, leaf_bound)
             else:
-                groups.append(torch.zeros_like(groups[0]))
-            win = dequant(torch.cat(groups))
+                win = lanes_window_histogram(
+                    xt, kvals, leaf_idx, lane_ids[:W], win_lo[:W], R, W,
+                    p.two_col, miss_bin, leaf_bound)
+                win = torch.cat([win, torch.zeros_like(win)])
+            win = dequant(win)
             bests = scan_c2f(ch_hist, win, win_lo, ch_stats, ch_depth)
         else:
             ch_ids = torch.cat([ids_leaf, new_leaf])

@@ -11,33 +11,37 @@ PyTorch version beside it:
   (``histogram_segsum``, :64);
 - ``histogram_pallas_multi`` (:396) -> kernel M (``csrc/multi_hist.cu``)
   through :func:`multi_histogram`, at full resolution or coarse
-  (``shift``, ``miss_bin``); plain version :func:`multi_histogram_plain`
-  (``histogram_segsum_multi``, :528);
+  (``shift``, ``miss_bin``); plain version
+  :func:`multi_histogram_plain` (``histogram_segsum_multi``, :528);
 - ``histogram_pallas_multi_routed`` (:872, mode "small") -> kernel R
-  (``csrc/routed_hist.cu``, its own accumulation body over 16-row groups,
-  launch plan :func:`routed_plan`) through :func:`routed_histogram`, full
-  or coarse; plain version :func:`routed_histogram_plain`
-  (``histogram_segsum_multi_routed``, :1013);
+  (``csrc/routed_hist.cu``) through
+  :func:`routed_histogram`, full or coarse; plain version
+  :func:`routed_histogram_plain` (``histogram_segsum_multi_routed``,
+  :1013);
 - ``histogram_pallas_multi_win`` (:628) -> kernel V
   (``csrc/window_hist.cu``) through :func:`window_histogram`; plain
   version :func:`window_histogram_plain` (``histogram_segsum_multi_win``,
   :1269);
 - ``histogram_pallas_multi_win_lanes`` (:1113) -> kernel V-lanes
-  (``csrc/window_hist.cu``) through :func:`lanes_window_histogram`; plain
-  version :func:`lanes_window_histogram_plain`
+  (``csrc/window_hist.cu``) through :func:`lanes_window_histogram`, up to
+  128 lanes; plain version :func:`lanes_window_histogram_plain`
   (``histogram_segsum_multi_win_lanes``, :1186);
 - ``leaf_stats_pallas`` (:1239) -> kernel Q (``csrc/leaf_stats.cu``)
   through :func:`leaf_stats`; plain version :func:`leaf_stats_plain`
   (the ``histogram(leaf_idx ...)`` fallback,
   ``lightgbm_tpu/ops/grow.py:1787-1790``).
 
-Float values are summed in float64 and rounded once to float32, so a
-kernel, the plain version on the card and the plain version on the CPU
-agree while the float64 sums are exact, and within one float32 rounding
-otherwise (the JAX reference sums in float32; the parity tests state the
-tolerance that follows).  Quantized (integer) values are summed exactly
-everywhere.  CPU tensors take the plain version; CUDA tensors launch the
-kernel or raise.
+Kernels R, M and V-lanes share one accumulation body over 16-row groups
+(``csrc/group_hist.cuh``, launch plan :func:`group_plan`).
+
+Float values are summed in float64 (H, Q, V and the plain versions) or
+in a column fixed point about as fine (R, M, V-lanes) and rounded once to
+float32, so a kernel, the plain version on the card and the plain version
+on the CPU agree while the sums are exact, and within one float32
+rounding otherwise (the JAX reference sums in float32; the parity tests
+state the tolerance that follows).  Quantized (integer) values are summed
+exactly everywhere.  CPU tensors take the plain version; CUDA tensors
+launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -48,7 +52,8 @@ from . import kernels
 __all__ = ["histogram_plain", "masked_histogram_plain", "masked_histogram",
            "hist_plan", "multi_width", "multi_histogram_plain",
            "multi_histogram",
-           "routed_histogram_plain", "routed_histogram", "routed_plan",
+           "routed_histogram_plain", "routed_histogram",
+           "group_smem", "group_plan",
            "window_histogram_plain", "window_histogram",
            "lanes_window_histogram_plain", "lanes_window_histogram",
            "leaf_stats_plain", "leaf_stats", "LAUNCHES"]
@@ -308,7 +313,7 @@ def lanes_window_histogram_plain(bins: torch.Tensor, vals: torch.Tensor,
 
 
 def _multi_plan(F: int, n: int, device) -> int:
-    """Row blocks of kernels M, V and V-lanes: about two blocks per SM over
+    """Row blocks of kernel V: about two blocks per SM over
     the F feature blocks, and at most 2^24 rows a block so an int32
     partial of int8 values cannot overflow."""
     sms = kernels.sm_count(device)
@@ -317,10 +322,12 @@ def _multi_plan(F: int, n: int, device) -> int:
     return max(rb, -(-n // (1 << 24)))
 
 
-def _check_multi_inputs(bins, vals, two_col, width, max_bin, *others):
-    """Checks of the batched wrappers: types, shapes, the shared-memory
-    tile of one feature, contiguity and one device for ``bins``, ``vals``
-    and ``others`` (tensors or None)."""
+def _check_multi_inputs(bins, vals, two_col, width, *others,
+                        max_width=_MAX_LANES):
+    """Checks of the batched wrappers: types, shapes, the lane count,
+    contiguity and one device for ``bins``, ``vals`` and ``others``
+    (tensors or None).  Whether a tile fits shared memory is the launch
+    plan's check."""
     F, n = bins.shape
     if bins.dtype not in (torch.uint8, torch.int16):
         raise TypeError(f"bins must be uint8/int16, got {bins.dtype}")
@@ -328,14 +335,8 @@ def _check_multi_inputs(bins, vals, two_col, width, max_bin, *others):
             vals.shape[0] != n or vals.shape[1] < (2 if two_col else 3):
         raise ValueError("vals must be int8/float32 (N, 3), or (N, 2) with "
                          "two_col")
-    if not 1 <= width <= _MAX_LANES:
-        raise ValueError(f"width must be in [1, {_MAX_LANES}]")
-    acc = 4 if vals.dtype == torch.int8 else 8
-    smem = width * max_bin * (2 if two_col else 3) * acc
-    if smem > _SMEM_MAX:
-        raise ValueError(f"one feature's (W={width}, B={max_bin}) tile needs "
-                         f"{smem} bytes of shared memory (at most "
-                         f"{_SMEM_MAX})")
+    if not 1 <= width <= max_width:
+        raise ValueError(f"width must be in [1, {max_width}]")
     if not (bins.is_contiguous() and vals.is_contiguous()):
         raise ValueError("inputs must be contiguous")
     if any(x is not None and x.device != bins.device
@@ -344,7 +345,20 @@ def _check_multi_inputs(bins, vals, two_col, width, max_bin, *others):
     return F, n
 
 
+def _check_subset_tile(width, nbins, two_col, vals):
+    """Kernel V's (W, B, cols) tile of one feature must fit shared memory:
+    int32 cells for int8 values, float64 for float values."""
+    acc = 4 if vals.dtype == torch.int8 else 8
+    smem = width * nbins * (2 if two_col else 3) * acc
+    if smem > _SMEM_MAX:
+        raise ValueError(f"one feature's (W={width}, B={nbins}) tile needs "
+                         f"{smem} bytes of shared memory (at most "
+                         f"{_SMEM_MAX})")
+
+
 def _check_sel(sel, n):
+    """The selector's dtype and shape; its ids, which must lie in [-1,
+    width), are not read (that would wait on the card)."""
     if sel.dtype not in (torch.int32, torch.int8) or sel.shape != (n,) or \
             not sel.is_contiguous():
         raise ValueError("sel must be contiguous int32/int8 (N,)")
@@ -389,34 +403,176 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# the launch constants of the body shared by kernels R, M and V-lanes
+# (csrc/group_hist.cuh)
+ROUTED_GROUP = 16               # consecutive rows a thread takes at once
+ROUTED_SM_SMEM = 233_472        # shared memory of one SM (228 KB)
+_BLOCK_RESERVED_SMEM = 1_024    # shared memory the card keeps per block
+_MAX_GROUP_LANES = 128          # lanes of one call (int8 lane ids)
+_GROUP_PLANS: dict = {}
+
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def group_threads(acc_bytes: int) -> int:
+    """Threads a block of the shared body: 1024 with int8 values (4-byte
+    cells), 512 with float values (12-byte cells)."""
+    return 1024 if acc_bytes == 4 else 512
+
+
+def group_smem(fpb: int, W: int, B: int, cols: int, acc_bytes: int,
+               member_bytes: int = 0, map_words: int = 1) -> int:
+    """Shared memory a block of the shared body: ``fpb`` features' (W, B,
+    cols) tiles (``acc_bytes`` a cell: 4, an int32, for
+    int8 values; 12, an int64 and a uint32 word, for float values), the
+    membership's table (``member_bytes``: V-lanes' leaf -> lane table) and
+    the bin map's ``map_words`` int32 words a feature (1: the missing bin;
+    V-lanes 1 + W: and the window starts)."""
+    cells = fpb * W * B * cols
+    tiles = _align16(cells * 4) if acc_bytes == 4 else \
+        _align16(cells * 8) + _align16(cells * 4)
+    return tiles + _align16(member_bytes) + _align16(fpb * 4 * map_words)
+
+
+def routed_row_cap(acc_bytes: int) -> int:
+    """The shared body's most rows a block: no int32 partial of int8
+    values, and no uint32 low word of float values (10 bits a row), can
+    overflow."""
+    return 1 << 24 if acc_bytes == 4 else 1 << 22
+
+
+def group_plan(F: int, B: int, W: int, cols: int, acc_bytes: int, n: int,
+               sms: int, per_sm=None, member_bytes: int = 0,
+               map_words: int = 1) -> dict:
+    """The launch plan of the shared body on a card with ``sms``
+    multiprocessors that runs ``per_sm`` of its blocks at once on each
+    (default: the most the threads and shared memory allow; the wrappers
+    ask the card).  ``member_bytes`` and ``map_words`` as in
+    :func:`group_smem`.
+
+    A block holds the tiles of ``fpb`` features: as many as leave room for
+    two blocks an SM, and one where a tile is larger.  The features split
+    into ``groups`` of near-equal size; the grid is ``(groups,
+    row_blocks)``, one wave of the blocks the card runs at once, no more
+    row blocks than give every thread a 16-row group, and at most
+    :func:`routed_row_cap` rows a block.  Row block ``i`` owns rows ``[i *
+    rows_per_block, min((i + 1) * rows_per_block, n))``,
+    ``rows_per_block`` a multiple of 16; feature group ``j`` features
+    ``[j * fpb, min((j + 1) * fpb, F))``."""
+    tile = W * B * cols * acc_bytes
+    kw = dict(member_bytes=member_bytes, map_words=map_words)
+    if group_smem(1, W, B, cols, acc_bytes, **kw) > _SMEM_MAX:
+        raise ValueError(f"one feature's (W={W}, B={B}) tile needs {tile} "
+                         f"bytes of shared memory (at most {_SMEM_MAX})")
+    budget = ROUTED_SM_SMEM // 2 - _BLOCK_RESERVED_SMEM - 32 - \
+        _align16(member_bytes)
+    fpb = max(1, min(F, budget // (tile + 4 * map_words)))
+    groups = -(-F // fpb)
+    fpb = -(-F // groups)
+    smem = group_smem(fpb, W, B, cols, acc_bytes, **kw)
+    threads = group_threads(acc_bytes)
+    if per_sm is None:
+        per_sm = max(1, min(2048 // threads, ROUTED_SM_SMEM //
+                            (smem + _BLOCK_RESERVED_SMEM)))
+    n = max(n, 1)
+    rb = max(1, per_sm * sms // groups)
+    rb = min(rb, -(-n // (threads * ROUTED_GROUP)))  # a group a thread
+    rb = max(rb, -(-n // routed_row_cap(acc_bytes)))
+    rows_per_block = _align16(-(-n // rb))
+    rb = -(-n // rows_per_block)
+    return {"fpb": fpb, "groups": groups, "row_blocks": rb,
+            "rows_per_block": rows_per_block, "smem": smem}
+
+
+def _group_launch_plan(query, key, device, F, B, W, cols, acc_bytes, n,
+                       **kw) -> dict:
+    """:func:`group_plan` with the blocks an SM runs at once asked of the
+    card (``query(smem)``), once per shape (``key`` names the kernel and
+    what selects its instantiation)."""
+    key = (key, torch.device(device).index, F, B, W, cols, acc_bytes, n,
+           tuple(sorted(kw.items())))
+    plan = _GROUP_PLANS.get(key)
+    if plan is None:
+        sms = kernels.sm_count(device)
+        smem = group_plan(F, B, W, cols, acc_bytes, n, sms, **kw)["smem"]
+        got = query(smem)
+        if got < 1:
+            raise RuntimeError(f"{key[0]}: no block with {smem} bytes of "
+                               f"shared memory fits the card (occupancy "
+                               f"query gave {got})")
+        plan = _GROUP_PLANS[key] = group_plan(F, B, W, cols, acc_bytes, n,
+                                              sms, got, **kw)
+    return plan
+
+
+def _aligned(t):
+    """``t``, or a 16-byte aligned copy (the body loads 16-byte words)."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _value_columns(vals, two_col):
+    """The (N, cols) value operand of the shared body, 16-byte aligned."""
+    cols = 2 if two_col else 3
+    if vals.shape[1] != cols:
+        vals = vals[:, :cols].contiguous()
+    return _aligned(vals), cols
+
+
+def _exp_scratch(vals, n):
+    """Float values: (blocks, scratch) of the exponent launch of kernels M
+    and V-lanes; (0, None) for int8 values."""
+    if vals.dtype == torch.int8:
+        return 0, None
+    blocks = max(1, min(8 * kernels.sm_count(vals.device), -(-n // 256)))
+    return blocks, torch.empty(blocks * vals.shape[1], dtype=torch.int32,
+                               device=vals.device)
+
+
 def multi_histogram(bins: torch.Tensor, vals: torch.Tensor,
                     sel: torch.Tensor, max_bin: int, width: int,
                     two_col: bool = False, shift: int = 0,
                     miss_bin=None) -> torch.Tensor:
     """Batched histogram over ``width`` disjoint row subsets, full or
     coarse, as :func:`multi_histogram_plain`.  CUDA tensors go to kernel
-    M (sel int32 or int8; vals int8 for quantized values, exact, or
-    float32); CPU tensors to the plain version."""
+    M on the shared body over the int8 selector (an int32 ``sel`` is
+    narrowed first: one more launch; vals int8 for quantized values,
+    exact, or float32, in fixed point after an exponent launch), planned
+    by :func:`group_plan`; CPU tensors to the plain version.  Every id of
+    ``sel`` must lie in ``[-1, width)``: the narrowing does not check
+    (a check would wait on the card), and an id of 128 or more would
+    wrap."""
     if bins.device.type == "cpu":
         return multi_histogram_plain(bins, vals, sel, max_bin, width,
                                      two_col, shift, miss_bin)
-    F, n = _check_multi_inputs(bins, vals, two_col, width, max_bin, sel,
-                               miss_bin)
+    F, n = _check_multi_inputs(bins, vals, two_col, width, sel, miss_bin)
     _check_sel(sel, n)
     mb = _check_miss_bin(miss_bin, F) if shift else None
     if not 0 <= shift <= 15:
         raise ValueError("shift must be in [0, 15]")
+    if sel.dtype == torch.int32:
+        sel = sel.to(torch.int8)           # ids in [-1, width): exact
+    sel = _aligned(sel)
+    vals, cols = _value_columns(vals, two_col)
     lib = kernels.load()
-    rb = _multi_plan(F, n, bins.device)
-    part = _partial(rb, F, width, max_bin, two_col, vals)
-    out = torch.empty(width, F, max_bin, 3, dtype=torch.float32,
-                      device=bins.device)
-    stream = torch.cuda.current_stream(bins.device).cuda_stream
+    dev = bins.device
+    acc = 4 if vals.dtype == torch.int8 else 12
+    plan = _group_launch_plan(
+        lambda smem: lib.ltt_multi_active_blocks(
+            bins.element_size(), int(acc == 4), cols, smem),
+        ("kernel M", bins.element_size()), dev, F, max_bin, width, cols,
+        acc, n)
+    exp_blocks, emax = _exp_scratch(vals, n)
+    part = _partial(plan["row_blocks"], F, width, max_bin, two_col, vals)
+    out = torch.empty(width, F, max_bin, 3, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.ltt_multi_hist(
         bins.data_ptr(), bins.element_size(), sel.data_ptr(),
-        sel.element_size(), vals.data_ptr(), int(vals.dtype == torch.int8),
-        vals.shape[1], int(two_col), n, F, max_bin, width, shift, _ptr(mb),
-        rb, part.data_ptr(), out.data_ptr(), stream)
+        vals.data_ptr(), int(acc == 4), int(two_col), n, F, max_bin, width,
+        shift, _ptr(mb), plan["fpb"], plan["row_blocks"],
+        plan["rows_per_block"], exp_blocks, _ptr(emax), part.data_ptr(),
+        out.data_ptr(), stream)
     kernels.check(rc, "kernel M (ltt_multi_hist)")
     LAUNCHES["multi_histogram"] += 1
     return out
@@ -459,93 +615,6 @@ def routed_histogram_plain(bins: torch.Tensor, vals: torch.Tensor,
     return hist, li_new, sel
 
 
-# kernel R's histogram launch constants (csrc/routed_hist.cu)
-ROUTED_GROUP = 16               # consecutive rows a thread takes at once
-ROUTED_SM_SMEM = 233_472        # shared memory of one SM (228 KB)
-_BLOCK_RESERVED_SMEM = 1_024    # shared memory the card keeps per block
-_ROUTED_PLANS: dict = {}
-
-
-def _align16(x: int) -> int:
-    return -(-x // 16) * 16
-
-
-def routed_smem(fpb: int, W: int, B: int, cols: int, acc_bytes: int) -> int:
-    """Kernel R's shared memory a block: ``fpb`` features' (W, B, cols)
-    tiles and their missing bins.  ``acc_bytes`` a cell: 4 (int32, int8
-    values) or 12 (an int64 and a uint32 word, float values)."""
-    cells = fpb * W * B * cols
-    tiles = _align16(cells * 4) if acc_bytes == 4 else \
-        _align16(cells * 8) + _align16(cells * 4)
-    return tiles + _align16(fpb * 4)
-
-
-def routed_row_cap(acc_bytes: int) -> int:
-    """Kernel R's most rows a block: no int32 partial of int8 values, and
-    no uint32 low word of float values (10 bits a row), can overflow."""
-    return 1 << 24 if acc_bytes == 4 else 1 << 22
-
-
-def routed_plan(F: int, B: int, W: int, cols: int, acc_bytes: int, n: int,
-                sms: int, per_sm=None) -> dict:
-    """Kernel R's histogram launch plan on a card with ``sms``
-    multiprocessors that runs ``per_sm`` of its blocks at once on each
-    (default: the most the threads and shared memory allow; the wrapper
-    asks the card).
-
-    A block holds the tiles of ``fpb`` features: as many as leave room for
-    two blocks an SM, and one where a tile is larger.  The features split
-    into ``groups`` of near-equal size; the grid is ``(groups,
-    row_blocks)``, one wave of the blocks the card runs at once, no more
-    row blocks than give every thread a 16-row group, and at most
-    :func:`routed_row_cap` rows a block.  Row
-    block ``i`` owns rows ``[i * rows_per_block, min((i + 1) *
-    rows_per_block, n))``, ``rows_per_block`` a multiple of 16; feature
-    group ``j`` features ``[j * fpb, min((j + 1) * fpb, F))``."""
-    tile = W * B * cols * acc_bytes
-    if routed_smem(1, W, B, cols, acc_bytes) > _SMEM_MAX:
-        raise ValueError(f"one feature's (W={W}, B={B}) tile needs {tile} "
-                         f"bytes of shared memory (at most {_SMEM_MAX})")
-    budget = ROUTED_SM_SMEM // 2 - _BLOCK_RESERVED_SMEM - 32
-    fpb = max(1, min(F, budget // (tile + 4)))
-    groups = -(-F // fpb)
-    fpb = -(-F // groups)
-    smem = routed_smem(fpb, W, B, cols, acc_bytes)
-    threads = 1024 if acc_bytes == 4 else 512
-    if per_sm is None:
-        per_sm = max(1, min(2048 // threads, ROUTED_SM_SMEM //
-                            (smem + _BLOCK_RESERVED_SMEM)))
-    n = max(n, 1)
-    rb = max(1, per_sm * sms // groups)
-    rb = min(rb, -(-n // (threads * ROUTED_GROUP)))  # a group a thread
-    rb = max(rb, -(-n // routed_row_cap(acc_bytes)))
-    rows_per_block = _align16(-(-n // rb))
-    rb = -(-n // rows_per_block)
-    return {"fpb": fpb, "groups": groups, "row_blocks": rb,
-            "rows_per_block": rows_per_block, "smem": smem}
-
-
-def _routed_launch_plan(lib, device, F, B, W, cols, acc_bytes, n,
-                        bin_bytes) -> dict:
-    """:func:`routed_plan` with the blocks an SM runs at once asked of the
-    card, once per shape."""
-    key = (torch.device(device).index, F, B, W, cols, acc_bytes, n,
-           bin_bytes)
-    plan = _ROUTED_PLANS.get(key)
-    if plan is None:
-        sms = kernels.sm_count(device)
-        smem = routed_plan(F, B, W, cols, acc_bytes, n, sms)["smem"]
-        got = lib.ltt_routed_active_blocks(bin_bytes, int(acc_bytes == 4),
-                                           cols, smem)
-        if got < 1:
-            raise RuntimeError(f"kernel R: no block with {smem} bytes of "
-                               f"shared memory fits the card (occupancy "
-                               f"query gave {got})")
-        plan = _ROUTED_PLANS[key] = routed_plan(F, B, W, cols, acc_bytes, n,
-                                                sms, got)
-    return plan
-
-
 def routed_histogram(bins: torch.Tensor, vals: torch.Tensor,
                      leaf_idx: torch.Tensor, tables: torch.Tensor,
                      max_bin: int, width: int, two_col: bool = False,
@@ -553,14 +622,14 @@ def routed_histogram(bins: torch.Tensor, vals: torch.Tensor,
                      leaf_bound: int = 256, shift: int = 0):
     """As :func:`routed_histogram_plain`.  CUDA tensors go to kernel R (a
     routing launch, then a histogram over 16-row groups of its one-byte
-    subset ids, planned by :func:`routed_plan`); the int32 ``sel`` is
+    subset ids, planned by :func:`group_plan`); the int32 ``sel`` is
     written only with ``want_sel`` (None otherwise).  ``leaf_bound``:
     every leaf id is below it (256 for uint8 leaf ids).  CPU tensors go to
     the plain version, which always returns ``sel``."""
     if bins.device.type == "cpu":
         return routed_histogram_plain(bins, vals, leaf_idx, tables, max_bin,
                                       width, two_col, miss_bin, shift)
-    F, n = _check_multi_inputs(bins, vals, two_col, width, max_bin, leaf_idx,
+    F, n = _check_multi_inputs(bins, vals, two_col, width, leaf_idx,
                                tables, miss_bin)
     leaf_bound = _check_leaf_idx(leaf_idx, n, leaf_bound)
     if tables.dtype != torch.int32 or tables.dim() != 2 or \
@@ -571,17 +640,16 @@ def routed_histogram(bins: torch.Tensor, vals: torch.Tensor,
         raise ValueError("kernel R routes at most 2048 features")
     if not 0 <= shift <= 15:
         raise ValueError("shift must be in [0, 15]")
-    cols = 2 if two_col else 3
-    if vals.shape[1] != cols:
-        vals = vals[:, :cols].contiguous()
-    if vals.data_ptr() % 16:
-        vals = vals.clone()                # the kernel loads 16-byte words
+    vals, cols = _value_columns(vals, two_col)
     lib = kernels.load()
     dev = bins.device
     tables = tables.contiguous()
     acc = 4 if vals.dtype == torch.int8 else 12
-    plan = _routed_launch_plan(lib, dev, F, max_bin, width, cols, acc, n,
-                               bins.element_size())
+    plan = _group_launch_plan(
+        lambda smem: lib.ltt_routed_active_blocks(
+            bins.element_size(), int(acc == 4), cols, smem),
+        ("kernel R", bins.element_size()), dev, F, max_bin, width, cols,
+        acc, n)
     sms = kernels.sm_count(dev)
     route_blocks = max(1, min(8 * sms, -(-n // 256)))
     leaf_out = torch.empty_like(leaf_idx)
@@ -616,8 +684,9 @@ def window_histogram(bins: torch.Tensor, vals: torch.Tensor,
     if bins.device.type == "cpu":
         return window_histogram_plain(bins, vals, sel, win_lo, r_bins, width,
                                       two_col, miss_bin)
-    F, n = _check_multi_inputs(bins, vals, two_col, width, r_bins, sel,
-                               win_lo, miss_bin)
+    F, n = _check_multi_inputs(bins, vals, two_col, width, sel, win_lo,
+                               miss_bin)
+    _check_subset_tile(width, r_bins, two_col, vals)
     _check_sel(sel, n)
     lo = _check_win_lo(win_lo, width, F)
     mb = _check_miss_bin(miss_bin, F)
@@ -643,33 +712,46 @@ def lanes_window_histogram(bins: torch.Tensor, vals: torch.Tensor,
                            two_col: bool = False, miss_bin=None,
                            leaf_bound: int = 256) -> torch.Tensor:
     """Windowed batched histogram with lanes from the leaf vector, as
-    :func:`lanes_window_histogram_plain`.  CUDA tensors go to kernel
-    V-lanes (leaf_idx uint8/int32 with every id below ``leaf_bound``, 256
-    for uint8; lane_ids int32 (W,)); CPU tensors to the plain version."""
+    :func:`lanes_window_histogram_plain`, over up to 128 lanes (a wave's
+    2W children in one call).  CUDA tensors go to kernel V-lanes on the
+    shared body (leaf_idx uint8/int32 with every id below ``leaf_bound``,
+    256 for uint8; lane_ids int32 (W,); float values in fixed point after
+    an exponent launch), planned by :func:`group_plan`; CPU tensors to the
+    plain version."""
     if bins.device.type == "cpu":
         return lanes_window_histogram_plain(bins, vals, leaf_idx, lane_ids,
                                             win_lo, r_bins, width, two_col,
                                             miss_bin)
-    F, n = _check_multi_inputs(bins, vals, two_col, width, r_bins, leaf_idx,
-                               lane_ids, win_lo, miss_bin)
+    F, n = _check_multi_inputs(bins, vals, two_col, width, leaf_idx,
+                               lane_ids, win_lo, miss_bin,
+                               max_width=_MAX_GROUP_LANES)
     leaf_bound = _check_leaf_idx(leaf_idx, n, leaf_bound)
     if lane_ids.dtype != torch.int32 or lane_ids.shape != (width,):
         raise ValueError(f"lane_ids must be int32 ({width},)")
     ids = lane_ids.contiguous()
     lo = _check_win_lo(win_lo, width, F)
     mb = _check_miss_bin(miss_bin, F)
+    leaf_idx = _aligned(leaf_idx)
+    vals, cols = _value_columns(vals, two_col)
     lib = kernels.load()
-    rb = _multi_plan(F, n, bins.device)
-    part = _partial(rb, F, width, r_bins, two_col, vals)
-    out = torch.empty(width, F, r_bins, 3, dtype=torch.float32,
-                      device=bins.device)
-    stream = torch.cuda.current_stream(bins.device).cuda_stream
+    dev = bins.device
+    acc = 4 if vals.dtype == torch.int8 else 12
+    idx_bytes = leaf_idx.element_size()
+    plan = _group_launch_plan(
+        lambda smem: lib.ltt_lanes_active_blocks(
+            bins.element_size(), idx_bytes, int(acc == 4), cols, smem),
+        ("kernel V-lanes", bins.element_size(), idx_bytes), dev, F, r_bins,
+        width, cols, acc, n, member_bytes=leaf_bound, map_words=1 + width)
+    exp_blocks, emax = _exp_scratch(vals, n)
+    part = _partial(plan["row_blocks"], F, width, r_bins, two_col, vals)
+    out = torch.empty(width, F, r_bins, 3, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.ltt_lanes_window_hist(
-        bins.data_ptr(), bins.element_size(), leaf_idx.data_ptr(),
-        leaf_idx.element_size(), ids.data_ptr(), leaf_bound, vals.data_ptr(),
-        int(vals.dtype == torch.int8), vals.shape[1], int(two_col),
-        lo.data_ptr(), _ptr(mb), n, F, r_bins, width, rb, part.data_ptr(),
-        out.data_ptr(), stream)
+        bins.data_ptr(), bins.element_size(), leaf_idx.data_ptr(), idx_bytes,
+        ids.data_ptr(), leaf_bound, vals.data_ptr(), int(acc == 4),
+        int(two_col), lo.data_ptr(), _ptr(mb), n, F, r_bins, width,
+        plan["fpb"], plan["row_blocks"], plan["rows_per_block"], exp_blocks,
+        _ptr(emax), part.data_ptr(), out.data_ptr(), stream)
     kernels.check(rc, "kernel V-lanes (ltt_lanes_window_hist)")
     LAUNCHES["lanes_window_histogram"] += 1
     return out

@@ -20,11 +20,13 @@ reports, after one warm-up iteration:
 - from ``torch.profiler`` over one more iteration: the device's busy time
   (the union of kernel intervals), its idle share of the iteration's
   wall time, kernel launches, and device time by kernel name (the
-  shared histogram body of kernels M, V and V-lanes by kernel), and the
-  device time and calls of kernels H, S and R (``kernel_h``: its
-  histogram launch and its reduction; ``kernel_s``: its one launch;
-  ``kernel_r``: its routing, histogram and reduction launches; the
-  count is that of the first launch, one per call).
+  histogram body shared by kernels R, M and V-lanes by kernel), and the
+  device time and calls of kernels H, S, R, M and V-lanes (``kernel_h``:
+  its histogram launch and its reduction; ``kernel_s``: its one launch;
+  ``kernel_r``: its routing, histogram and reduction launches;
+  ``kernel_m`` and ``kernel_vl``: their histogram and reduction launches,
+  and the exponent launch of float values; the count is that of the
+  histogram launch, one per call).
 
 The JSON is the last line of standard output.  Without a card it exits
 non-zero.
@@ -43,11 +45,23 @@ ROOT = Path(__file__).resolve().parents[2]
 # kernels of this package, by the name of their __global__ function
 OWN_KERNELS = ("hist_masked_kernel", "hist_reduce_kernel", "best_split_kernel",
                "leaf_add_kernel", "subset_hist_kernel", "subset_reduce_kernel",
-               "route_kernel", "routed_hist_kernel", "routed_reduce_kernel",
-               "leaf_stats_reduce_kernel", "leaf_stats_kernel")
-# the shared body's instantiations, by their policies (subset_hist.cuh)
-SUBSET_KINDS = (("LaneMember", "V-lanes"), ("WindowMap", "V"),
-                ("CoarseMap", "M"))
+               "route_kernel", "group_hist_kernel", "group_reduce_kernel",
+               "exp_max_kernel", "leaf_stats_reduce_kernel",
+               "leaf_stats_kernel")
+# the shared body's launches, by the tag of their kernel (group_hist.cuh)
+GROUP_TAGS = (("RoutedTag", "R"), ("MultiTag", "M"), ("LanesTag", "V-lanes"))
+# each kernel's rows; the first counts its calls
+BY_KERNEL = {
+    "kernel_h": ("hist_masked_kernel", "hist_reduce_kernel"),
+    "kernel_s": ("best_split_kernel",),
+    "kernel_r": ("route_kernel", "group_hist_kernel [R]",
+                 "group_reduce_kernel [R]"),
+    "kernel_m": ("group_hist_kernel [M]", "group_reduce_kernel [M]",
+                 "exp_max_kernel [M]"),
+    "kernel_vl": ("group_hist_kernel [V-lanes]",
+                  "group_reduce_kernel [V-lanes]",
+                  "exp_max_kernel [V-lanes]"),
+}
 
 
 def _key(name: str):
@@ -55,9 +69,9 @@ def _key(name: str):
     own = next((k for k in OWN_KERNELS if k in name), None)
     if own is None:
         return name[:80], False
-    if own == "subset_hist_kernel":
-        kind = next(v for k, v in SUBSET_KINDS if k in name)
-        return f"{own} [{kind}]", True
+    tag = next((v for k, v in GROUP_TAGS if k in name), None)
+    if tag is not None:
+        return f"{own} [{tag}]", True
     return own, True
 
 
@@ -147,12 +161,10 @@ def main(argv=None) -> int:
         prof_wall_s = time.perf_counter() - t0
     busy_us, launches, rows = _kernel_table(prof, torch)
     own_us = sum(r["us"] for r in rows if r["own"])
-    # kernels H, S and R: device time of all their launches, and the
-    # count of the first (one a call)
+    # kernels H, S, R, M and V-lanes: device time of all their launches,
+    # and the count of the first (one a call)
     by_kernel = {}
-    for key, names in (("kernel_h", chip_smoke.KERNEL_H_NAMES),
-                       ("kernel_s", chip_smoke.SPLIT_NAMES),
-                       ("kernel_r", chip_smoke.ROUTED_NAMES)):
+    for key, names in BY_KERNEL.items():
         k_rows = [r for r in rows if r["name"] in names]
         by_kernel[key] = {"ms": sum(r["us"] for r in k_rows) / 1e3,
                           "launches": sum(r["launches"] for r in k_rows

@@ -1,4 +1,4 @@
-"""Launch plans of kernels H, L and R, and their plain versions against JAX.
+"""Launch plans of kernels H, L, R, M and V-lanes, and plain versions vs JAX.
 
 The kernels run only on the card (``chip_smoke.py`` holds them against
 their plain versions there).  Here, on the CPU:
@@ -17,11 +17,20 @@ their plain versions there).  Here, on the CPU:
   float64 with one rounding);
 - ``take_small_add_plain`` against JAX ``take_small`` followed by the add,
   for lengths that are not multiples of 16: exact;
-- kernel R's plan (``routed_plan``) fits a block's shared memory, covers
+- kernel R's plan (``group_plan``) fits a block's shared memory, covers
   every (feature, row) once (composed as kernel H's is), holds at most
   2^24 rows in a block's int32 partial (2^22 with float values, whose
   uint32 low words take 10 bits a row) and, at the Higgs shape, stays in
   one wave of the blocks the card runs at once;
+- the plans of kernels M and V-lanes on the same body (``group_plan``:
+  kernel M with one tile a block, V-lanes with its leaf -> lane table and
+  window starts beside the tiles) fit a block's shared memory at W = 1
+  and 64 (M) and up to 128 (V-lanes), cover every (feature, row) once, hold at
+  most 2^24 rows a block (2^22 with float values) and stay in one wave at
+  the Higgs shape;
+- ``lanes_window_histogram_plain`` over a wave's 2W interleaved lanes in
+  one call equals the two calls of W lanes the JAX reference makes
+  (integer values: exact);
 - ``routed_histogram_plain`` against the JAX package's
   ``histogram_segsum_multi_routed`` on kernel R's edge tables
   (``chip_smoke.ROUTED_EDGE_CASES``, which ``chip_smoke.py`` also holds the
@@ -240,14 +249,13 @@ def _routed_pieces(plan, F, n):
             yield fs, range(min(lo, n), min(lo + plan["rows_per_block"], n))
 
 
-def _check_routed_plan(F, B, W, cols, acc, n, sms, per_sm=None):
-    plan = th.routed_plan(F, B, W, cols, acc, n, sms, per_sm)
-    assert plan["smem"] == th.routed_smem(plan["fpb"], W, B, cols, acc)
+def _check_group_plan(F, B, W, cols, acc, n, sms, per_sm=None, **kw):
+    plan = th.group_plan(F, B, W, cols, acc, n, sms, per_sm, **kw)
+    assert plan["smem"] == th.group_smem(plan["fpb"], W, B, cols, acc, **kw)
     assert plan["smem"] <= SMEM_MAX
     assert plan["fpb"] * plan["groups"] >= F > plan["fpb"] * (
         plan["groups"] - 1)
     assert plan["rows_per_block"] % th.ROUTED_GROUP == 0
-    # no int32 partial (int8 values) nor uint32 low word (float) overflows
     assert plan["rows_per_block"] <= (1 << 24 if acc == 4 else 1 << 22)
     assert (plan["row_blocks"] - 1) * plan["rows_per_block"] < n <= \
         plan["row_blocks"] * plan["rows_per_block"]  # no empty block
@@ -259,7 +267,7 @@ def _check_routed_plan(F, B, W, cols, acc, n, sms, per_sm=None):
                               for s in ROUTED_SHAPES])
 @pytest.mark.parametrize("N", [1, 17, 100_003])
 def test_routed_plan_fits_and_covers(F, B, W, cols, acc, N):
-    plan = _check_routed_plan(F, B, W, cols, acc, N, H100_SMS)
+    plan = _check_group_plan(F, B, W, cols, acc, N, H100_SMS)
     rng = np.random.RandomState(F + B + N)
     bins = torch.from_numpy(rng.randint(0, B, size=(F, N)).astype(np.uint8))
     vals = torch.from_numpy(rng.randint(-8, 9, size=(N, 3)).astype(
@@ -285,7 +293,7 @@ def test_routed_plan_fits_and_covers(F, B, W, cols, acc, N):
 def test_routed_plan_higgs_shape(B, W, cols, acc, per_sm, groups):
     """One wave: no more blocks than the H100 runs at once."""
     F, _, N = HIGGS
-    plan = _check_routed_plan(F, B, W, cols, acc, N, H100_SMS, per_sm)
+    plan = _check_group_plan(F, B, W, cols, acc, N, H100_SMS, per_sm)
     assert plan["groups"] == groups
     assert plan["groups"] * plan["row_blocks"] <= per_sm * H100_SMS
     assert plan["groups"] * plan["row_blocks"] > per_sm * H100_SMS * 0.8
@@ -294,7 +302,7 @@ def test_routed_plan_higgs_shape(B, W, cols, acc, per_sm, groups):
 @pytest.mark.parametrize("N", [(1 << 24) + 1, 200_000_000])
 def test_routed_plan_caps_rows_a_block(N):
     """At most 2^24 rows a block, however few blocks the card runs."""
-    plan = _check_routed_plan(28, 256, 64, 2, 4, N, 1, 1)
+    plan = _check_group_plan(28, 256, 64, 2, 4, N, 1, 1)
     assert plan["row_blocks"] >= -(-N // (1 << 24))
 
 
@@ -302,13 +310,153 @@ def test_routed_plan_caps_rows_a_block(N):
 def test_routed_plan_caps_float_rows_a_block(N):
     """At most 2^22 rows a block with float values: the uint32 low words
     (10 bits a row) cannot overflow."""
-    plan = _check_routed_plan(28, 256, 21, 3, 12, N, 1, 1)
+    plan = _check_group_plan(28, 256, 21, 3, 12, N, 1, 1)
     assert plan["row_blocks"] >= -(-N // (1 << 22))
 
 
 def test_routed_plan_rejects_tiles_past_shared_memory():
     with pytest.raises(ValueError):
-        th.routed_plan(28, 2048, 64, 3, 8, 1000, H100_SMS)
+        th.group_plan(28, 2048, 64, 3, 8, 1000, H100_SMS)
+
+
+# kernel M on the shared body: (F, B, W, cols, accumulator bytes) at the
+# root pass (W = 1, coarse and full, two and three columns), a wave's
+# width, the widest three-column tile, a few lanes of many bins, and the
+# float and ragged shapes
+MULTI_SHAPES = [(28, 17, 1, 2, 4), (28, 256, 1, 2, 4), (28, 17, 1, 3, 4),
+                (28, 256, 1, 3, 4), (28, 256, 64, 2, 4), (28, 17, 64, 2, 4),
+                (28, 256, 64, 3, 4), (28, 1024, 4, 2, 4),
+                (28, 256, 21, 3, 12), (28, 17, 21, 3, 12), (3, 64, 42, 3, 4),
+                (28, 256, 1, 3, 12)]
+# kernel V-lanes: (F, R, W, cols, accumulator bytes, leaf bound): one lane,
+# a window group, a wave's 2W children, int32 leaf ids, float values
+LANES_SHAPES = [(28, 32, 1, 2, 4, 256), (28, 32, 64, 2, 4, 256),
+                (28, 32, 128, 2, 4, 256), (28, 32, 128, 2, 4, 32768),
+                (28, 16, 128, 2, 4, 256), (28, 32, 42, 3, 12, 256),
+                (28, 32, 128, 3, 12, 32768), (5, 32, 128, 2, 4, 256)]
+
+
+def _lanes_kw(W, bound):
+    return {"member_bytes": bound, "map_words": 1 + W}
+
+
+def _compose(plan, F, N, whole, piece):
+    """The plan's pieces through ``piece(feature slice, row slice)``,
+    summed into the features they cover, against ``whole``."""
+    parts = torch.zeros_like(whole)
+    for fs, rs in _routed_pieces(plan, F, N):
+        if len(rs) and len(fs):
+            f, r = slice(fs.start, fs.stop), slice(rs.start, rs.stop)
+            parts[:, f] += piece(f, r)
+    torch.testing.assert_close(parts, whole, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("F,B,W,cols,acc", MULTI_SHAPES,
+                         ids=[f"F{s[0]}-B{s[1]}-W{s[2]}-c{s[3]}-a{s[4]}"
+                              for s in MULTI_SHAPES])
+@pytest.mark.parametrize("N", [17, 100_003])
+def test_multi_plan_fits_and_covers(F, B, W, cols, acc, N):
+    plan = _check_group_plan(F, B, W, cols, acc, N, H100_SMS)
+    rng = np.random.RandomState(F + B + W + N)
+    bins = torch.from_numpy(rng.randint(0, B, size=(F, N)).astype(np.uint8))
+    vals = torch.from_numpy(rng.randint(-8, 9, size=(N, 3)).astype(
+        np.float32))
+    sel = torch.from_numpy(rng.randint(-1, W, size=N).astype(np.int32))
+    two = cols == 2
+    _compose(plan, F, N, th.multi_histogram_plain(bins, vals, sel, B, W, two),
+             lambda f, r: th.multi_histogram_plain(
+                 bins[f, r].contiguous(), vals[r], sel[r], B, W, two))
+
+
+@pytest.mark.parametrize("F,R,W,cols,acc,bound", LANES_SHAPES,
+                         ids=[f"F{s[0]}-R{s[1]}-W{s[2]}-c{s[3]}-a{s[4]}-L{s[5]}"
+                              for s in LANES_SHAPES])
+@pytest.mark.parametrize("N", [17, 100_003])
+def test_lanes_plan_fits_and_covers(F, R, W, cols, acc, bound, N):
+    plan = _check_group_plan(F, R, W, cols, acc, N, H100_SMS,
+                             **_lanes_kw(W, bound))
+    rng = np.random.RandomState(F + R + W + N)
+    B = 256
+    bins = torch.from_numpy(rng.randint(0, B - 1, size=(F, N)).astype(
+        np.uint8))
+    vals = torch.from_numpy(rng.randint(-8, 9, size=(N, 3)).astype(
+        np.float32))
+    leaf = torch.from_numpy(rng.randint(0, 2 * W + 8, size=N).astype(
+        np.int32))
+    ids = torch.from_numpy(rng.permutation(2 * W + 8)[:W].astype(np.int32))
+    lo = torch.from_numpy(rng.randint(0, B - R, size=(W, F)).astype(np.int32))
+    miss = torch.from_numpy(np.where(np.arange(F) % 3 == 0, B - 2, -1).astype(
+        np.int32))
+    two = cols == 2
+    _compose(plan, F, N,
+             th.lanes_window_histogram_plain(bins, vals, leaf, ids, lo, R, W,
+                                             two, miss),
+             lambda f, r: th.lanes_window_histogram_plain(
+                 bins[f, r].contiguous(), vals[r], leaf[r], ids,
+                 lo[:, f].contiguous(), R, W, two, miss[f].contiguous()))
+
+
+@pytest.mark.parametrize("kernel,B,W,cols,acc,per_sm,groups", [
+    ("M", 17, 1, 2, 4, 1, 1),         # the c2f root pass, one tile a block
+    ("M", 256, 1, 2, 4, 1, 1),        # the no-c2f root pass
+    ("M", 256, 64, 2, 4, 1, 28),      # a wave's width, full resolution
+    ("M", 17, 21, 3, 12, 2, 4),       # coarse float values: 7 features
+    ("M", 256, 21, 3, 12, 1, 28),     # float values
+    ("V-lanes", 32, 64, 2, 4, 1, 5),  # a window group
+    ("V-lanes", 32, 128, 2, 4, 1, 10),  # a wave's 2W children
+    ("V-lanes", 32, 42, 3, 12, 1, 14)])
+def test_group_plans_higgs_shape(kernel, B, W, cols, acc, per_sm, groups):
+    """One wave: no more blocks than the H100 runs at once."""
+    F, _, N = HIGGS
+    kw = _lanes_kw(W, 256) if kernel == "V-lanes" else {}
+    plan = _check_group_plan(F, B, W, cols, acc, N, H100_SMS, per_sm, **kw)
+    assert plan["groups"] == groups
+    assert plan["groups"] * plan["row_blocks"] <= per_sm * H100_SMS
+    assert plan["groups"] * plan["row_blocks"] > per_sm * H100_SMS * 0.8
+
+
+@pytest.mark.parametrize("N,acc", [((1 << 24) + 1, 4), (200_000_000, 4),
+                                   ((1 << 22) + 1, 12), (50_000_000, 12)])
+def test_lanes_plan_caps_rows_a_block(N, acc):
+    """At most 2^24 rows a block (2^22 with float values), however few
+    blocks the card runs."""
+    plan = _check_group_plan(28, 32, 128, 2, acc, N, 1, 1,
+                             **_lanes_kw(128, 256))
+    assert plan["row_blocks"] >= -(-N // th.routed_row_cap(acc))
+
+
+@pytest.mark.parametrize("two_col", [True, False], ids=["two-col", "3-col"])
+@pytest.mark.parametrize("idx,W,L", [("uint8", 64, 255), ("uint8", 21, 255),
+                                     ("int32", 64, 1000)])
+def test_lanes_plain_2w_equals_two_w_calls(idx, W, L, two_col):
+    """A wave's 2W children in one call of kernel V-lanes' plain version,
+    against the two calls of W lanes the JAX reference makes: live child
+    ids are distinct, dead lanes carry the dummy id L, which no row holds
+    (uint8 leaf vectors also a dummy 256, past every id)."""
+    rng = np.random.RandomState(W + L)
+    F, N, B, R = 6, 20_000, 256, 32
+    bins = torch.from_numpy(rng.randint(0, B - 1, size=(F, N)).astype(
+        np.uint8))
+    vals = torch.from_numpy(rng.randint(-120, 121, size=(N, 3)).astype(
+        np.int8))
+    leaf = torch.from_numpy(rng.randint(0, L, size=N).astype(idx))
+    live = 3 * W // 4
+    ids = np.full(2 * W, L, np.int32)
+    ids[:2 * live] = rng.permutation(L)[:2 * live]
+    if idx == "uint8":
+        ids[-3:] = 256
+    ids = torch.from_numpy(ids)
+    lo = torch.from_numpy((rng.randint(0, 14, size=(2 * W, F)) << 4).astype(
+        np.int32))
+    miss = torch.from_numpy(np.where(np.arange(F) % 2 == 0, B - 2, -1).astype(
+        np.int32))
+    one = th.lanes_window_histogram_plain(bins, vals, leaf, ids, lo, R, 2 * W,
+                                          two_col, miss)
+    two = torch.cat([th.lanes_window_histogram_plain(
+        bins, vals, leaf, ids[h].contiguous(), lo[h].contiguous(), R, W,
+        two_col, miss) for h in (slice(0, W), slice(W, 2 * W))])
+    assert float(one.abs().sum()) > 0
+    torch.testing.assert_close(one, two, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("name", chip_smoke.ROUTED_EDGE_CASES)
