@@ -26,11 +26,17 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    within rel 1e-5; each with a repeat launch bit for bit), R (W=64, 6-row
    lane tables, two-column int8 exact and W=21 float within rel 1e-5, each
    with a repeat launch bit for bit, its launches a call and device time;
-   and every edge table of ``ROUTED_EDGE_CASES``, exact), Q (exact) and S
-   at the wave's 128 children with the counts proxy; and the
-   coarse-to-fine kernels: M coarse (the root pass, and W=64, two-column
-   int8, shift 4 with the reserved missing slot; W=21 float), R coarse
-   (W=64, as R above), V (the root's window) and V-lanes (W=64 and a
+   and every edge table of ``ROUTED_EDGE_CASES``, exact), Q (exact at
+   L = 255, 7 and 31 on uint8 ids and at L = 1000 on int32 ids,
+   wide-exponent grad and hess within rel 1e-6, each with a repeat launch
+   bit for bit, in 3 CUDA launches a call) and S at the wave's 128
+   children with the counts proxy; and the coarse-to-fine kernels: M
+   coarse (the root pass, and W=64, two-column int8, shift 4 with the
+   reserved missing slot; W=21 float), R coarse (W=64, as R above), V
+   (the root's window: W=1, two-column int8, exact in 2 CUDA launches a
+   call; float values at W=1 and W=21 and wide-exponent ones within rel
+   1e-5; W=64 through an int32 selector, exact; each with a repeat launch
+   bit for bit) and V-lanes (W=64 and a
    wave's 2W=128 children in one call on a uint8 leaf vector with dummy
    lanes and windows at both edges, each in 2 CUDA launches a call with
    its sector floor; int32 leaf ids at leaf bound 32768 and ragged
@@ -79,6 +85,10 @@ KERNEL_H_NAMES = ("hist_masked_kernel", "hist_reduce_kernel")
 # whose names carry the calling kernel's tag), M's and V-lanes' two
 MULTI_NAMES = ("MultiTag",)
 LANES_NAMES = ("LanesTag",)
+WINDOW_NAMES = ("WindowTag",)
+# kernel Q's launches (csrc/leaf_stats.cu): its bound launch, its sums and
+# the shared body's reduction under its tag
+LEAF_NAMES = ("leaf_bound_kernel", "leaf_stats_kernel", "LeafTag")
 SPLIT_NAMES = ("best_split_kernel",)
 ROUTED_NAMES = ("route_kernel", "RoutedTag")
 N_ROWS = 10_500_000
@@ -766,6 +776,82 @@ def measure_routed(torch, th, dev, g, bins, qv, li, tbl, miss_bin, B,
                 float_w21_wide_max_rel_err=rel_w)
 
 
+def check_leaf(torch, th, args, exact, ctx):
+    """Kernel Q vs its plain version: a repeat launch bit for bit, then
+    exact (``exact``) or within rel 1e-6; returns (max abs, max rel)."""
+    k = th.leaf_stats(*args)
+    k2 = th.leaf_stats(*args)
+    q = th.leaf_stats_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(k, k2):
+        fail(f"kernel Q gave other bits on a repeat launch ({ctx})")
+    diff = (k - q).abs()
+    rel = torch.where(diff == 0, torch.zeros_like(diff),
+                      diff / q.abs().clamp_min(1e-30))
+    if exact and float(diff.max()) != 0.0:
+        fail(f"kernel Q differs from plain ({ctx}): max diff "
+             f"{float(diff.max())}")
+    if float(rel.max()) > 1e-6:
+        fail(f"kernel Q differs from plain ({ctx}): max rel "
+             f"{float(rel.max())}")
+    return float(diff.max()), float(rel.max())
+
+
+def measure_leaf_stats(torch, th, dev, g, N):
+    """Kernel Q over N rows: exact against its plain version at L = 255, 7
+    and 31 on uint8 ids and at L = 1000 on int32 ids (grad N(0, 1), hess
+    U(0, 1), a 0/1 mask), wide-exponent grad and hess within rel 1e-6,
+    each with a repeat launch bit for bit; its time, device time, CUDA
+    launches a call, plain and ``index_add_`` times and bound at L=255."""
+    lq = torch.randint(0, 255, (N,), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.uint8)
+    gq = torch.randn(N, generator=g, device=dev)
+    hq = torch.rand(N, generator=g, device=dev)
+    mq = (torch.rand(N, generator=g, device=dev) < 0.9).float()
+    for L_ in (255, 7, 31):
+        lidx = lq if L_ == 255 else (lq % L_).contiguous()
+        check_leaf(torch, th, (lidx, gq, hq, mq, L_), True,
+                   f"L={L_} uint8 ids")
+    l32 = torch.randint(0, 1000, (N,), generator=g, device=dev,
+                        dtype=torch.int32)
+    check_leaf(torch, th, (l32, gq, hq, mq, 1000), True, "L=1000 int32 ids")
+    del l32
+    wg, wh = wide_values(torch, g, dev, N)
+    _, rel_w = check_leaf(torch, th, (lq, wg, wh, mq, 255), False,
+                          "L=255 wide-exponent grad and hess")
+    del wg, wh
+
+    def call():
+        return th.leaf_stats(lq, gq, hq, mq, 255)
+
+    ms = cuda_ms(call, reps=20)
+    dev_ms, n_launch = check_launches_a_call(torch, call, LEAF_NAMES, 3,
+                                             "Q (L=255)")
+    sum_ms, _ = profile_calls(call, 10, ("leaf_stats_kernel",))
+    bound_launch_ms, _ = profile_calls(call, 10, ("leaf_bound_kernel",))
+    plain = cuda_ms(lambda: th.leaf_stats_plain(lq, gq, hq, mq, 255),
+                    reps=5)
+    lq64 = lq.to(torch.int64)
+    vq = torch.stack([gq * mq, hq * mq, mq], -1)
+    acc = torch.zeros(255, 3, device=dev)
+    lib = cuda_ms(lambda: acc.zero_().index_add_(0, lq64, vq), reps=10)
+    # needs: each row's leaf id, grad, hess and mask, the output; two
+    # multiplies and three adds a row
+    b = bound(N * (1 + 4 * 3) + 255 * 3 * 4, N * 5)
+    print(f"kernel Q: exact at L=255, 7, 31 (uint8 ids) and L=1000 (int32 "
+          f"ids), wide-exponent max rel {rel_w:.3g}, repeat launches bit "
+          f"for bit; {ms:.4f} ms, device {dev_ms:.4f} ms (sums "
+          f"{sum_ms:.4f}, bounds {bound_launch_ms:.4f}), {n_launch:g} "
+          f"launches a call (plain {plain:.3f}, index_add_ {lib:.3f}, bound "
+          f"{b[0]:.4f} by {b[1]}) at N={N} L=255", flush=True)
+    del lq, gq, hq, mq, lq64, vq, acc
+    return dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms,
+                launches_per_call=n_launch, plain_ms=plain, bound_ms=b[0],
+                bound_by=b[1], library_ms=lib, wide_max_rel_err=rel_w,
+                sum_launch_device_ms=sum_ms,
+                bound_launch_device_ms=bound_launch_ms)
+
+
 def phase_kernels_wave(torch, dev, th, ts, bins):
     """Phase 2, wave-growth kernels M, R, Q (and S at the wave's 2W
     children) against their plain versions at full width."""
@@ -876,34 +962,7 @@ def phase_kernels_wave(torch, dev, th, ts, bins):
     del ch
 
     # ---- kernel Q ---------------------------------------------------
-    lq = torch.randint(0, 255, (N,), generator=g, device=dev,
-                       dtype=torch.int32).to(torch.uint8)
-    gq = torch.randn(N, generator=g, device=dev)
-    hq = torch.rand(N, generator=g, device=dev)
-    mq = (torch.rand(N, generator=g, device=dev) < 0.9).float()
-    for L_ in (255, 7):
-        lidx = lq if L_ == 255 else (lq % 7).contiguous()
-        k = th.leaf_stats(lidx, gq, hq, mq, L_)
-        q = th.leaf_stats_plain(lidx, gq, hq, mq, L_)
-        torch.cuda.synchronize()
-        if not torch.equal(k, q):
-            fail(f"kernel Q differs from plain (L={L_}): max diff "
-                 f"{float((k - q).abs().max())}")
-    ms_q = cuda_ms(lambda: th.leaf_stats(lq, gq, hq, mq, 255), reps=20)
-    plain_q = cuda_ms(lambda: th.leaf_stats_plain(lq, gq, hq, mq, 255),
-                      reps=5)
-    lq64 = lq.to(torch.int64)
-    vq = torch.stack([gq * mq, hq * mq, mq], -1)
-    acc = torch.zeros(255, 3, device=dev)
-    lib_q = cuda_ms(lambda: acc.zero_().index_add_(0, lq64, vq), reps=10)
-    b_q = bound(N * (1 + 4 * 3) + 255 * 3 * 4, N * 5)
-    out["leaf_stats"] = dict(max_abs_err=0.0, ms=ms_q, plain_ms=plain_q,
-                             bound_ms=b_q[0], bound_by=b_q[1],
-                             library_ms=lib_q)
-    print(f"kernel Q: exact; {ms_q:.4f} ms (plain {plain_q:.3f}, index_add_ "
-          f"{lib_q:.3f}, bound {b_q[0]:.4f} by {b_q[1]}) at N={N}",
-          flush=True)
-    del lq, gq, hq, mq, lq64, vq, acc
+    out["leaf_stats"] = measure_leaf_stats(torch, th, dev, g, N)
     out.update(phase_kernels_c2f(torch, dev, th, bins, qv, g))
     return out
 
@@ -1027,6 +1086,93 @@ def check_lanes_edges(torch, th, dev, g, Bc, shift, R):
           flush=True)
 
 
+def measure_window(torch, th, dev, g, bins, qv, sel0, is_miss, miss_bin, Bc,
+                   shift, R, b64):
+    """Kernel V at the root's window as the c2f loop launches it (W = 1,
+    every row in lane 0: the int8 ``sel0``, two-column int8 values,
+    windows at both edges): exact against its plain version with a repeat
+    launch bit for bit, its time, device time, launches a call (2), plain
+    and ``index_add_`` times, bound and sector floor.  Beside it: float
+    values at W = 1 (3 launches a call) and W = 21, then wide-exponent
+    ones, within rel 1e-5 and repeated bit for bit; two-column int8 at
+    W = 64 through an int32 selector, exact (3 launches a call: the
+    narrowing first)."""
+    F, N = bins.shape
+    lo0 = _lanes_windows(torch, g, dev, 1, F, Bc, shift)
+    args = (bins, qv, sel0, lo0, R, 1, True, miss_bin)
+    check_against(torch, lambda: th.window_histogram(*args),
+                  lambda: th.window_histogram_plain(*args), True, "V",
+                  "the root's window, W=1 two-column int8")
+
+    def call():
+        return th.window_histogram(*args)
+
+    ms = cuda_ms(call, reps=10)
+    dev_ms, n_launch = check_launches_a_call(torch, call, WINDOW_NAMES, 2,
+                                             "V (the root's window)")
+    plain = cuda_ms(lambda: th.window_histogram_plain(*args), reps=2)
+    rb = b64 - lo0[0].to(torch.int64)[:, None]
+    in_win = (rb >= 0) & (rb < R) & ~is_miss
+    lib = _index_add_ms(torch, dev, torch.where(in_win, rb, R), qv, sel0, 1,
+                        R)
+    # every row's bin is read to place it; values and selector of every
+    # row; one add per (in-window row, feature, column).  Every row is in
+    # the lane, so every 32-byte sector of bins is needed: the sector
+    # floor is the bound.
+    b = bound(N * F + N * 2 + N + F * 4 + F * R * 3 * 4,
+              int(in_win.sum()) * 2)
+    del rb, in_win
+    fv = torch.stack([torch.randn(N, generator=g, device=dev),
+                      torch.rand(N, generator=g, device=dev) + 0.05,
+                      torch.ones(N, device=dev)], -1).contiguous()
+    fargs = (bins, fv, sel0, lo0, R, 1, False, miss_bin)
+    _, rel_f1 = check_against(torch, lambda: th.window_histogram(*fargs),
+                              lambda: th.window_histogram_plain(*fargs),
+                              False, "V", "W=1 float")
+    ms_f1 = cuda_ms(lambda: th.window_histogram(*fargs), reps=5)
+    check_launches_a_call(torch, lambda: th.window_histogram(*fargs),
+                          WINDOW_NAMES, 3, "V (W=1 float)")
+    sel21 = torch.randint(-1, 21, (N,), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.int8)
+    lo21 = _lanes_windows(torch, g, dev, 21, F, Bc, shift)
+    rels = []
+    for kind in ("float", "wide-exponent float"):
+        if kind != "float":
+            fv[:, 0], fv[:, 1] = wide_values(torch, g, dev, N)
+        wargs = (bins, fv, sel21, lo21, R, 21, False, miss_bin)
+        rels.append(check_against(
+            torch, lambda: th.window_histogram(*wargs),
+            lambda: th.window_histogram_plain(*wargs), False, "V",
+            f"W=21 {kind}")[1])
+    ms_f21 = cuda_ms(lambda: th.window_histogram(*wargs), reps=5)
+    del fv, fargs, wargs, sel21
+    sel64 = torch.randint(-1, 64, (N,), generator=g, device=dev,
+                          dtype=torch.int32)
+    lo64 = _lanes_windows(torch, g, dev, 64, F, Bc, shift)
+    args64 = (bins, qv, sel64, lo64, R, 64, True, miss_bin)
+    check_against(torch, lambda: th.window_histogram(*args64),
+                  lambda: th.window_histogram_plain(*args64), True, "V",
+                  "W=64 two-column int8, int32 selector")
+    ms_64 = cuda_ms(lambda: th.window_histogram(*args64), reps=5)
+    check_launches_a_call(torch, lambda: th.window_histogram(*args64),
+                          WINDOW_NAMES, 3, "V (W=64, int32 selector)")
+    del sel64
+    print(f"kernel V (the root's window, R={R}): exact, repeat launch bit for "
+          f"bit; {ms:.4f} ms, device {dev_ms:.4f} ms, {n_launch:g} launches a "
+          f"call (plain {plain:.3f}, index_add_ {lib:.3f}, bound "
+          f"{b[0]:.4f} by {b[1]} = sector floor) at F={F} N={N}; W=1 float "
+          f"max rel {rel_f1:.3g}, {ms_f1:.4f} ms, 3 launches a call; W=21 "
+          f"float max rel {rels[0]:.3g}, wide-exponent {rels[1]:.3g}, "
+          f"{ms_f21:.4f} ms; W=64 int32 selector exact, {ms_64:.4f} ms, 3 "
+          f"launches a call", flush=True)
+    return dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms,
+                launches_per_call=n_launch, plain_ms=plain, bound_ms=b[0],
+                bound_by=b[1], library_ms=lib, sector_floor_ms=b[0],
+                float_w1_ms=ms_f1, float_w1_max_rel_err=rel_f1,
+                float_w21_ms=ms_f21, float_w21_max_rel_err=rels[0],
+                float_w21_wide_max_rel_err=rels[1], w64_int32_sel_ms=ms_64)
+
+
 def phase_kernels_c2f(torch, dev, th, bins, qv, g):
     """Phase 2, the coarse-to-fine kernels at wave255's shapes (shift 4,
     Bc = 17 with the reserved missing slot, R = 32): M and R coarse, V
@@ -1086,35 +1232,9 @@ def phase_kernels_c2f(torch, dev, th, bins, qv, g):
                              shift=shift)[1]
 
     # ---- kernel V: the root's window ----------------------------------
-    lo0 = (torch.randint(0, Bc - 2, (1, F), generator=g, device=dev,
-                         dtype=torch.int32) << shift).contiguous()
-    lo0[0, 0] = 0                                   # both edges
-    lo0[0, 1] = (Bc - 3) << shift
-    k = th.window_histogram(bins, qv, sel0, lo0, R, 1, True, miss_bin)
-    q = th.window_histogram_plain(bins, qv, sel0, lo0, R, 1, True, miss_bin)
-    torch.cuda.synchronize()
-    if not torch.equal(k, q):
-        fail(f"kernel V differs from plain: max diff "
-             f"{float((k - q).abs().max())}")
-    ms_v = cuda_ms(lambda: th.window_histogram(bins, qv, sel0, lo0, R, 1,
-                                               True, miss_bin), reps=10)
-    plain_v = cuda_ms(lambda: th.window_histogram_plain(
-        bins, qv, sel0, lo0, R, 1, True, miss_bin), reps=2)
-    rb = b64 - lo0[0].to(torch.int64)[:, None]
-    in_win = (rb >= 0) & (rb < R) & ~is_miss
-    lib_v = _index_add_ms(torch, dev, torch.where(in_win, rb, R), qv, sel0,
-                          1, R)
-    # every row's bin is read to place it; values of every row; one add
-    # per (in-window row, feature, column)
-    b_v = bound(N * F + N * 2 + N + F * 4 + F * R * 3 * 4,
-                int(in_win.sum()) * 2)
-    out["window_histogram"] = dict(max_abs_err=0.0, ms=ms_v, plain_ms=plain_v,
-                                   bound_ms=b_v[0], bound_by=b_v[1],
-                                   library_ms=lib_v)
-    print(f"kernel V (the root's window, R={R}): exact; {ms_v:.4f} ms (plain "
-          f"{plain_v:.3f}, index_add_ {lib_v:.3f}, bound {b_v[0]:.4f} by "
-          f"{b_v[1]}) at F={F} N={N}", flush=True)
-    del rb, in_win
+    out["window_histogram"] = measure_window(
+        torch, th, dev, g, bins, qv, sel0, is_miss, miss_bin, Bc, shift, R,
+        b64)
 
     # ---- kernel V-lanes: a wave's window group, and its 2W children ------
     # kl is the leaf vector after kernel R's routing; lanes are child ids,

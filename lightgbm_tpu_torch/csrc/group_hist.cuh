@@ -1,12 +1,14 @@
-// The histogram body over 16-row groups shared by kernels R, M and
-// V-lanes: histograms of up to 128 row-disjoint subsets ("lanes").
+// The histogram body over 16-row groups shared by kernels R, M, V and
+// V-lanes: histograms of up to 128 row-disjoint subsets ("lanes").  Kernel
+// Q (leaf_stats.cu) sums in the same column fixed point, in 32-bit words
+// (`WordTile`), and reduces with the same fixed-order reduction.
 //
 // A row adds its values to one (lane, bin) cell of each feature.  Two
 // policies say which:
 //
 //   membership  ByteLanes:  the lane is a one-byte subset id per row, -1 =
-//                           none (kernel R's routing output, kernel M's
-//                           int8 selector);
+//                           none (kernel R's routing output, the int8
+//                           selector of kernels M and V);
 //               LeafLanes:  the lane whose child-leaf id equals the row's
 //                           leaf id, from a leaf -> lane table in shared
 //                           memory (kernel V-lanes);
@@ -15,7 +17,7 @@
 //                           kernels R and M);
 //               WindowMap:  b = bin - win_lo[s, f], kept when it lies in
 //                           [0, R) and the bin is not the feature's missing
-//                           bin (kernel V-lanes).
+//                           bin (kernels V and V-lanes).
 //
 // What bounds a pass on an H100: bytes, and in practice the latency of
 // the row scan.  A pass reads the bin matrix (feature major: at a wave's
@@ -55,7 +57,7 @@
 // to 1e-7, can give other bits from one launch to the next).  Column c's
 // scale comes from E, the largest biased float32 exponent of its values in
 // the call (kernel R: its routing blocks' maxima over the selected rows;
-// kernels M and V-lanes: `exp_max_kernel`'s over all rows, which bounds
+// kernels M, V and V-lanes: `exp_max_kernel`'s over all rows, which bounds
 // the lanes' values too): every |v| < 2^(E - 126), and a value v becomes
 // the integer x = v * 2^(177 - E), |x| < 2^51, rounded to nearest (exact
 // unless v is more than 2^27 times smaller than the largest).  The cell
@@ -126,7 +128,7 @@ struct Lanes16 {
   }
 };
 
-// A one-byte subset id a row (kernels R and M).
+// A one-byte subset id a row (kernels R, M and V).
 struct ByteLanes {
   const int8_t* ids;
   using Raw = Lanes16;
@@ -450,11 +452,65 @@ struct Tile<float> {
   }
 };
 
+// The same column fixed point in three 32-bit words a cell (kernel Q).
+// Hopper has no native 64-bit shared-memory add: `Tile<float>`'s int64
+// word compiles to a compare-and-swap loop (ATOMS.CAST.SPIN.64 in the
+// SASS), where 32-bit words take one ATOMS.ADD each.  A value v becomes
+// x = v * 2^(174 - E) (|x| < 2^48) truncated toward zero, in integer
+// operations (measured faster than rounding to nearest, and than a float64
+// product and conversion: PERF.md); its bits 0-15 and 16-31 add into two
+// uint32 words and bits
+// 32-47 (signed) into an int32 word, so a block holds at most 2^15 rows
+// (no word overflows), and the partial is the three words at their
+// weights in float64.  Finest step 2^-48 of the column's largest value.
+constexpr int kWordRows = 1 << 15;
+
+__device__ __forceinline__ long long fixed48(float v, int E) {
+  const uint32_t u = __float_as_uint(v);
+  const int e = (int)((u >> 23) & 0xffu);
+  const uint32_t m = (u & 0x7fffffu) | (e ? 0x800000u : 0u);
+  const int s = max(e, 1) + 24 - E;     // |v| = m * 2^(max(e, 1) - 150)
+  // s <= 24: every |v| < 2^(E - 126)
+  const long long x = s >= 0 ? (long long)m << s
+                             : (long long)(m >> min(-s, 31));
+  return (int)u < 0 ? -x : x;
+}
+
+struct WordTile {
+  unsigned* w;               // cells words of bits 0-15, then 16-31, 32-47
+  int cells;
+  __device__ WordTile(unsigned char* raw, int cells_)
+      : w(reinterpret_cast<unsigned*>(raw)), cells(cells_) {}
+  static __host__ __device__ size_t bytes(int cells) {
+    return align16((size_t)cells * 12);
+  }
+  __device__ void zero(int i) {
+    w[i] = 0u;
+    w[cells + i] = 0u;
+    w[2 * cells + i] = 0u;
+  }
+  __device__ void add(int i, float v, int E) {
+    const long long x = fixed48(v, E);
+    const unsigned a = (unsigned)x & 0xffffu;
+    const unsigned b = (unsigned)(x >> 16) & 0xffffu;
+    const int c = (int)(x >> 32);
+    if (a) atomicAdd(w + i, a);
+    if (b) atomicAdd(w + cells + i, b);
+    if (c) atomicAdd(reinterpret_cast<int*>(w + 2 * cells + i), c);
+  }
+  __device__ double partial(int i, int E) const {
+    if (E >= 255) return __longlong_as_double(0x7ff8000000000000ll);
+    return (double)(int)w[2 * cells + i] * ldexp(1.0, E - 174 + 32) +
+           (double)w[cells + i] * ldexp(1.0, E - 174 + 16) +
+           (double)w[i] * ldexp(1.0, E - 174);
+  }
+};
+
 // ---- the kernels -----------------------------------------------------------
 
 // Each block's largest exponent of each column of `vals` (n, cols) float32
 // over all rows, to exp_max[block * cols + c]: the fixed-point scale of
-// kernels M and V-lanes (kernel R takes it from its routing launch).
+// kernels M, V and V-lanes (kernel R takes it from its routing launch).
 // `Tag` names the calling kernel in a profile, as below.
 template <typename Tag>
 __global__ void exp_max_kernel(const float* __restrict__ vals, int cols,
@@ -481,7 +537,7 @@ __global__ void exp_max_kernel(const float* __restrict__ vals, int cols,
     exp_max[(int64_t)blockIdx.x * cols + threadIdx.x] = emax[threadIdx.x];
 }
 
-// `Tag` only names the calling kernel (R, M or V-lanes), so that a
+// `Tag` only names the calling kernel (R, M, V or V-lanes), so that a
 // profile tells their launches apart.
 template <typename Tag, typename BinT, typename ValT, int COLS,
           typename Member, typename Map>
@@ -644,7 +700,7 @@ cudaError_t launch_group(const void* bins, Member member, Map map,
   return cudaGetLastError();
 }
 
-// The exponent launch of kernels M and V-lanes: `blocks` x cols maxima.
+// The exponent launch of kernels M, V and V-lanes: `blocks` x cols maxima.
 template <typename Tag>
 cudaError_t launch_exp_max(const float* vals, int cols, int64_t n, int blocks,
                            int32_t* exp_max, cudaStream_t stream) {

@@ -19,7 +19,8 @@ PyTorch version beside it:
   :func:`routed_histogram_plain` (``histogram_segsum_multi_routed``,
   :1013);
 - ``histogram_pallas_multi_win`` (:628) -> kernel V
-  (``csrc/window_hist.cu``) through :func:`window_histogram`; plain
+  (``csrc/window_hist.cu``) through :func:`window_histogram`, up to 128
+  subsets; plain
   version :func:`window_histogram_plain` (``histogram_segsum_multi_win``,
   :1269);
 - ``histogram_pallas_multi_win_lanes`` (:1113) -> kernel V-lanes
@@ -31,11 +32,12 @@ PyTorch version beside it:
   (the ``histogram(leaf_idx ...)`` fallback,
   ``lightgbm_tpu/ops/grow.py:1787-1790``).
 
-Kernels R, M and V-lanes share one accumulation body over 16-row groups
-(``csrc/group_hist.cuh``, launch plan :func:`group_plan`).
+Kernels R, M, V and V-lanes share one accumulation body over 16-row
+groups (``csrc/group_hist.cuh``, launch plan :func:`group_plan`); kernel Q
+sums in its fixed point (launch plan :func:`leaf_plan`).
 
-Float values are summed in float64 (H, Q, V and the plain versions) or
-in a column fixed point about as fine (R, M, V-lanes) and rounded once to
+Float values are summed in float64 (H and the plain versions) or in a
+column fixed point about as fine (R, M, V, V-lanes, Q) and rounded once to
 float32, so a kernel, the plain version on the card and the plain version
 on the CPU agree while the sums are exact, and within one float32
 rounding otherwise (the JAX reference sums in float32; the parity tests
@@ -56,7 +58,8 @@ __all__ = ["histogram_plain", "masked_histogram_plain", "masked_histogram",
            "group_smem", "group_plan",
            "window_histogram_plain", "window_histogram",
            "lanes_window_histogram_plain", "lanes_window_histogram",
-           "leaf_stats_plain", "leaf_stats", "LAUNCHES"]
+           "leaf_smem", "leaf_plan", "LEAF_MAX", "leaf_stats_plain",
+           "leaf_stats", "LAUNCHES"]
 
 # kernel launches through the wrappers below, one per call: H
 # (masked_histogram), M (multi_histogram), R (routed_histogram), V
@@ -201,7 +204,6 @@ def masked_histogram(bins: torch.Tensor, grad: torch.Tensor,
 
 # ---- batched passes: kernels M, R, V and V-lanes -----------------------
 
-_MULTI_THREADS = 1024
 _MAX_LANES = 64
 
 
@@ -312,16 +314,6 @@ def lanes_window_histogram_plain(bins: torch.Tensor, vals: torch.Tensor,
                                   two_col, miss_bin)
 
 
-def _multi_plan(F: int, n: int, device) -> int:
-    """Row blocks of kernel V: about two blocks per SM over
-    the F feature blocks, and at most 2^24 rows a block so an int32
-    partial of int8 values cannot overflow."""
-    sms = kernels.sm_count(device)
-    rb = max(1, -(-2 * sms // F))
-    rb = min(rb, max(1, -(-n // _MULTI_THREADS)))
-    return max(rb, -(-n // (1 << 24)))
-
-
 def _check_multi_inputs(bins, vals, two_col, width, *others,
                         max_width=_MAX_LANES):
     """Checks of the batched wrappers: types, shapes, the lane count,
@@ -345,23 +337,17 @@ def _check_multi_inputs(bins, vals, two_col, width, *others,
     return F, n
 
 
-def _check_subset_tile(width, nbins, two_col, vals):
-    """Kernel V's (W, B, cols) tile of one feature must fit shared memory:
-    int32 cells for int8 values, float64 for float values."""
-    acc = 4 if vals.dtype == torch.int8 else 8
-    smem = width * nbins * (2 if two_col else 3) * acc
-    if smem > _SMEM_MAX:
-        raise ValueError(f"one feature's (W={width}, B={nbins}) tile needs "
-                         f"{smem} bytes of shared memory (at most "
-                         f"{_SMEM_MAX})")
-
-
-def _check_sel(sel, n):
-    """The selector's dtype and shape; its ids, which must lie in [-1,
-    width), are not read (that would wait on the card)."""
+def _narrow_sel(sel, n):
+    """The selector of kernels M and V as the int8 operand of the shared
+    body, 16-byte aligned: an int32 selector is narrowed (one more
+    launch).  Its ids must lie in [-1, width); they are not read (a check
+    would wait on the card), and an id of 128 or more would wrap."""
     if sel.dtype not in (torch.int32, torch.int8) or sel.shape != (n,) or \
             not sel.is_contiguous():
         raise ValueError("sel must be contiguous int32/int8 (N,)")
+    if sel.dtype == torch.int32:
+        sel = sel.to(torch.int8)           # ids in [-1, width): exact
+    return _aligned(sel)
 
 
 def _check_leaf_idx(leaf_idx, n, leaf_bound):
@@ -486,25 +472,34 @@ def group_plan(F: int, B: int, W: int, cols: int, acc_bytes: int, n: int,
             "rows_per_block": rows_per_block, "smem": smem}
 
 
-def _group_launch_plan(query, key, device, F, B, W, cols, acc_bytes, n,
-                       **kw) -> dict:
-    """:func:`group_plan` with the blocks an SM runs at once asked of the
-    card (``query(smem)``), once per shape (``key`` names the kernel and
-    what selects its instantiation)."""
-    key = (key, torch.device(device).index, F, B, W, cols, acc_bytes, n,
-           tuple(sorted(kw.items())))
+def _asked_plan(name, key, device, query, plan_of) -> dict:
+    """``plan_of(sms, per_sm)`` with the blocks an SM runs at once asked of
+    the card (``query(smem)``, the smem of ``plan_of(sms, None)``), once
+    per kernel ``name`` and ``key`` (what selects its instantiation, and
+    its shape)."""
+    key = (name, key, torch.device(device).index)
     plan = _GROUP_PLANS.get(key)
     if plan is None:
         sms = kernels.sm_count(device)
-        smem = group_plan(F, B, W, cols, acc_bytes, n, sms, **kw)["smem"]
+        smem = plan_of(sms, None)["smem"]
         got = query(smem)
         if got < 1:
-            raise RuntimeError(f"{key[0]}: no block with {smem} bytes of "
+            raise RuntimeError(f"{name}: no block with {smem} bytes of "
                                f"shared memory fits the card (occupancy "
                                f"query gave {got})")
-        plan = _GROUP_PLANS[key] = group_plan(F, B, W, cols, acc_bytes, n,
-                                              sms, got, **kw)
+        plan = _GROUP_PLANS[key] = plan_of(sms, got)
     return plan
+
+
+def _group_launch_plan(query, key, device, F, B, W, cols, acc_bytes, n,
+                       **kw) -> dict:
+    """:func:`group_plan` through :func:`_asked_plan` (``key``: the
+    kernel's name, then what selects its instantiation)."""
+    return _asked_plan(
+        key[0], (key[1:], F, B, W, cols, acc_bytes, n,
+                 tuple(sorted(kw.items()))), device, query,
+        lambda sms, per_sm: group_plan(F, B, W, cols, acc_bytes, n, sms,
+                                       per_sm, **kw))
 
 
 def _aligned(t):
@@ -521,8 +516,8 @@ def _value_columns(vals, two_col):
 
 
 def _exp_scratch(vals, n):
-    """Float values: (blocks, scratch) of the exponent launch of kernels M
-    and V-lanes; (0, None) for int8 values."""
+    """Float values: (blocks, scratch) of the exponent launch of kernels M,
+    V and V-lanes; (0, None) for int8 values."""
     if vals.dtype == torch.int8:
         return 0, None
     blocks = max(1, min(8 * kernels.sm_count(vals.device), -(-n // 256)))
@@ -547,13 +542,10 @@ def multi_histogram(bins: torch.Tensor, vals: torch.Tensor,
         return multi_histogram_plain(bins, vals, sel, max_bin, width,
                                      two_col, shift, miss_bin)
     F, n = _check_multi_inputs(bins, vals, two_col, width, sel, miss_bin)
-    _check_sel(sel, n)
     mb = _check_miss_bin(miss_bin, F) if shift else None
     if not 0 <= shift <= 15:
         raise ValueError("shift must be in [0, 15]")
-    if sel.dtype == torch.int32:
-        sel = sel.to(torch.int8)           # ids in [-1, width): exact
-    sel = _aligned(sel)
+    sel = _narrow_sel(sel, n)
     vals, cols = _value_columns(vals, two_col)
     lib = kernels.load()
     dev = bins.device
@@ -678,29 +670,41 @@ def window_histogram(bins: torch.Tensor, vals: torch.Tensor,
                      sel: torch.Tensor, win_lo: torch.Tensor, r_bins: int,
                      width: int, two_col: bool = False,
                      miss_bin=None) -> torch.Tensor:
-    """Windowed batched histogram, as :func:`window_histogram_plain`.
-    CUDA tensors go to kernel V (sel int32 or int8, win_lo int32 (W, F));
-    CPU tensors to the plain version."""
+    """Windowed batched histogram over up to 128 subsets, as
+    :func:`window_histogram_plain`.  CUDA tensors go to kernel V on the
+    shared body over the int8 selector (an int32 ``sel`` is narrowed
+    first: one more launch; win_lo int32 (W, F); vals int8 for quantized
+    values, exact, or float32, in fixed point after an exponent launch),
+    planned by :func:`group_plan`; CPU tensors to the plain version.
+    Every id of ``sel`` must lie in ``[-1, width)``, as for
+    :func:`multi_histogram`."""
     if bins.device.type == "cpu":
         return window_histogram_plain(bins, vals, sel, win_lo, r_bins, width,
                                       two_col, miss_bin)
     F, n = _check_multi_inputs(bins, vals, two_col, width, sel, win_lo,
-                               miss_bin)
-    _check_subset_tile(width, r_bins, two_col, vals)
-    _check_sel(sel, n)
+                               miss_bin, max_width=_MAX_GROUP_LANES)
     lo = _check_win_lo(win_lo, width, F)
     mb = _check_miss_bin(miss_bin, F)
+    sel = _narrow_sel(sel, n)
+    vals, cols = _value_columns(vals, two_col)
     lib = kernels.load()
-    rb = _multi_plan(F, n, bins.device)
-    part = _partial(rb, F, width, r_bins, two_col, vals)
-    out = torch.empty(width, F, r_bins, 3, dtype=torch.float32,
-                      device=bins.device)
-    stream = torch.cuda.current_stream(bins.device).cuda_stream
+    dev = bins.device
+    acc = 4 if vals.dtype == torch.int8 else 12
+    plan = _group_launch_plan(
+        lambda smem: lib.ltt_window_active_blocks(
+            bins.element_size(), int(acc == 4), cols, smem),
+        ("kernel V", bins.element_size()), dev, F, r_bins, width, cols, acc,
+        n, map_words=1 + width)
+    exp_blocks, emax = _exp_scratch(vals, n)
+    part = _partial(plan["row_blocks"], F, width, r_bins, two_col, vals)
+    out = torch.empty(width, F, r_bins, 3, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.ltt_window_hist(
         bins.data_ptr(), bins.element_size(), sel.data_ptr(),
-        sel.element_size(), vals.data_ptr(), int(vals.dtype == torch.int8),
-        vals.shape[1], int(two_col), lo.data_ptr(), _ptr(mb), n, F, r_bins,
-        width, rb, part.data_ptr(), out.data_ptr(), stream)
+        vals.data_ptr(), int(acc == 4), int(two_col), lo.data_ptr(),
+        _ptr(mb), n, F, r_bins, width, plan["fpb"], plan["row_blocks"],
+        plan["rows_per_block"], exp_blocks, _ptr(emax), part.data_ptr(),
+        out.data_ptr(), stream)
     kernels.check(rc, "kernel V (ltt_window_hist)")
     LAUNCHES["window_histogram"] += 1
     return out
@@ -759,7 +763,43 @@ def lanes_window_histogram(bins: torch.Tensor, vals: torch.Tensor,
 
 # ---- leaf renewal sums: kernel Q ---------------------------------------
 
-_LEAF_THREADS = 512
+LEAF_THREADS = 256              # threads a block of kernel Q
+LEAF_ROW_CAP = 1 << 15          # rows a block: no 32-bit word overflows
+_LEAF_STATIC_SMEM = 16          # its static shared memory (the exponents)
+
+
+def leaf_smem(L: int) -> int:
+    """Kernel Q's shared memory a block: an (L, 3) tile of three 32-bit
+    words a cell (``WordTile``, ``csrc/group_hist.cuh``)."""
+    return _align16(L * 3 * 12)
+
+
+LEAF_MAX = (_SMEM_MAX - _LEAF_STATIC_SMEM) // 36  # most leaves: 6456
+
+
+def leaf_plan(n: int, L: int, sms: int, per_sm=None) -> dict:
+    """Kernel Q's launch plan on a card with ``sms`` multiprocessors that
+    runs ``per_sm`` of its blocks at once on each (default: the most the
+    threads and shared memory allow; the wrapper asks the card).  The grid
+    is one wave of row blocks, no more than give every thread a 16-row
+    group, and at most :data:`LEAF_ROW_CAP` rows a block.  Row block ``i``
+    owns rows ``[i * rows_per_block, min((i + 1) * rows_per_block, n))``,
+    ``rows_per_block`` a multiple of 16."""
+    if not 1 <= L <= LEAF_MAX:
+        raise ValueError(f"kernel Q holds 1 to {LEAF_MAX} leaves in shared "
+                         f"memory, not {L}")
+    smem = leaf_smem(L)
+    if per_sm is None:
+        per_sm = max(1, min(2048 // LEAF_THREADS, ROUTED_SM_SMEM //
+                            (smem + _BLOCK_RESERVED_SMEM)))
+    n = max(n, 1)
+    rb = max(1, per_sm * sms)
+    rb = min(rb, -(-n // (LEAF_THREADS * ROUTED_GROUP)))  # a group a thread
+    rb = max(rb, -(-n // LEAF_ROW_CAP))
+    rows_per_block = _align16(-(-n // rb))
+    rb = -(-n // rows_per_block)
+    return {"row_blocks": rb, "rows_per_block": rows_per_block,
+            "smem": smem}
 
 
 def leaf_stats_plain(leaf_idx: torch.Tensor, grad: torch.Tensor,
@@ -777,9 +817,11 @@ def leaf_stats_plain(leaf_idx: torch.Tensor, grad: torch.Tensor,
 def leaf_stats(leaf_idx: torch.Tensor, grad: torch.Tensor,
                hess: torch.Tensor, mask: torch.Tensor,
                num_leaves: int) -> torch.Tensor:
-    """As :func:`leaf_stats_plain`; CUDA tensors go to kernel Q, CPU
-    tensors to the plain version.  Every id must be below
-    ``num_leaves``."""
+    """As :func:`leaf_stats_plain`.  CUDA tensors go to kernel Q (a bound
+    launch for each column's fixed-point scale, the sums, a fixed-order
+    reduction: the same bits on every launch), planned by
+    :func:`leaf_plan`; CPU tensors to the plain version.  Every id must be
+    below ``num_leaves`` (at most :data:`LEAF_MAX`)."""
     if leaf_idx.device.type == "cpu":
         return leaf_stats_plain(leaf_idx, grad, hess, mask, num_leaves)
     n = leaf_idx.shape[0]
@@ -791,18 +833,27 @@ def leaf_stats(leaf_idx: torch.Tensor, grad: torch.Tensor,
                 not x.is_contiguous() or x.device != leaf_idx.device:
             raise ValueError(f"{name} must be contiguous float32 ({n},) on "
                              "the device of leaf_idx")
-    if not 1 <= num_leaves <= _SMEM_MAX // 24:
-        raise ValueError(f"kernel Q holds at most {_SMEM_MAX // 24} leaves")
+    if not 1 <= num_leaves <= LEAF_MAX:
+        raise ValueError(f"kernel Q holds at most {LEAF_MAX} leaves")
+    leaf_idx, grad, hess, mask = (_aligned(x)
+                                  for x in (leaf_idx, grad, hess, mask))
     lib = kernels.load()
     dev = leaf_idx.device
-    sms = kernels.sm_count(dev)
-    rb = max(1, min(2 * sms, -(-n // _LEAF_THREADS)))
-    part = torch.empty(rb * num_leaves * 3, dtype=torch.float64, device=dev)
+    idx_bytes = leaf_idx.element_size()
+    plan = _asked_plan(
+        "kernel Q", (idx_bytes, n, num_leaves), dev,
+        lambda smem: lib.ltt_leaf_active_blocks(idx_bytes, smem),
+        lambda sms, per_sm: leaf_plan(n, num_leaves, sms, per_sm))
+    bound_blocks = max(1, min(8 * kernels.sm_count(dev), -(-n // 1024)))
+    bounds = torch.empty(bound_blocks * 3, dtype=torch.float32, device=dev)
+    part = torch.empty(plan["row_blocks"] * num_leaves * 3,
+                       dtype=torch.float64, device=dev)
     out = torch.empty(num_leaves, 3, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.ltt_leaf_stats(leaf_idx.data_ptr(), leaf_idx.element_size(),
-                            grad.data_ptr(), hess.data_ptr(), mask.data_ptr(),
-                            n, num_leaves, rb, part.data_ptr(),
+    rc = lib.ltt_leaf_stats(leaf_idx.data_ptr(), idx_bytes, grad.data_ptr(),
+                            hess.data_ptr(), mask.data_ptr(), n, num_leaves,
+                            plan["row_blocks"], plan["rows_per_block"],
+                            bound_blocks, bounds.data_ptr(), part.data_ptr(),
                             out.data_ptr(), stream)
     kernels.check(rc, "kernel Q (ltt_leaf_stats)")
     LAUNCHES["leaf_stats"] += 1

@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("histogram.cu", "split.cu", "lookup.cu", "multi_hist.cu",
            "routed_hist.cu", "leaf_stats.cu", "window_hist.cu")
 # included by the sources above; part of the library's hash
-HEADERS = ("group_hist.cuh", "subset_hist.cuh")
+HEADERS = ("group_hist.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -59,9 +59,12 @@ _SIGNATURES = {
                         _I, _I, _I, _I, _I, _I, _I, _I64, _P, _P, _P, _P,
                         _P, _P, _P],
     "ltt_routed_active_blocks": [_I, _I, _I, _I],
-    "ltt_leaf_stats": [_P, _I, _P, _P, _P, _I64, _I, _I, _P, _P, _P],
-    "ltt_window_hist": [_P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _I64, _I,
-                        _I, _I, _I, _P, _P, _P],
+    "ltt_leaf_stats": [_P, _I, _P, _P, _P, _I64, _I, _I, _I64, _I, _P, _P,
+                       _P, _P],
+    "ltt_leaf_active_blocks": [_I, _I],
+    "ltt_window_hist": [_P, _I, _P, _P, _I, _I, _P, _P, _I64, _I, _I, _I,
+                        _I, _I, _I64, _I, _P, _P, _P, _P],
+    "ltt_window_active_blocks": [_I, _I, _I, _I],
     "ltt_lanes_window_hist": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _P, _P,
                               _I64, _I, _I, _I, _I, _I, _I64, _I, _P, _P,
                               _P, _P],

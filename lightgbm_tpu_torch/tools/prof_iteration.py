@@ -20,13 +20,14 @@ reports, after one warm-up iteration:
 - from ``torch.profiler`` over one more iteration: the device's busy time
   (the union of kernel intervals), its idle share of the iteration's
   wall time, kernel launches, and device time by kernel name (the
-  histogram body shared by kernels R, M and V-lanes by kernel), and the
-  device time and calls of kernels H, S, R, M and V-lanes (``kernel_h``:
-  its histogram launch and its reduction; ``kernel_s``: its one launch;
-  ``kernel_r``: its routing, histogram and reduction launches;
-  ``kernel_m`` and ``kernel_vl``: their histogram and reduction launches,
-  and the exponent launch of float values; the count is that of the
-  histogram launch, one per call).
+  histogram body shared by kernels R, M, V and V-lanes, and the reduction
+  kernel Q shares with it, by kernel), and the device time and calls of
+  kernels H, S, R, M, V, V-lanes and Q (``kernel_h``: its histogram
+  launch and its reduction; ``kernel_s``: its one launch; ``kernel_r``:
+  its routing, histogram and reduction launches; ``kernel_m``,
+  ``kernel_v`` and ``kernel_vl``: their histogram and reduction launches,
+  and the exponent launch of float values; ``kernel_q``: its sum, bound
+  and reduction launches; the count is that of the first, one per call).
 
 The JSON is the last line of standard output.  Without a card it exits
 non-zero.
@@ -44,12 +45,12 @@ ROOT = Path(__file__).resolve().parents[2]
 
 # kernels of this package, by the name of their __global__ function
 OWN_KERNELS = ("hist_masked_kernel", "hist_reduce_kernel", "best_split_kernel",
-               "leaf_add_kernel", "subset_hist_kernel", "subset_reduce_kernel",
-               "route_kernel", "group_hist_kernel", "group_reduce_kernel",
-               "exp_max_kernel", "leaf_stats_reduce_kernel",
+               "leaf_add_kernel", "route_kernel", "group_hist_kernel",
+               "group_reduce_kernel", "exp_max_kernel", "leaf_bound_kernel",
                "leaf_stats_kernel")
 # the shared body's launches, by the tag of their kernel (group_hist.cuh)
-GROUP_TAGS = (("RoutedTag", "R"), ("MultiTag", "M"), ("LanesTag", "V-lanes"))
+GROUP_TAGS = (("RoutedTag", "R"), ("MultiTag", "M"), ("LanesTag", "V-lanes"),
+              ("WindowTag", "V"), ("LeafTag", "Q"))
 # each kernel's rows; the first counts its calls
 BY_KERNEL = {
     "kernel_h": ("hist_masked_kernel", "hist_reduce_kernel"),
@@ -58,9 +59,13 @@ BY_KERNEL = {
                  "group_reduce_kernel [R]"),
     "kernel_m": ("group_hist_kernel [M]", "group_reduce_kernel [M]",
                  "exp_max_kernel [M]"),
+    "kernel_v": ("group_hist_kernel [V]", "group_reduce_kernel [V]",
+                 "exp_max_kernel [V]"),
     "kernel_vl": ("group_hist_kernel [V-lanes]",
                   "group_reduce_kernel [V-lanes]",
                   "exp_max_kernel [V-lanes]"),
+    "kernel_q": ("leaf_stats_kernel", "leaf_bound_kernel",
+                 "group_reduce_kernel [Q]"),
 }
 
 
@@ -161,8 +166,8 @@ def main(argv=None) -> int:
         prof_wall_s = time.perf_counter() - t0
     busy_us, launches, rows = _kernel_table(prof, torch)
     own_us = sum(r["us"] for r in rows if r["own"])
-    # kernels H, S, R, M and V-lanes: device time of all their launches,
-    # and the count of the first (one a call)
+    # kernels H, S, R, M, V, V-lanes and Q: device time of all their
+    # launches, and the count of the first (one a call)
     by_kernel = {}
     for key, names in BY_KERNEL.items():
         k_rows = [r for r in rows if r["name"] in names]

@@ -1,4 +1,5 @@
-"""Launch plans of kernels H, L, R, M and V-lanes, and plain versions vs JAX.
+"""Launch plans of kernels H, L, R, M, V, V-lanes and Q, and plain versions
+vs JAX.
 
 The kernels run only on the card (``chip_smoke.py`` holds them against
 their plain versions there).  Here, on the CPU:
@@ -22,12 +23,17 @@ their plain versions there).  Here, on the CPU:
   2^24 rows in a block's int32 partial (2^22 with float values, whose
   uint32 low words take 10 bits a row) and, at the Higgs shape, stays in
   one wave of the blocks the card runs at once;
-- the plans of kernels M and V-lanes on the same body (``group_plan``:
-  kernel M with one tile a block, V-lanes with its leaf -> lane table and
-  window starts beside the tiles) fit a block's shared memory at W = 1
-  and 64 (M) and up to 128 (V-lanes), cover every (feature, row) once, hold at
-  most 2^24 rows a block (2^22 with float values) and stay in one wave at
-  the Higgs shape;
+- the plans of kernels M, V and V-lanes on the same body (``group_plan``:
+  kernel M with one tile a block, V with the window starts beside the
+  tiles, V-lanes also with its leaf -> lane table) fit a block's shared
+  memory at W = 1 and 64 (M), 1, 21, 64 and 128 (V) and up to 128
+  (V-lanes), cover every (feature, row) once, hold at most 2^24 rows a
+  block (2^22 with float values) and stay in one wave at the Higgs shape;
+- kernel Q's plan (``leaf_plan``) fits a block's shared memory up to
+  ``LEAF_MAX`` leaves, covers every row once at uint8 and int32 leaf ids
+  (composed as above over ``leaf_stats_plain``), holds at most 2^15 rows a
+  block (its 32-bit fixed-point words cannot overflow) and stays in one
+  wave at the Higgs shape;
 - ``lanes_window_histogram_plain`` over a wave's 2W interleaved lanes in
   one call equals the two calls of W lanes the JAX reference makes
   (integer values: exact);
@@ -329,14 +335,22 @@ MULTI_SHAPES = [(28, 17, 1, 2, 4), (28, 256, 1, 2, 4), (28, 17, 1, 3, 4),
                 (28, 256, 21, 3, 12), (28, 17, 21, 3, 12), (3, 64, 42, 3, 4),
                 (28, 256, 1, 3, 12)]
 # kernel V-lanes: (F, R, W, cols, accumulator bytes, leaf bound): one lane,
-# a window group, a wave's 2W children, int32 leaf ids, float values
+# a window group, a wave's 2W children, int32 leaf ids, float values; and
+# kernel V, leaf bound 0 (a selector, no leaf -> lane table): the root's
+# window (W = 1, two-column int8, and float values), a float batch of 21,
+# a wave's width and the widest call
 LANES_SHAPES = [(28, 32, 1, 2, 4, 256), (28, 32, 64, 2, 4, 256),
                 (28, 32, 128, 2, 4, 256), (28, 32, 128, 2, 4, 32768),
                 (28, 16, 128, 2, 4, 256), (28, 32, 42, 3, 12, 256),
-                (28, 32, 128, 3, 12, 32768), (5, 32, 128, 2, 4, 256)]
+                (28, 32, 128, 3, 12, 32768), (5, 32, 128, 2, 4, 256),
+                (28, 32, 1, 2, 4, 0), (28, 32, 1, 3, 12, 0),
+                (28, 32, 21, 3, 12, 0), (28, 32, 64, 2, 4, 0),
+                (28, 32, 128, 2, 4, 0)]
 
 
 def _lanes_kw(W, bound):
+    """The plan's extra shared memory of kernel V-lanes (``bound`` > 0:
+    its leaf -> lane table) or V (``bound`` 0): the window starts."""
     return {"member_bytes": bound, "map_words": 1 + W}
 
 
@@ -388,6 +402,15 @@ def test_lanes_plan_fits_and_covers(F, R, W, cols, acc, bound, N):
     miss = torch.from_numpy(np.where(np.arange(F) % 3 == 0, B - 2, -1).astype(
         np.int32))
     two = cols == 2
+    if not bound:                       # kernel V: a selector
+        sel = torch.from_numpy(rng.randint(-1, W, size=N).astype(np.int32))
+        _compose(plan, F, N,
+                 th.window_histogram_plain(bins, vals, sel, lo, R, W, two,
+                                           miss),
+                 lambda f, r: th.window_histogram_plain(
+                     bins[f, r].contiguous(), vals[r], sel[r],
+                     lo[:, f].contiguous(), R, W, two, miss[f].contiguous()))
+        return
     _compose(plan, F, N,
              th.lanes_window_histogram_plain(bins, vals, leaf, ids, lo, R, W,
                                              two, miss),
@@ -404,25 +427,96 @@ def test_lanes_plan_fits_and_covers(F, R, W, cols, acc, bound, N):
     ("M", 256, 21, 3, 12, 1, 28),     # float values
     ("V-lanes", 32, 64, 2, 4, 1, 5),  # a window group
     ("V-lanes", 32, 128, 2, 4, 1, 10),  # a wave's 2W children
-    ("V-lanes", 32, 42, 3, 12, 1, 14)])
+    ("V-lanes", 32, 42, 3, 12, 1, 14),
+    ("V", 32, 1, 2, 4, 2, 1),         # the root's window (the c2f path)
+    ("V", 32, 1, 3, 12, 1, 1),        # the root's window, float values
+    ("V", 32, 64, 2, 4, 1, 5),        # a wave's width
+    ("V", 32, 21, 3, 12, 1, 7)])      # float values, 21 subsets
 def test_group_plans_higgs_shape(kernel, B, W, cols, acc, per_sm, groups):
     """One wave: no more blocks than the H100 runs at once."""
     F, _, N = HIGGS
-    kw = _lanes_kw(W, 256) if kernel == "V-lanes" else {}
+    kw = {"V-lanes": _lanes_kw(W, 256), "V": _lanes_kw(W, 0)}.get(kernel,
+                                                                  {})
     plan = _check_group_plan(F, B, W, cols, acc, N, H100_SMS, per_sm, **kw)
     assert plan["groups"] == groups
     assert plan["groups"] * plan["row_blocks"] <= per_sm * H100_SMS
     assert plan["groups"] * plan["row_blocks"] > per_sm * H100_SMS * 0.8
 
 
-@pytest.mark.parametrize("N,acc", [((1 << 24) + 1, 4), (200_000_000, 4),
-                                   ((1 << 22) + 1, 12), (50_000_000, 12)])
-def test_lanes_plan_caps_rows_a_block(N, acc):
+_CAPS = [((1 << 24) + 1, 4), (200_000_000, 4), ((1 << 22) + 1, 12),
+         (50_000_000, 12)]
+
+
+@pytest.mark.parametrize("N,acc,bound",
+                         [c + (256,) for c in _CAPS] +
+                         [c + (0,) for c in _CAPS],
+                         ids=[f"{n}-{a}" for n, a in _CAPS] +
+                         [f"{n}-{a}-V" for n, a in _CAPS])
+def test_lanes_plan_caps_rows_a_block(N, acc, bound):
     """At most 2^24 rows a block (2^22 with float values), however few
-    blocks the card runs."""
+    blocks the card runs: kernels V-lanes and V (``bound`` 0)."""
     plan = _check_group_plan(28, 32, 128, 2, acc, N, 1, 1,
-                             **_lanes_kw(128, 256))
+                             **_lanes_kw(128, bound))
     assert plan["row_blocks"] >= -(-N // th.routed_row_cap(acc))
+
+
+def _check_leaf_plan(n, L, sms, per_sm=None):
+    plan = th.leaf_plan(n, L, sms, per_sm)
+    assert plan["smem"] == th.leaf_smem(L)
+    assert plan["smem"] + 16 <= SMEM_MAX
+    assert plan["rows_per_block"] % th.ROUTED_GROUP == 0
+    assert plan["rows_per_block"] <= 1 << 15
+    n = max(n, 1)
+    assert (plan["row_blocks"] - 1) * plan["rows_per_block"] < n <= \
+        plan["row_blocks"] * plan["rows_per_block"]  # no empty block
+    return plan
+
+
+@pytest.mark.parametrize("idx,L", [("uint8", 7), ("uint8", 31),
+                                   ("uint8", 255), ("uint8", 256),
+                                   ("int32", 255), ("int32", 1000),
+                                   ("int32", th.LEAF_MAX)])
+@pytest.mark.parametrize("N", [1, 17, 100_003])
+def test_leaf_plan_fits_and_covers(idx, L, N):
+    """Kernel Q's row blocks, through the plain version over each block's
+    rows: every row once (integer values, so a row counted twice or missed
+    changes a sum), at ids of both types."""
+    plan = _check_leaf_plan(N, L, H100_SMS)
+    assert plan["row_blocks"] <= 8 * H100_SMS
+    rng = np.random.RandomState(L + N)
+    li = rng.randint(0, L, size=N).astype(idx)
+    g, h = (torch.from_numpy(rng.randint(-8, 9, size=N).astype(np.float32))
+            for _ in range(2))
+    m = torch.from_numpy((rng.rand(N) < 0.9).astype(np.float32))
+    li = torch.from_numpy(li)
+    whole = th.leaf_stats_plain(li, g, h, m, L)
+    parts = torch.zeros_like(whole)
+    for i in range(plan["row_blocks"]):
+        r = slice(i * plan["rows_per_block"], (i + 1) * plan["rows_per_block"])
+        parts += th.leaf_stats_plain(li[r], g[r], h[r], m[r], L)
+    torch.testing.assert_close(parts, whole, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("L,per_sm", [(255, 4), (7, 8), (1000, 3)])
+def test_leaf_plan_higgs_shape(L, per_sm):
+    """One wave at 10.5M rows: no more blocks than the H100 runs at
+    once."""
+    plan = _check_leaf_plan(HIGGS[2], L, H100_SMS, per_sm)
+    assert per_sm * H100_SMS * 0.8 < plan["row_blocks"] <= per_sm * H100_SMS
+
+
+@pytest.mark.parametrize("N", [(1 << 15) + 1, 50_000_000])
+def test_leaf_plan_caps_rows_a_block(N):
+    """At most 2^15 rows a block (16 bits of a value into each 32-bit word
+    of a cell), however few blocks the card runs."""
+    plan = _check_leaf_plan(N, 255, 1, 1)
+    assert plan["row_blocks"] >= -(-N // (1 << 15))
+
+
+def test_leaf_plan_rejects_past_the_limit():
+    th.leaf_plan(1000, th.LEAF_MAX, H100_SMS)
+    with pytest.raises(ValueError, match=str(th.LEAF_MAX)):
+        th.leaf_plan(1000, th.LEAF_MAX + 1, H100_SMS)
 
 
 @pytest.mark.parametrize("two_col", [True, False], ids=["two-col", "3-col"])
