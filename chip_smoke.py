@@ -43,23 +43,31 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    lengths; float and wide-exponent values), all exact on integers;
 3. the exact path: trains the Higgs-shaped configuration at full width
    (10.5M x 28, num_leaves=255, max_bin=255, learning_rate=0.1,
-   min_sum_hessian_in_leaf=100) for 1 warm-up + 5 measured iterations
-   with the launch counters reset just before, and predicts a 500k-row
-   holdout;
+   min_sum_hessian_in_leaf=100) in three modes, 6 trees each, the launch
+   counters set to 0 just before and read just after: on CUDA graphs as
+   training runs it (the main path: the first tree eager, the graphs
+   captured after it, 5 measured trees), with every kernel launched from
+   Python ("eager"), and with fused_iters=5 (the bias iteration, then one
+   block of 5); the three give the same trees bit for bit and execute the
+   same kernel launches.  Seconds per iteration, kernel launches executed,
+   graph replays and flag reads per tree, the capture (graphs, host
+   seconds, the graph pool's memory), and for the graphed and eager runs
+   one more iteration under torch.profiler (device busy time, idle
+   share); then it predicts a 500k-row holdout;
 4. the wave path: bench.py's wave255 (wave growth, quantized two-column
    passes at W=64, min_data_in_leaf=0) with hist_refinement=false on the
-   same data, 1 warm-up + 5 iterations with the counters reset just
-   before: seconds per iteration, waves per tree, launches of M, R, Q, S
-   and L, and holdout AUC no more than 0.02 below the exact path's;
+   same data, in the same three modes: waves per tree, launches of M, R,
+   Q, S and L, and holdout AUC no more than 0.02 below the exact path's;
 5. wave255 as bench.py runs it, coarse-to-fine refinement on
-   (refine_shift 4), on the same data, 1 warm-up + 5 iterations with the
-   counters reset just before: seconds per iteration, waves per tree,
-   launches of M, V, R, V-lanes (one a wave), Q and L per tree, none of S,
-   and holdout AUC no more than 0.02 below the exact path's;
+   (refine_shift 4), on the same data, in the same three modes: launches
+   of M, V, R, V-lanes (one a wave), Q and L per tree, none of S, and
+   holdout AUC no more than 0.02 below the exact path's;
 6. trains reduced copies (50k rows with missing values, 10 iterations:
    the exact path at 31 leaves, float waves, quantized two-column waves
    at 127 leaves, and both wave kinds with coarse-to-fine refinement) on
-   the card and on the CPU and requires identical trees.
+   the card and on the CPU, each at fused_iters 1 and 4, and requires
+   identical trees card against CPU, and fused_iters=4 the same bits as
+   fused_iters=1 on each device.
 
 Every phase passes or the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
@@ -1256,10 +1264,11 @@ def phase_kernels_c2f(torch, dev, th, bins, qv, g):
 
 
 def reset_counts():
-    from lightgbm_tpu_torch.ops import histogram, lookup, split
-    for mod in (histogram, split, lookup):
-        for k in mod.LAUNCHES:
-            mod.LAUNCHES[k] = 0
+    from lightgbm_tpu_torch.ops import graphs, histogram, lookup, split
+    for counter in (histogram.LAUNCHES, split.LAUNCHES, lookup.LAUNCHES,
+                    graphs.REPLAYS):
+        for k in counter:
+            counter[k] = 0
 
 
 def read_counts():
@@ -1267,28 +1276,149 @@ def read_counts():
     return {**histogram.LAUNCHES, **split.LAUNCHES, **lookup.LAUNCHES}
 
 
-def _train_timed(torch, booster, n_iter):
-    """1 warm-up + ``n_iter`` measured iterations -> (warm-up s, [s])."""
+# phases 3-5: 1 warm-up + 5 measured trees a run; the fused run trains
+# the boost_from_average iteration (unfused) and one block of FUSED_K
+N_TREES = 6
+FUSED_K = 5
+MODES = ("graphs", "eager", "fused")
+
+
+def run_path(torch, ltt, ds, params, mode):
+    """``N_TREES`` trees of one configuration: ``mode`` "graphs" (the main
+    path as training runs it: the first tree eager, the rest replays of
+    CUDA graphs, captured after it), "eager" (every kernel launched from
+    Python, the launch sequence before the graphs) or "fused"
+    (``fused_iters=5``: the bias iteration, then one block of 5 trees on
+    the graphs).  The launch counters are set to 0 just before the first
+    tree and read just after the last.  Returns the booster, seconds per
+    measured iteration (the fused block's time over 5), the warm-up tree's
+    seconds, the capture, the kernel launches executed, graph replays,
+    flag reads per tree and waves per tree."""
+    from lightgbm_tpu_torch.ops import graphs
+    fused = mode == "fused"
+    p = dict(params, fused_iters=FUSED_K if fused else 1,
+             num_iterations=N_TREES)
+    booster = ltt.Booster(params=p, train_set=ds, _eager=mode == "eager")
+    g = booster._gbdt
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    booster.update()                                    # warm-up
+    booster.update()                      # warm-up: the first tree, eager
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    if g.runner.use_graphs:
+        g.runner.capture()
+    waves = [g.last_waves]
     iter_s = []
-    for _ in range(n_iter):
+    for _ in range(1 if fused else N_TREES - 1):
         t0 = time.perf_counter()
-        stop = booster.update()
+        for _ in range(FUSED_K if fused else 1):
+            if booster.update():
+                fail(f"{mode} training stopped early")
+            waves.append(g.last_waves)
         torch.cuda.synchronize()
-        iter_s.append(time.perf_counter() - t0)
-        if stop:
-            fail("full-width training stopped early")
-    return warm_s, iter_s
+        iter_s.append((time.perf_counter() - t0) / (FUSED_K if fused else 1))
+    counts = read_counts()
+    if booster.num_trees() != N_TREES:
+        fail(f"{mode} run trained {booster.num_trees()} trees, not {N_TREES}")
+    return {"booster": booster, "iter_s": iter_s, "warm_s": warm_s,
+            "capture": g.runner.info, "counts": counts,
+            "replays": graphs.REPLAYS["graph_replays"],
+            "flag_reads_per_tree": g.runner.flag_reads / N_TREES,
+            "waves": waves}
 
 
 def _check_launches(counts, names, path):
     for name in names:
         if counts.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on the {path} path")
+
+
+def profile_iteration(torch, booster):
+    """One more iteration under ``torch.profiler`` -> its wall seconds,
+    the device's busy seconds and idle share, the kernels the profiler
+    saw, and the kernel launches executed and graph replays (the
+    counters)."""
+    from lightgbm_tpu_torch.tools.prof_iteration import (counters,
+                                                         profile_window)
+    own0, replays0 = counters()
+    wall_s, busy_us, seen, _ = profile_window(torch, booster.update)
+    own1, replays1 = counters()
+    return {"profiled_iteration_s": wall_s,
+            "device_busy_s": busy_us / 1e6 if seen else None,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall_s
+            if seen else None,
+            "profiler_kernels": seen, "kernel_launches": own1 - own0,
+            "graph_replays": replays1 - replays0}
+
+
+def _identical_trees(a, b, what):
+    """The first ``N_TREES`` trees of two boosters the same bits (their
+    model text prints every value in full), or fail."""
+    for i in range(N_TREES):
+        if a.models[i].to_string(i) != b.models[i].to_string(i):
+            fail(f"{what}: tree {i} differs")
+
+
+def run_paths(torch, ltt, ds, params, path):
+    """One configuration in the three modes of :func:`run_path`; fails
+    unless the eager and fused trees equal the graphed ones bit for bit
+    and the three runs executed the same kernel launches.  Returns the
+    runs (the eager and fused boosters freed)."""
+    runs = {}
+    for mode in MODES:
+        r = runs[mode] = run_path(torch, ltt, ds, params, mode)
+        if mode != "fused":
+            r["profile"] = profile_iteration(torch, r["booster"])
+        n_launch = sum(r["counts"].values())
+        print(f"{path} [{mode}]: seconds per iteration "
+              f"{statistics.median(r['iter_s']):.4f} (runs "
+              f"{[round(s, 4) for s in r['iter_s']]}), warm-up tree "
+              f"{r['warm_s']:.3f} s, kernel launches executed "
+              f"{n_launch} ({n_launch / N_TREES:.1f} a tree), graph "
+              f"replays {r['replays']} ({r['replays'] / N_TREES:.1f} a "
+              f"tree), flag reads a tree {r['flag_reads_per_tree']:.2f}, "
+              f"waves {r['waves']}", flush=True)
+        if r["capture"] is not None:
+            print(f"{path} [{mode}] capture: {r['capture']}", flush=True)
+        if "profile" in r:
+            prof = r["profile"]
+            if prof["device_busy_s"] is not None:
+                prof["idle_share_of_iteration"] = 1.0 - \
+                    prof["device_busy_s"] / statistics.median(r["iter_s"])
+            print(f"{path} [{mode}] profiled iteration: {prof}", flush=True)
+    main = runs["graphs"]
+    if main["booster"]._gbdt.runner.use_graphs and (
+            main["replays"] == 0 or runs["eager"]["replays"] != 0):
+        fail(f"{path}: graph replays {main['replays']} (graphs), "
+             f"{runs['eager']['replays']} (eager)")
+    for mode in ("eager", "fused"):
+        _identical_trees(main["booster"], runs[mode]["booster"],
+                         f"{path}: graphs vs {mode}")
+        if runs[mode]["counts"] != main["counts"]:
+            fail(f"{path}: kernel launches executed differ between graphs "
+                 f"{main['counts']} and {mode} {runs[mode]['counts']}")
+        del runs[mode]["booster"]
+    torch.cuda.empty_cache()
+    print(f"{path}: graphed, eager and fused_iters={FUSED_K} trees "
+          f"identical, the same kernel launches executed", flush=True)
+    return runs
+
+
+def _summary(runs):
+    """The numbers of each mode for the JSON line."""
+    out = {}
+    for mode, r in runs.items():
+        out[mode] = {"seconds_per_iteration": statistics.median(r["iter_s"]),
+                     "iteration_seconds": r["iter_s"],
+                     "warmup_seconds": r["warm_s"], "capture": r["capture"],
+                     "kernel_launches_per_tree":
+                     sum(r["counts"].values()) / N_TREES,
+                     "graph_replays_per_tree": r["replays"] / N_TREES,
+                     "flag_reads_per_tree": r["flag_reads_per_tree"],
+                     "waves_per_tree": r["waves"],
+                     **r.get("profile", {})}
+    return out
 
 
 def phase_full_width(torch, ltt):
@@ -1310,139 +1440,96 @@ def phase_full_width(torch, ltt):
           f"(binned {tuple(ds._constructed.binned.shape)} "
           f"{ds._constructed.binned.dtype})", flush=True)
 
-    reset_counts()
-    booster = ltt.Booster(params=params, train_set=ds)
-    warm_s, iter_s = _train_timed(torch, booster, 5)
+    runs = run_paths(torch, ltt, ds, params, "exact")
+    main = runs["graphs"]
+    booster, counts = main["booster"], main["counts"]
     t0 = time.perf_counter()
     prob = booster.predict(Xh)
     predict_s = time.perf_counter() - t0
-    counts = read_counts()
     if prob.shape != (N_HOLDOUT,) or not np.all(np.isfinite(prob)):
         fail("holdout predictions are not finite of the expected shape")
     score = auc(yh, prob)
-    print(f"exact path: warm-up {warm_s:.3f} s, seconds per iteration "
-          f"{statistics.median(iter_s):.3f} (runs "
-          f"{[round(s, 3) for s in iter_s]}), holdout predict "
-          f"{predict_s:.3f} s, holdout AUC {score:.5f}, trees "
-          f"{booster.num_trees()} x {[t.num_leaves for t in booster.models]} "
-          f"leaves", flush=True)
+    print(f"exact path: holdout predict {predict_s:.3f} s, holdout AUC "
+          f"{score:.5f}, trees {booster.num_trees()} x "
+          f"{[t.num_leaves for t in booster.models]} leaves", flush=True)
     print(f"launches on the exact path: {counts} (per tree: "
-          f"{ {k: v / 6 for k, v in counts.items()} })", flush=True)
+          f"{ {k: v / N_TREES for k, v in counts.items()} })", flush=True)
     _check_launches(counts, ("histogram", "best_split", "leaf_lookup"),
                     "exact")
     if not 0.6 < score <= 1.0:
         fail(f"holdout AUC {score} is not that of a trained model")
-    del booster
+    del booster, main["booster"]
     return (ds, Xh, yh), counts, dict(
-        seconds_per_iteration=statistics.median(iter_s),
-        iteration_seconds=iter_s, warmup_seconds=warm_s,
-        dataset_seconds=ds_s, predict_seconds=predict_s, holdout_auc=score)
+        seconds_per_iteration=statistics.median(main["iter_s"]),
+        modes=_summary(runs), dataset_seconds=ds_s,
+        predict_seconds=predict_s, holdout_auc=score)
+
+
+def _wave_phase(torch, ltt, data, exact_auc, params, path, names, tier):
+    """Phases 4 and 5: a wave configuration in the three modes, the tiers
+    it resolved to as ``tier`` describes them (a test of the growth
+    parameters, and its text), holdout AUC no more than 0.02 below the
+    exact path's."""
+    from lightgbm_tpu_torch.metrics import auc
+    ds, Xh, yh = data
+    runs = run_paths(torch, ltt, ds, params, path)
+    main = runs["graphs"]
+    booster, counts, waves = main["booster"], main["counts"], main["waves"]
+    gp = booster._gbdt.grow_params
+    if not tier[0](gp):
+        fail(f"{path}: wave255 did not resolve to {tier[1]}: {gp}")
+    prob = booster.predict(Xh)
+    if prob.shape != (N_HOLDOUT,) or not np.all(np.isfinite(prob)):
+        fail(f"{path} holdout predictions are not finite of the expected "
+             f"shape")
+    score = auc(yh, prob)
+    print(f"{path}: holdout AUC {score:.5f} (exact path {exact_auc:.5f}), "
+          f"trees {booster.num_trees()} x "
+          f"{[t.num_leaves for t in booster.models]} leaves", flush=True)
+    print(f"launches on the {path} path: {counts} (per tree: "
+          f"{ {k: v / N_TREES for k, v in counts.items()} })", flush=True)
+    _check_launches(counts, names, path)
+    if score < exact_auc - 0.02:
+        fail(f"{path} holdout AUC {score} is more than 0.02 below the exact "
+             f"path's {exact_auc}")
+    del booster, main["booster"]
+    return counts, waves, dict(
+        seconds_per_iteration=statistics.median(main["iter_s"]),
+        waves_per_tree=waves, modes=_summary(runs), holdout_auc=score)
 
 
 def phase_wave(torch, ltt, data, exact_auc):
     """Phase 4: bench.py's wave255 configuration (wave growth, quantized
     two-column passes, min_data_in_leaf=0) without coarse-to-fine, on the
-    same data, 1 warm-up + 5 iterations."""
-    from lightgbm_tpu_torch.metrics import auc
-    ds, Xh, yh = data
+    same data."""
     params = dict(TRAIN_PARAMS, **WAVE_PARAMS, device_type=DEVICE)
-    reset_counts()
-    booster = ltt.Booster(params=params, train_set=ds)
-    gp = booster._gbdt.grow_params
-    if not (gp.wave and gp.two_col and gp.speculate == 64 and gp.quantize):
-        fail(f"wave255 did not resolve to two-column W=64 waves: {gp}")
-    waves = []
-    booster.update()                                    # warm-up
-    waves.append(booster._gbdt.last_waves)
-    torch.cuda.synchronize()
-    iter_s = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        if booster.update():
-            fail("wave training stopped early")
-        torch.cuda.synchronize()
-        iter_s.append(time.perf_counter() - t0)
-        waves.append(booster._gbdt.last_waves)
-    counts = read_counts()
-    prob = booster.predict(Xh)
-    if prob.shape != (N_HOLDOUT,) or not np.all(np.isfinite(prob)):
-        fail("wave holdout predictions are not finite of the expected shape")
-    score = auc(yh, prob)
-    n_trees = booster.num_trees()
-    print(f"wave255 (hist_refinement=false): seconds per iteration "
-          f"{statistics.median(iter_s):.4f} (runs "
-          f"{[round(s, 4) for s in iter_s]}), waves per tree {waves}, "
-          f"holdout AUC {score:.5f} (exact path {exact_auc:.5f}), trees "
-          f"{n_trees} x {[t.num_leaves for t in booster.models]} leaves",
-          flush=True)
-    print(f"launches on the wave path: {counts} (per tree: "
-          f"{ {k: v / n_trees for k, v in counts.items()} })", flush=True)
-    _check_launches(counts, ("multi_histogram", "routed_histogram",
-                             "leaf_stats", "best_split", "leaf_lookup"),
-                    "wave")
-    if score < exact_auc - 0.02:
-        fail(f"wave holdout AUC {score} is more than 0.02 below the exact "
-             f"path's {exact_auc}")
-    return counts, dict(seconds_per_iteration=statistics.median(iter_s),
-                        iteration_seconds=iter_s, waves_per_tree=waves,
-                        holdout_auc=score)
+    counts, _, e2e = _wave_phase(
+        torch, ltt, data, exact_auc, params, "wave",
+        ("multi_histogram", "routed_histogram", "leaf_stats", "best_split",
+         "leaf_lookup"),
+        (lambda gp: gp.wave and gp.two_col and gp.speculate == 64 and
+         gp.quantize and not gp.refine_shift, "two-column W=64 waves"))
+    return counts, e2e
 
 
 def phase_c2f(torch, ltt, data, exact_auc):
     """Phase 5: wave255 as bench.py runs it (hist_refinement at its
-    default: coarse-to-fine refinement at shift 4) on the same data,
-    1 warm-up + 5 iterations."""
-    from lightgbm_tpu_torch.metrics import auc
-    ds, Xh, yh = data
+    default: coarse-to-fine refinement at shift 4) on the same data."""
     params = dict(TRAIN_PARAMS, **WAVE255_PARAMS, device_type=DEVICE)
-    reset_counts()
-    booster = ltt.Booster(params=params, train_set=ds)
-    gp = booster._gbdt.grow_params
-    if not (gp.refine_shift == 4 and gp.wave and gp.two_col and
-            gp.speculate == 64 and gp.quantize):
-        fail(f"wave255 did not resolve to c2f two-column W=64 waves at shift "
-             f"4: {gp}")
-    waves = []
-    booster.update()                                    # warm-up
-    waves.append(booster._gbdt.last_waves)
-    torch.cuda.synchronize()
-    iter_s = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        if booster.update():
-            fail("c2f wave training stopped early")
-        torch.cuda.synchronize()
-        iter_s.append(time.perf_counter() - t0)
-        waves.append(booster._gbdt.last_waves)
-    counts = read_counts()
-    prob = booster.predict(Xh)
-    if prob.shape != (N_HOLDOUT,) or not np.all(np.isfinite(prob)):
-        fail("c2f holdout predictions are not finite of the expected shape")
-    score = auc(yh, prob)
-    n_trees = booster.num_trees()
-    print(f"wave255 (coarse-to-fine, refine_shift 4): seconds per iteration "
-          f"{statistics.median(iter_s):.4f} (runs "
-          f"{[round(s, 4) for s in iter_s]}), waves per tree {waves}, "
-          f"holdout AUC {score:.5f} (exact path {exact_auc:.5f}), trees "
-          f"{n_trees} x {[t.num_leaves for t in booster.models]} leaves",
-          flush=True)
-    print(f"launches on the c2f path: {counts} (per tree: "
-          f"{ {k: v / n_trees for k, v in counts.items()} })", flush=True)
-    _check_launches(counts, ("multi_histogram", "window_histogram",
-                             "routed_histogram", "lanes_window_histogram",
-                             "leaf_stats", "leaf_lookup"), "c2f")
+    counts, waves, e2e = _wave_phase(
+        torch, ltt, data, exact_auc, params, "c2f",
+        ("multi_histogram", "window_histogram", "routed_histogram",
+         "lanes_window_histogram", "leaf_stats", "leaf_lookup"),
+        (lambda gp: gp.refine_shift == 4 and gp.wave and gp.two_col and
+         gp.speculate == 64 and gp.quantize,
+         "c2f two-column W=64 waves at shift 4"))
     if counts["lanes_window_histogram"] != sum(waves):
         fail(f"kernel V-lanes ran {counts['lanes_window_histogram']} times "
              f"in {sum(waves)} waves: it runs once a wave")
     if counts["best_split"] != 0:
         fail(f"kernel S ran {counts['best_split']} times on the c2f path, "
              f"whose scans are plain tensor code")
-    if score < exact_auc - 0.02:
-        fail(f"c2f holdout AUC {score} is more than 0.02 below the exact "
-             f"path's {exact_auc}")
-    return counts, dict(seconds_per_iteration=statistics.median(iter_s),
-                        iteration_seconds=iter_s, waves_per_tree=waves,
-                        holdout_auc=score)
+    return counts, e2e
 
 
 def _same_trees(a, b, what):
@@ -1472,7 +1559,9 @@ def phase_device_vs_cpu(ltt):
     """Phase 6: reduced configurations on the card and on the CPU: the
     exact path at 31 leaves, float waves, and quantized two-column waves
     at 127 leaves (W = 64), each wave kind without and with coarse-to-fine
-    refinement (28 x 256 bins passes its gate)."""
+    refinement (28 x 256 bins passes its gate), each at fused_iters 1 and
+    4: identical trees card against CPU, and fused_iters=4 the same bits
+    as fused_iters=1 on each device."""
     X, y = make_higgs_shaped(50_000, N_FEATURES, seed=1)
     rng = np.random.RandomState(2)
     X[rng.rand(len(X)) < 0.05, 5] = np.nan      # exercise missing values
@@ -1487,26 +1576,40 @@ def phase_device_vs_cpu(ltt):
     }
     for what, extra in configs.items():
         boosters = {}
+        for fused in (1, 4):
+            for dev in (DEVICE, "cpu"):
+                p = dict(TRAIN_PARAMS, **extra, device_type=dev,
+                         fused_iters=fused)
+                t0 = time.perf_counter()
+                b = boosters[dev, fused] = ltt.train(
+                    p, ltt.Dataset(X, label=y, params=p), num_boost_round=10)
+                want = 4 if "c2f" in what else 0
+                if b._gbdt.grow_params.refine_shift != want:
+                    fail(f"{what}: refine_shift is not {want}")
+                blocks = b._gbdt.block_sizes
+                if blocks != ([1] * 10 if fused == 1 else [1, 4, 4, 1]):
+                    fail(f"{what}: blocks of {blocks} trees at "
+                         f"fused_iters={fused}")
+                print(f"reduced {what} on {dev}, fused_iters={fused}: "
+                      f"{time.perf_counter() - t0:.2f} s", flush=True)
+        for fused in (1, 4):
+            a, b = boosters[DEVICE, fused], boosters["cpu", fused]
+            worst = _same_trees(a, b, f"{what}, fused_iters={fused}")
+            pa, pb = a.predict(X), b.predict(X)
+            pdiff = float(np.max(np.abs(pa - pb)))
+            if pdiff > 1e-5:
+                fail(f"{what}: predictions differ between cuda and cpu by "
+                     f"{pdiff} at fused_iters={fused}")
+            print(f"device vs cpu, {what}, fused_iters={fused}: 10 trees "
+                  f"identical, max leaf value diff {worst:.3g}, max "
+                  f"prediction diff {pdiff:.3g}", flush=True)
         for dev in (DEVICE, "cpu"):
-            p = dict(TRAIN_PARAMS, **extra, device_type=dev)
-            t0 = time.perf_counter()
-            boosters[dev] = ltt.train(p, ltt.Dataset(X, label=y, params=p),
-                                      num_boost_round=10)
-            want = 4 if "c2f" in what else 0
-            if boosters[dev]._gbdt.grow_params.refine_shift != want:
-                fail(f"{what}: refine_shift is not {want}")
-            print(f"reduced {what} on {dev}: "
-                  f"{time.perf_counter() - t0:.2f} s", flush=True)
-        a, b = boosters[DEVICE], boosters["cpu"]
-        worst = _same_trees(a, b, what)
-        pa, pb = a.predict(X), b.predict(X)
-        pdiff = float(np.max(np.abs(pa - pb)))
-        if pdiff > 1e-5:
-            fail(f"{what}: predictions differ between cuda and cpu by "
-                 f"{pdiff}")
-        print(f"device vs cpu, {what}: 10 trees identical, max leaf value "
-              f"diff {worst:.3g}, max prediction diff {pdiff:.3g}",
-              flush=True)
+            if boosters[dev, 4].model_to_string() != \
+                    boosters[dev, 1].model_to_string():
+                fail(f"{what} on {dev}: fused_iters=4 trees differ from "
+                     f"fused_iters=1")
+        print(f"{what}: fused_iters=4 trees the same bits as fused_iters=1 "
+              f"on both devices", flush=True)
 
 
 def main():

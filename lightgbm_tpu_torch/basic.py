@@ -78,7 +78,9 @@ class Booster:
     def __init__(self, params: Optional[Dict[str, Any]] = None,
                  train_set: Optional[Dataset] = None,
                  model_str: Optional[str] = None,
-                 model_file: Optional[str] = None):
+                 model_file: Optional[str] = None, _eager: bool = False):
+        """``_eager`` (internal): launch every kernel of training from
+        Python on the card too, not as replays of CUDA graphs."""
         self.params = dict(params) if params else {}
         self._gbdt: Optional[GBDT] = None
         self.models = []
@@ -90,7 +92,7 @@ class Booster:
             self._objective = create_objective(self.config.objective,
                                                self.config)
             self._gbdt = GBDT(self.config, train_set._constructed,
-                              self._objective)
+                              self._objective, eager=_eager)
             self.models = self._gbdt.models
             ds = train_set._constructed
             self._feature_names = ds.feature_names

@@ -1164,7 +1164,6 @@ UNSUPPORTED: List[Tuple[str, Any, str]] = [
      "parallel tree learners"),
     ("boosting", lambda v: v not in ("gbdt", "gbrt"),
      "boosting modes other than gbdt"),
-    ("fused_iters", lambda v: v > 1, "fused super-steps"),
 ]
 
 

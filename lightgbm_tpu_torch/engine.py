@@ -34,6 +34,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
                 Log.warning("%s is set with %s=%d, %s=%s will be ignored",
                             seen[0][0], seen[0][0], num_boost_round, a, v)
     booster = Booster(params=params, train_set=train_set)
+    # the booster's horizon: a fused super-step sizes its tail block by it
+    booster._gbdt.config.num_iterations = num_boost_round
     for _ in range(num_boost_round):
         if booster.update():
             break

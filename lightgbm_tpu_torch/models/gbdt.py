@@ -4,15 +4,31 @@ Counterpart of ``lightgbm_tpu/models/gbdt.py`` for the serial learner:
 ``records_to_tree`` (:38-125, with the quantized renewal and the
 two-column count restore) is copied; the serial subset of the tier
 resolution (:381-418, :491-512: wave growth, two-column passes,
-coarse-to-fine refinement, quantized gradients, the lane width) and one
+coarse-to-fine refinement, quantized gradients, the lane width), one
 boosting iteration (:2245-2310: boost_from_average, gradients, tree build
-with the tree's quantization key, score update) become a plain
-per-iteration loop.  The
-score update is the one the JAX package's pipelined iteration performs,
-from the build's own float32 leaf values (renewed under quantization):
+with the tree's quantization key, score update) and the fused super-step
+(``_fused_ok``, ``_fused_bias_pending``, ``_train_superstep``,
+``_serve_fused`` and the stop replay, :1194-1225, :1476-1860) are ported.
+
+The score update is the one the JAX package's iteration performs, from
+the build's own float32 leaf values (renewed under quantization):
 ``score += leaf_values_final * learning_rate`` gathered by leaf id
-(kernel L on the card).  There is no fused super-step and no pipelining
-yet: each iteration fetches its tree's records in one copy.
+(kernel L on the card).  Each tree runs through an ``ops/graphs.py``
+runner: on the card as replays of CUDA graphs from the second tree on,
+eagerly on the CPU (or when the booster is made with ``eager=True``).
+
+Trees are dispatched in blocks, each with one packed fetch of its
+records: with ``fused_iters = K > 1`` a block holds K trees (the tail
+block fewer, down to ``num_iterations``; iteration 0 under
+``boost_from_average`` runs alone, unfused), else one.  With
+``superstep_pipeline_depth = d`` up to d more blocks are dispatched
+before the oldest one's records land.  A block keeps a device copy of its
+start score and each tree's leaf values and leaf assignment; a tree that
+cannot split (the stop tree) ends training, drops the blocks dispatched
+after it (their feature-fraction draws and tree ids are rewound) and
+replays the score of the trees before it.  ``update()`` serves one tree a
+call, as the per-iteration path does; trees, scores and predictions are
+the same bits at every K and depth.
 """
 from __future__ import annotations
 
@@ -24,7 +40,9 @@ import torch
 from ..config import Config
 from ..io.dataset import TorchDataset
 from ..objectives import Objective
-from ..ops.grow import GrowParams, build_tree
+from ..ops.graphs import TreeRunner
+from ..ops.grow import (GrowParams, GrowState, key_words, tree_head,
+                        tree_tail)
 from ..ops.histogram import multi_width
 from ..ops.lookup import take_small_add
 from ..ops.split import SplitParams
@@ -32,9 +50,14 @@ from ..utils import prng
 from ..utils.log import Log
 from .tree import Tree
 
-__all__ = ["GBDT", "records_to_tree", "fetch_records"]
+__all__ = ["GBDT", "records_to_tree", "host_records", "record_layout",
+           "pack_records", "fetch_records"]
 
 _KEPS = 1e-15
+# the records the host reads of a tree (records_to_tree), besides the leaf
+# count and, under quantization, the renewal sums
+_HOST_RECORDS = ("leaf", "feature", "threshold", "default_left", "gain",
+                 "left_stats", "right_stats", "valid")
 
 
 def _pad_bins(max_bin: int) -> int:
@@ -103,21 +126,42 @@ def records_to_tree(rec, config, train_set, counts_proxy=False) -> Tree:
     return tree
 
 
-def fetch_records(rec: dict) -> dict:
-    """One device->host copy for every record except the (N,) leaf
-    assignment: the records are packed into one float64 buffer (every
-    value — ids, bins, float32 stats, flags — is exact in float64)."""
-    keys = [k for k in sorted(rec) if k != "leaf_idx"]
-    flat = torch.cat([rec[k].to(torch.float64).reshape(-1) for k in keys])
-    flat = flat.cpu().numpy()
+def host_records(st: GrowState) -> dict:
+    """The device records of the tree in ``st`` that the host reads: the
+    split records, the leaf count and, under quantization, the renewal
+    sums ``leaf_stats_exact``."""
+    S = st.params.num_leaves - 1
+    rec = {k: st.rec[k][:S] for k in _HOST_RECORDS}
+    rec["n_leaves"] = st.n_leaves
+    if st.leaf_stats_exact is not None:
+        rec["leaf_stats_exact"] = st.leaf_stats_exact
+    return rec
+
+
+def record_layout(rec: dict) -> list:
+    """(key, shape, dtype) of each record, in packing order."""
+    return [(k, tuple(rec[k].shape), rec[k].dtype) for k in sorted(rec)]
+
+
+def pack_records(rec: dict, layout: list, out: torch.Tensor) -> None:
+    """Every record into one float64 row ``out`` (every value — ids,
+    bins, float32 stats, flags — is exact in float64)."""
+    torch.cat([rec[k].to(torch.float64).reshape(-1) for k, _, _ in layout],
+              out=out)
+
+
+def fetch_records(rows: torch.Tensor, layout: list) -> dict:
+    """(K, P) packed rows -> each record as a (K, ...) numpy array of its
+    own dtype, in one copy to the host (none for host rows)."""
+    flat = rows.cpu().numpy()
+    K = flat.shape[0]
     out, off = {}, 0
-    for k in keys:
-        shape = tuple(rec[k].shape)
+    for k, shape, dtype in layout:
         size = int(np.prod(shape)) if shape else 1
-        vals = flat[off:off + size].reshape(shape)
-        if rec[k].dtype == torch.bool:
+        vals = flat[:, off:off + size].reshape((K,) + shape)
+        if dtype == torch.bool:
             vals = vals > 0.5
-        elif rec[k].dtype == torch.float32:
+        elif dtype == torch.float32:
             vals = vals.astype(np.float32)
         else:
             vals = vals.astype(np.int64)
@@ -127,10 +171,14 @@ def fetch_records(rec: dict) -> dict:
 
 
 class GBDT:
-    """Gradient boosting loop of the port (serial learner, gbdt)."""
+    """Gradient boosting loop of the port (serial learner, gbdt).
+
+    ``eager=True`` launches every tree's kernels from Python on the card
+    too, as the port did before its trees ran on CUDA graphs (for
+    profiling and for the tests that hold the graphs to it)."""
 
     def __init__(self, config: Config, train_set: TorchDataset,
-                 objective: Objective):
+                 objective: Objective, eager: bool = False):
         config.check_supported()
         self.config = config
         self.train_set = train_set
@@ -204,7 +252,42 @@ class GBDT:
             config.feature_fraction_seed & 0x7FFFFFFF)
         objective.init(train_set.metadata, self.num_data, dev)
 
-    def _feature_fraction_mask(self) -> torch.Tensor:
+        # one tree's static buffers, its device epilogue and its runner
+        self._state = st = GrowState(self._xt, self._mask, self._num_bins,
+                                     self._missing_type, self.grow_params)
+        self._vals = torch.zeros(config.num_leaves, dtype=torch.float32,
+                                 device=dev)
+        self._layout = record_layout(host_records(st))
+        self._row = torch.zeros(sum(int(np.prod(s)) if s else 1
+                                    for _, s, _ in self._layout),
+                                dtype=torch.float64, device=dev)
+        self.runner = TreeRunner(st, self._tree_head, self._tree_tail,
+                                 graphs=not eager and dev.type == "cuda")
+        # blocks: dispatched and not landed (oldest first), the one being
+        # served, and the ring of their buffers
+        self._sq: list = []
+        self._fused_block = None
+        self._stop_flag = False
+        self._slots: list = []
+        self._next_slot = 0
+        # trees of each landed block, and its one records fetch
+        self.block_sizes: List[int] = []
+        self.records_fetches = 0
+
+    # ---- one tree on the device ---------------------------------------
+
+    def _tree_head(self) -> None:
+        grad, hess = self.objective.get_gradients(self._score)
+        tree_head(self._state, grad, hess)
+
+    def _tree_tail(self) -> None:
+        st = self._state
+        tree_tail(st)
+        torch.mul(st.leaf_values_final, self.shrinkage_rate, out=self._vals)
+        take_small_add(self._score, self._vals, st.leaf_idx)
+        pack_records(host_records(st), self._layout, self._row)
+
+    def _feature_fraction_mask(self) -> np.ndarray:
         F = self.num_features
         frac = self.config.feature_fraction
         mask = np.zeros(F, bool)
@@ -213,45 +296,234 @@ class GBDT:
         else:
             k = max(1, int(frac * F))
             mask[self._rng_feature.choice(F, size=k, replace=False)] = True
-        return torch.as_tensor(mask, device=self.device)
+        return mask
+
+    def _quant_words(self, tid: int) -> tuple:
+        """Key words of dispatched tree ``tid``: the booster's key folded
+        by the tree id (fresh stochastic-rounding randomness a tree)."""
+        if self._quant_key is None:
+            return 0, 0
+        return key_words(prng.fold_in(self._quant_key, tid))
+
+    # ---- the fused super-step -----------------------------------------
+
+    def _fused_ok(self) -> bool:
+        """Super-step eligibility.  The JAX package falls back to the
+        per-iteration path for custom objectives, leaf-renewal and
+        multi-model objectives, validation sets and training metrics; the
+        port has none of them yet."""
+        return self.config.fused_iters > 1 and self.num_features > 0
+
+    def _fused_bias_pending(self) -> bool:
+        """True when the next iteration is the boost_from_average iteration
+        0: it adds the bias to the score from the host and runs unfused."""
+        return (self.iter == 0 and self.config.boost_from_average and
+                not self.models and not self._sq)
+
+    def _pipeline_depth(self) -> int:
+        return max(int(self.config.superstep_pipeline_depth), 0) \
+            if self._fused_ok() else 0
 
     def train_one_iter(self) -> bool:
         """One boosting iteration; returns True when the tree could not
         split (training stops)."""
-        init_score = 0.0
+        if self._stop_flag:
+            return True
+        blk = self._fused_block
+        if blk is not None and blk["served"] < len(blk["trees"]):
+            return self._serve_fused()
+        fused = self._fused_ok() and not self._fused_bias_pending()
+        target = 1 + self._pipeline_depth() if fused else 1
+        while len(self._sq) < target:
+            if not self._dispatch_block(fused, required=not self._sq):
+                break
+        return self._land_block()
+
+    def _slot(self) -> dict:
+        """The next block's buffers, from a ring of 1 + depth: a block's
+        buffers are reused once it is landed and served."""
+        if not self._slots:
+            dev = self.device
+            N, L = self.num_data, self.config.num_leaves
+            K = max(int(self.config.fused_iters), 1)
+            cuda = dev.type == "cuda"
+            for _ in range(1 + self._pipeline_depth()):
+                rows = torch.zeros((K, self._row.shape[0]),
+                                   dtype=torch.float64, device=dev)
+                # rows padded to 16 bytes: kernel L reads aligned ids
+                n16 = -(-N // 16) * 16
+                self._slots.append({
+                    "start": torch.zeros_like(self._score),
+                    "masks": torch.zeros((K, self.num_features),
+                                         dtype=torch.bool, device=dev),
+                    "words": torch.zeros((K, 2), dtype=torch.int64,
+                                         device=dev),
+                    # the host side of the two, pinned: copied to the
+                    # card without waiting for the trees queued before
+                    "host_masks": torch.zeros((K, self.num_features),
+                                              dtype=torch.bool,
+                                              pin_memory=cuda),
+                    "host_words": torch.zeros((K, 2), dtype=torch.int64,
+                                              pin_memory=cuda),
+                    "rows": rows,
+                    "host": torch.zeros(rows.shape, dtype=torch.float64,
+                                        pin_memory=True) if cuda else rows,
+                    "leaf_idx": torch.zeros((K, n16),
+                                            dtype=self._state.li_dtype,
+                                            device=dev),
+                    "vals": torch.zeros((K, L), dtype=torch.float32,
+                                        device=dev),
+                })
+        slot = self._slots[self._next_slot % len(self._slots)]
+        self._next_slot += 1
+        return slot
+
+    def _boost_from_average(self) -> float:
+        """Iteration 0's initial score, added to the training score."""
         if self.iter == 0 and self.config.boost_from_average and \
                 not self.models:
             init = self.objective.boost_from_score()
             if abs(init) > _KEPS:
-                init_score = init
                 self._score.add_(init)
                 Log.info("Start training from score %f", init)
-        grad, hess = self.objective.get_gradients(self._score)
-        key = None
-        if self._quant_key is not None:
-            # fresh stochastic-rounding randomness per tree
-            key = prng.fold_in(self._quant_key, self._trees_dispatched)
-        self._trees_dispatched += 1
-        rec = build_tree(self._xt, grad, hess, self._mask,
-                         self._feature_fraction_mask(), self._num_bins,
-                         self._missing_type, self.grow_params, quant_key=key)
-        vals = rec["leaf_values_final"] * self.shrinkage_rate
-        take_small_add(self._score, vals, rec["leaf_idx"])
-        recs = fetch_records(rec)
-        if "n_waves" in recs:
-            self.last_waves = int(recs["n_waves"])
-        if int(recs["n_leaves"]) <= 1:
-            tree = Tree(2)
-            tree.leaf_value[0] = init_score
-            self.models.append(tree)
+                return init
+        return 0.0
+
+    def _dispatch_block(self, fused: bool, required: bool) -> bool:
+        """Dispatch one block at the queue's frontier: its trees' inputs
+        drawn on the host in sequential order, its trees run on the
+        device, their packed records copied to the host without waiting.
+        False, dispatching nothing, when a block that is not ``required``
+        would start at or past ``num_iterations``."""
+        cfg = self.config
+        i0 = self._sq[-1]["i0"] + self._sq[-1]["k"] if self._sq \
+            else self.iter
+        K, init_score = 1, 0.0
+        if fused:
+            K = int(cfg.fused_iters)
+            remaining = cfg.num_iterations - i0
+            if remaining <= 0 and not required:
+                return False
+            if 0 < remaining < K:
+                K = remaining           # the tail block
+        else:
+            init_score = self._boost_from_average()
+        # the dispatch fence: the host state a block consumes before its
+        # records land, restored when the block is dropped
+        fence = {"rng_state": self._rng_feature.get_state(),
+                 "tid": self._trees_dispatched}
+        tid = self._trees_dispatched
+        self._trees_dispatched += K
+        slot = self._slot()
+        slot["host_masks"][:K] = torch.from_numpy(np.stack(
+            [self._feature_fraction_mask() for _ in range(K)]))
+        slot["host_words"][:K] = torch.tensor(
+            [self._quant_words(tid + k) for k in range(K)])
+        for name in ("masks", "words"):
+            slot[name][:K].copy_(slot["host_" + name][:K], non_blocking=True)
+        slot["start"].copy_(self._score)
+        st = self._state
+        waves = []
+        for k in range(K):
+            st.feature_mask.copy_(slot["masks"][k])
+            st.key_words.copy_(slot["words"][k])
+            waves.append(self.runner.run())
+            slot["rows"][k].copy_(self._row)
+            slot["leaf_idx"][k, :self.num_data].copy_(st.leaf_idx)
+            slot["vals"][k].copy_(self._vals)
+        event = None
+        if slot["host"] is not slot["rows"]:
+            slot["host"][:K].copy_(slot["rows"][:K], non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        self._sq.append({"slot": slot, "i0": i0, "k": K, "fence": fence,
+                         "init_score": init_score, "waves": waves,
+                         "event": event})
+        return True
+
+    def _discard_queue(self) -> None:
+        """Drop every dispatched block not landed and restore the host
+        state their dispatches consumed (feature-fraction draws, tree
+        ids)."""
+        if not self._sq:
+            return
+        first = self._sq[0]
+        self._sq = []
+        self._rng_feature.set_state(first["fence"]["rng_state"])
+        self._trees_dispatched = int(first["fence"]["tid"])
+
+    def _land_block(self) -> bool:
+        """Fetch the oldest dispatched block's records (one copy, already
+        on its way), make its trees, and serve the first."""
+        entry = self._sq.pop(0)
+        slot, K = entry["slot"], entry["k"]
+        if entry["event"] is not None:
+            entry["event"].synchronize()
+        host = fetch_records(slot["host"][:K], self._layout)
+        self.records_fetches += 1
+        self.block_sizes.append(K)
+        init_score = entry["init_score"]
+        trees, stop_idx = [], None
+        for t in range(K):
+            if int(host["n_leaves"][t]) <= 1:
+                # the stop tree: constant, its score contribution was 0
+                tree = Tree(2)
+                tree.leaf_value[0] = init_score
+                trees.append(tree)
+                stop_idx = t
+                break
+            tree = records_to_tree({k: v[t] for k, v in host.items()},
+                                   self.config, self.train_set,
+                                   counts_proxy=self._counts_proxy)
+            tree.apply_shrinkage(self.shrinkage_rate)
+            if t == 0 and abs(init_score) > _KEPS:
+                tree.add_bias(init_score)
+            trees.append(tree)
+        self._fused_block = {"slot": slot, "trees": trees,
+                             "stop_idx": stop_idx, "served": 0,
+                             "waves": entry["waves"]}
+        if stop_idx is not None:
+            # trees after the stop ran on the device: drop the blocks
+            # dispatched after this one and replay the score up to it
+            self._discard_queue()
+            self._score.copy_(self._replay_score(stop_idx))
+        return self._serve_fused()
+
+    def _serve_fused(self) -> bool:
+        """Append the next tree of the landed block: one boosting
+        iteration from the caller's point of view."""
+        blk = self._fused_block
+        t = blk["served"]
+        blk["served"] = t + 1
+        self.models.append(blk["trees"][t])
+        self.last_waves = blk["waves"][t]
+        if t == blk["stop_idx"]:
+            self._stop_flag = True
             Log.warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")
             return True
-        tree = records_to_tree(recs, self.config, self.train_set,
-                               counts_proxy=self._counts_proxy)
-        tree.apply_shrinkage(self.shrinkage_rate)
-        if abs(init_score) > _KEPS:
-            tree.add_bias(init_score)
-        self.models.append(tree)
         self.iter += 1
         return False
+
+    def _replay_score(self, pos: int) -> torch.Tensor:
+        """The landed block's start score plus its first ``pos`` trees'
+        score adds: the same kernel-L adds on the same operands as on the
+        block's run, so the same bits."""
+        slot = self._fused_block["slot"]
+        score = slot["start"].clone()
+        for t in range(pos):
+            take_small_add(score, slot["vals"][t],
+                           slot["leaf_idx"][t, :self.num_data])
+        return score
+
+    def train_score(self) -> np.ndarray:
+        """(N,) training score of the trees served so far: while a block
+        is served, or blocks are in flight, the device score is ahead."""
+        blk = self._fused_block
+        if blk is not None and blk["served"] < len(blk["trees"]):
+            score = self._replay_score(blk["served"])
+        elif self._sq:
+            score = self._sq[0]["slot"]["start"]
+        else:
+            score = self._score
+        return score.cpu().numpy().copy()

@@ -1,0 +1,179 @@
+"""CUDA graphs of a tree: the port's counterpart of the JAX package's jit
+boundary.
+
+The JAX package compiles a tree's growth into one dispatch
+(``build_tree``), and K trees into one under ``fused_iters``.  The port
+launches its kernels from Python: an exact tree at the Higgs shape makes
+about 21,700 launches and a wave about 100, so the host, not the card,
+set the pace.  Here each phase of a tree (``ops/grow.py``) is captured
+once as a ``torch.cuda.CUDAGraph`` and replayed for every later tree:
+
+- the exact (non-speculative) loop: one graph, the whole tree;
+- the wave loops: ``head`` (gradients, quantization, the root, the first
+  wave's flags), ``body`` (one wave after its flag read; under
+  coarse-to-fine also ``body_wide``, the variant with more than W/2 live
+  lanes, chosen from the flag read) and ``tail`` (leaf values, the
+  renewal, the score add and the packed records).  A wave costs one flag
+  read and one replay.
+
+:class:`TreeRunner` runs a booster's first tree eagerly, the warm-up that
+builds the kernels and asks the card for their launch plans, and
+captures its graphs at the second, after :func:`prepare`.  On the CPU,
+or when asked, it launches every phase eagerly; the graphs replay the
+same launches, so the trees are the same bits.  A failed capture or
+replay raises: nothing falls back to eager launches.
+
+Launch counters: the wrappers count a launch where they enqueue it, so a
+capture would count its kernels once and a replay not at all.
+:class:`Graph` takes back what its capture counted and adds it again at
+every replay, so the counters keep meaning kernel launches executed;
+``REPLAYS`` counts the replays.
+"""
+from __future__ import annotations
+
+import time
+
+import torch
+
+from . import histogram, kernels, lookup, split
+from .grow import GrowState, serial_steps, wave_body, wave_loop
+
+__all__ = ["Graph", "TreeRunner", "prepare", "REPLAYS"]
+
+LAUNCH_COUNTERS = (histogram.LAUNCHES, split.LAUNCHES, lookup.LAUNCHES)
+REPLAYS = {"graph_replays": 0}
+
+
+def _counts() -> list:
+    return [dict(c) for c in LAUNCH_COUNTERS]
+
+
+class Graph:
+    """``fn`` captured once on ``stream`` into a memory pool shared with
+    ``pool``'s other graphs; :meth:`replay` runs it on the current stream.
+    ``launches`` holds the kernel launches of the capture, by counter;
+    ``capture_s`` the host time of tracing ``fn``, ``instantiate_s`` that
+    of ending the capture (instantiating the graph)."""
+
+    def __init__(self, fn, stream: torch.cuda.Stream, pool):
+        before = _counts()
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            t0 = time.perf_counter()
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+                fn()
+                t1 = time.perf_counter()
+            self.instantiate_s = time.perf_counter() - t1
+            self.capture_s = t1 - t0
+        finally:
+            after = _counts()
+            for counter, b in zip(LAUNCH_COUNTERS, before):
+                counter.update(b)
+        self.launches = [{k: a[k] - b[k] for k in a if a[k] != b[k]}
+                         for a, b in zip(after, before)]
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for counter, add in zip(LAUNCH_COUNTERS, self.launches):
+            for k, v in add.items():
+                counter[k] += v
+        REPLAYS["graph_replays"] += 1
+
+    def kernel_launches(self) -> int:
+        return sum(sum(d.values()) for d in self.launches)
+
+
+def prepare(st: GrowState, stream: torch.cuda.Stream) -> None:
+    """What a capture must not do for the first time: build or load the
+    kernels, read the card's SM count, ask the card for the launch plans
+    the phases need that the warm-up tree may not have asked for (kernel
+    H's active clusters on the exact loop, kernel V-lanes' blocks an SM at
+    both widths of a coarse-to-fine wave) and make kernel S's completion
+    counters for the capture stream."""
+    dev = st.xt.device
+    p = st.params
+    kernels.load()
+    kernels.sm_count(dev)
+    split.done_counters(1, dev, stream.cuda_stream)
+    if not st.wave:
+        histogram.masked_histogram_plan(st.xt, st.leaf_idx, p.split.max_bin)
+    elif p.refine_shift:
+        for width in (st.width, 2 * st.width):
+            histogram.lanes_window_plan(st.xt, st.leaf_idx, st.kvals, st.R,
+                                        width, p.two_col, st.leaf_bound)
+
+
+class TreeRunner:
+    """Runs a booster's trees over its :class:`GrowState`.
+
+    ``head()`` computes the gradients and runs ``grow.tree_head``;
+    ``tail()`` runs ``grow.tree_tail`` and whatever the booster does with
+    the tree on the device (the score add, the packed records).  With
+    ``graphs`` (CUDA tensors only) the first tree runs eagerly and the
+    second captures the phases, which every later tree replays.
+    ``flag_reads`` counts the wave loop's host reads, ``info`` describes
+    the capture (graphs, their kernel launches, host seconds, the pool's
+    memory)."""
+
+    def __init__(self, st: GrowState, head, tail, graphs: bool):
+        if graphs and st.xt.device.type != "cuda":
+            raise ValueError("CUDA graphs need CUDA tensors")
+        self.st = st
+        self.use_graphs = graphs
+        if st.wave:
+            self.phases = {"head": head, "tail": tail,
+                           "body": lambda: wave_body(st, False)}
+            if st.params.refine_shift:
+                self.phases["body_wide"] = lambda: wave_body(st, True)
+        else:
+            def tree():
+                head()
+                serial_steps(st)
+                tail()
+            self.phases = {"tree": tree}
+        self.graphs = None
+        self.trees = 0
+        self.flag_reads = 0
+        self.info = None
+
+    def _run(self, name: str) -> None:
+        if self.graphs is None:
+            self.phases[name]()
+        else:
+            self.graphs[name].replay()
+
+    def run(self) -> int:
+        """One tree -> its number of waves (0 on the exact loop)."""
+        if self.use_graphs and self.graphs is None and self.trees:
+            self.capture()
+        self.trees += 1
+        if not self.st.wave:
+            self._run("tree")
+            return 0
+        self._run("head")
+        waves = wave_loop(self.st, lambda wide: self._run(
+            "body_wide" if wide else "body"))
+        self._run("tail")
+        self.flag_reads += waves + 1
+        return waves
+
+    def capture(self) -> None:
+        """Capture every phase on a side stream into one memory pool."""
+        dev = self.st.xt.device
+        stream = torch.cuda.Stream(dev)
+        prepare(self.st, stream)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        pool = torch.cuda.graph_pool_handle()
+        graphs = {name: Graph(fn, stream, pool)
+                  for name, fn in self.phases.items()}
+        torch.cuda.empty_cache()
+        self.info = {
+            "graphs": {name: g.kernel_launches()
+                       for name, g in graphs.items()},
+            "capture_s": sum(g.capture_s for g in graphs.values()),
+            "instantiate_s": sum(g.instantiate_s for g in graphs.values()),
+            "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
+        }
+        self.graphs = graphs

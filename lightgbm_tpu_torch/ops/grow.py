@@ -41,6 +41,18 @@ writes to a dummy row, where JAX scatters drop them with
 ``mode="drop"``).  The wave loop reads one flag per wave to stop, as the
 JAX ``while_loop`` tests ``wave_cond``; nothing else is fetched until
 the tree ends.
+
+The loops run as phases over a :class:`GrowState`, the static buffers of
+growth allocated once per booster: :func:`tree_head` (quantization, the
+root's passes and best split, the per-leaf state reset and, on the wave
+loop, the first wave's flags), :func:`serial_steps` (the non-speculative
+loop's ``num_leaves - 1`` steps), :func:`wave_body` (one wave after its
+flag read, ending in the next wave's flags) and :func:`tree_tail` (leaf
+values and the quantized renewal).  Every phase writes the state in
+place and reads nothing back to the host, so ``ops/graphs.py`` captures
+each once as a CUDA graph and replays it for every tree; run eagerly
+(:func:`build_tree`, every tree on the CPU) the phases launch the same
+kernels in the same order.
 """
 from __future__ import annotations
 
@@ -55,7 +67,9 @@ from .histogram import (lanes_window_histogram, leaf_stats,
 from .split import (NEG_INF, SplitParams, choose_window, depth_limit,
                     find_best_split, find_best_split_c2f, fma32, leaf_output)
 
-__all__ = ["GrowParams", "build_tree", "quantize_gradients", "row_uniform",
+__all__ = ["GrowParams", "GrowState", "build_tree", "tree_head",
+           "serial_steps", "wave_loop", "wave_body", "read_flags",
+           "tree_tail", "quantize_gradients", "key_words", "row_uniform",
            "route_rows"]
 
 _M32 = 0xFFFFFFFF
@@ -104,11 +118,13 @@ def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _M32
 
 
-def row_uniform(n: int, word: int, device) -> torch.Tensor:
+def row_uniform(n: int, word, device) -> torch.Tensor:
     """Per-row rounding noise in [0, 1): the JAX package's
     ``_row_uniform`` (:441-452), a Wang-style mix of (row index, key word)
     in uint32 arithmetic, done here in int64 and masked, since PyTorch
-    has no uint32 multiply on every backend."""
+    has no uint32 multiply on every backend.  ``word`` is a host int or a
+    0-dim int64 tensor on ``device``; a captured graph reads the tensor
+    at every replay, where a host int would stay the capture's."""
     h = torch.arange(n, dtype=torch.int64, device=device) ^ (word & _M32)
     h = _mul32(h ^ (h >> 16), 0x7feb352d)
     h = _mul32(h ^ (h >> 15), 0x846ca68b)
@@ -116,35 +132,156 @@ def row_uniform(n: int, word: int, device) -> torch.Tensor:
     return (h >> 8).to(torch.float32) * (2.0 ** -24)
 
 
+def key_words(key) -> tuple:
+    """The two words of a tree's (2,) uint32 quantization key that the
+    rounding reads: ``split(key)`` into the gradient and hessian keys
+    (:414-415), then :func:`prng.key_word` of each."""
+    kg, kh = prng.split(key)
+    return prng.key_word(kg), prng.key_word(kh)
+
+
 def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
                        mask: torch.Tensor, quantize: int, two_col: bool,
                        key) -> tuple:
     """Stochastic rounding of the masked gradients (:409-459) ->
     (grad_q, hess_q, hist_scale).  ``key`` is the tree's (2,) uint32
-    Threefry key; ``hist_scale`` (3,) dequantizes a histogram (the count
-    channel takes the hess scale under ``two_col``, where it is a hess
-    copy).  The scales are ``max|v| * f32(1 / quantize)``: the reference's
-    compile turns its division by the constant into that product.  The
-    divisions by a scale are IEEE float32, so the card, the CPU and the
-    JAX package round to the same integers."""
-    kg, kh = prng.split(key)
+    Threefry key, or its two words (:func:`key_words`) as a (2,) int64
+    tensor on the device of ``grad``; ``hist_scale`` (3,) dequantizes a
+    histogram (the count channel takes the hess scale under ``two_col``,
+    where it is a hess copy).  The scales are ``max|v| * f32(1 /
+    quantize)``: the reference's compile turns its division by the
+    constant into that product.  The divisions by a scale are IEEE
+    float32, so the card, the CPU and the JAX package round to the same
+    integers."""
+    words = key if torch.is_tensor(key) else key_words(key)
     inv_q = (torch.ones((), dtype=torch.float32) / quantize).item()
     g_w = grad * mask
     h_w = hess * mask
     sg = torch.clamp(g_w.abs().max(), min=1e-30) * inv_q
     sh = torch.clamp(h_w.abs().max(), min=1e-30) * inv_q
     n, dev = grad.shape[0], grad.device
-    gq = torch.floor(g_w / sg + row_uniform(n, prng.key_word(kg), dev))
-    hq = torch.floor(h_w / sh + row_uniform(n, prng.key_word(kh), dev))
+    gq = torch.floor(g_w / sg + row_uniform(n, words[0], dev))
+    hq = torch.floor(h_w / sh + row_uniform(n, words[1], dev))
     scale = torch.stack([sg, sh, sh if two_col else torch.ones_like(sh)])
     return gq, hq, scale
+
+
+class GrowState:
+    """The static buffers of one booster's tree growth.
+
+    The tree's inputs (``feature_mask`` (F,) bool, ``key_words`` (2,)
+    int64: the quantization key's words, :func:`key_words`), the
+    objective's gradients (``grad_raw``, ``hess_raw``) and what the passes
+    read of them (quantized ``grad``/``hess`` and ``hist_scale`` on the
+    non-speculative loop, the value operand ``kvals`` on the wave loop),
+    the leaf assignment, the per-leaf state (histogram pool, leaf stats,
+    depths, each leaf's best split), the split records and the leaf
+    values.  On the wave loop the per-leaf state has a dummy row L, the
+    target of invalid lanes, the records a dummy slot L-1, and the next
+    wave's lanes and flags (``topg``, ``ids``, ``valid_w``, ``t0``,
+    ``flags``) live here too.
+
+    Allocated once; :func:`tree_head` resets everything a tree reads
+    before it writes it, so one state serves every tree of a booster, and
+    the tensors keep their addresses, which a captured graph needs."""
+
+    def __init__(self, xt: torch.Tensor, sample_mask: torch.Tensor,
+                 num_bins: torch.Tensor, missing_type: torch.Tensor,
+                 params: GrowParams):
+        p = params
+        sp = p.split
+        L = p.num_leaves
+        B = sp.max_bin
+        F, N = xt.shape
+        dev = xt.device
+        f32, i32, i64 = torch.float32, torch.int32, torch.int64
+        self.xt, self.sample_mask = xt, sample_mask
+        self.num_bins, self.missing_type = num_bins, missing_type
+        self.params = p
+        self.wave = bool(p.wave and p.speculate > 1)
+        self.li_dtype = torch.uint8 if L <= 256 else torch.int32
+
+        def zeros(shape, dtype=f32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.feature_mask = torch.ones(F, dtype=torch.bool, device=dev)
+        self.key_words = zeros(2, i64)
+        self.grad_raw = zeros(N)
+        self.hess_raw = zeros(N)
+        self.hist_scale = zeros(3) if p.quantize else None
+        self.leaf_idx = zeros(N, self.li_dtype)
+        self.ids32 = torch.arange(L, dtype=i32, device=dev)
+        self.Bp = B
+        if self.wave:
+            self.width = W = min(p.speculate, L)
+            self.kvals = zeros((N, 2 if p.two_col else 3),
+                               torch.int8 if 0 < p.quantize <= 127 else f32)
+            self.miss_bin = torch.where(
+                missing_type != 0, num_bins - 1,
+                torch.full_like(num_bins, -1)).to(i32) \
+                if sp.any_missing else None
+            self.leaf_bound = 256 if self.li_dtype == torch.uint8 else L + 1
+            if p.refine_shift:
+                # the last coarse slot is reserved for the missing bin,
+                # which value bins (at most B - 2) never reach (:696-706)
+                self.Bp = ((B - 1) >> p.refine_shift) + 1 + \
+                    int(sp.any_missing)
+                # two coarse bins at fine resolution
+                self.R = 2 << p.refine_shift
+            self.w_ar = torch.arange(W, dtype=i64, device=dev)
+            self.topg = zeros(W)
+            self.ids = zeros(W, i64)
+            self.valid_w = zeros(W, torch.bool)
+            self.t0 = zeros((), i64)
+            self.flags = zeros(3)
+        else:
+            self.ids64 = self.ids32.to(i64)
+            self.grad = zeros(N) if p.quantize else self.grad_raw
+            self.hess = zeros(N) if p.quantize else self.hess_raw
+        rows = L + 1 if self.wave else L
+        # coarse under c2f (:973-985)
+        self.pool = zeros((rows, F, self.Bp, 3))
+        self.leaf_stats = zeros((rows, 3))
+        self.leaf_depth = zeros(rows, i32)
+        self.best = {
+            "gain": zeros(rows), "feature": zeros(rows, i32),
+            "threshold": zeros(rows, i32),
+            "default_left": zeros(rows, torch.bool),
+            "left_stats": zeros((rows, 3)),
+            "left_mask": zeros((rows, B), torch.bool),
+        }
+        self.rec = _records(L if self.wave else L - 1, B, dev)
+        self.n_leaves = torch.ones((), dtype=i32, device=dev)
+        self.leaf_values = zeros(L)
+        self.leaf_values_final = zeros(L)
+        self.leaf_stats_exact = zeros((L, 3)) if p.quantize else None
+
+    def is_wide(self, live: int) -> bool:
+        """Whether a wave of ``live`` lanes runs the wide c2f variant of
+        :func:`wave_body` (more than W/2 lanes live)."""
+        return bool(self.params.refine_shift) and 2 * live > self.width
+
+    def result(self, waves: int = 0) -> dict:
+        """The tree as :func:`build_tree` returns it: views of the state's
+        buffers (the next tree overwrites them)."""
+        L = self.params.num_leaves
+        out = {k: v[:L - 1] for k, v in self.rec.items()}
+        out.update(leaf_idx=self.leaf_idx, leaf_stats=self.leaf_stats[:L],
+                   n_leaves=self.n_leaves, leaf_values=self.leaf_values,
+                   leaf_values_final=self.leaf_values_final)
+        if self.leaf_stats_exact is not None:
+            out["leaf_stats_exact"] = self.leaf_stats_exact
+        if self.wave:
+            out["n_waves"] = torch.tensor(waves, dtype=torch.int32,
+                                          device=self.xt.device)
+        return out
 
 
 def build_tree(xt: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                sample_mask: torch.Tensor, feature_mask: torch.Tensor,
                num_bins: torch.Tensor, missing_type: torch.Tensor,
                params: GrowParams, quant_key=None) -> dict:
-    """Grow one tree.
+    """Grow one tree, eagerly, over a state of its own.
 
     xt: (F, N) binned features (uint8/int16); grad/hess/sample_mask:
     (N,) float32 (the mask 0/1 under quantization); feature_mask: (F,)
@@ -155,53 +292,71 @@ def build_tree(xt: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     per-leaf values and the realized leaf count, as device tensors; with
     quantization also ``leaf_stats_exact``, the full-precision per-leaf
     sums the values were renewed from."""
-    p = params
-    sp = p.split
-    L = p.num_leaves
-    grad_raw, hess_raw = grad, hess
-    hist_scale = None
-    if p.quantize:
+    st = GrowState(xt, sample_mask, num_bins, missing_type, params)
+    st.feature_mask.copy_(feature_mask)
+    if params.quantize:
         key = prng.prng_key(0) if quant_key is None else quant_key
-        grad, hess, hist_scale = quantize_gradients(
-            grad, hess, sample_mask, p.quantize, p.two_col, key)
-    li_dtype = torch.uint8 if L <= 256 else torch.int32
-    if p.wave and p.speculate > 1:
-        st = _grow_wave(xt, grad, hess, sample_mask, feature_mask, num_bins,
-                        missing_type, p, hist_scale, li_dtype)
+        st.key_words.copy_(torch.tensor(key_words(key), dtype=torch.int64))
+    tree_head(st, grad, hess)
+    waves = 0
+    if st.wave:
+        waves = wave_loop(st, lambda wide: wave_body(st, wide))
     else:
-        st = _grow_serial(xt, grad, hess, sample_mask, feature_mask,
-                          num_bins, missing_type, p, hist_scale, li_dtype)
-    leaf_stats_ = st.pop("leaf_stats")[:L]
-    leaf_values = leaf_output(leaf_stats_[:, 0], leaf_stats_[:, 1],
-                              sp.lambda_l1, sp.lambda_l2, sp.max_delta_step)
-    final = leaf_values
+        serial_steps(st)
+    tree_tail(st)
+    return st.result(waves)
+
+
+def wave_loop(st: GrowState, body) -> int:
+    """The wave loop after :func:`tree_head`: a flag read, then
+    ``body(wide)`` (:func:`wave_body`, or a replay of its graph) while the
+    read finds a wave to run -> the number of waves (the flag reads are one
+    more)."""
+    waves = 0
+    live = read_flags(st)
+    while live is not None:
+        body(st.is_wide(live))
+        waves += 1
+        live = read_flags(st)
+    return waves
+
+
+def tree_head(st: GrowState, grad: torch.Tensor, hess: torch.Tensor) -> None:
+    """A tree's first phase: the objective's gradients into the state,
+    quantized with the state's key words, the root's passes and best
+    split, the per-leaf state and records reset, and on the wave loop
+    the first wave's lanes and flags."""
+    p = st.params
+    st.grad_raw.copy_(grad)
+    st.hess_raw.copy_(hess)
+    g, h = st.grad_raw, st.hess_raw
     if p.quantize:
-        # leaf-output renewal from full-precision sums
-        # (RenewIntGradTreeOutput) keyed by the final leaf assignment
-        ex = leaf_stats(st["leaf_idx"], grad_raw, hess_raw, sample_mask, L)
-        st["leaf_stats_exact"] = ex
-        final = torch.where(ex[:, 2] > 0,
-                            leaf_output(ex[:, 0], ex[:, 1], sp.lambda_l1,
-                                        sp.lambda_l2, sp.max_delta_step),
-                            leaf_values)
-    n_leaves = st["n_leaves"]
-    return {
-        **st,
-        "leaf_values": leaf_values,
-        "leaf_values_final": torch.where(n_leaves > 1, final,
-                                         torch.zeros_like(final)),
-        "leaf_stats": leaf_stats_,
-    }
+        g, h, scale = quantize_gradients(g, h, st.sample_mask, p.quantize,
+                                         p.two_col, st.key_words)
+        st.hist_scale.copy_(scale)
+    if st.wave:
+        st.kvals.copy_(_value_operand(g, h, st.sample_mask, p))
+        _wave_root(st, g, h)
+        _wave_head(st)
+    else:
+        if p.quantize:
+            st.grad.copy_(g)
+            st.hess.copy_(h)
+        _serial_root(st)
 
 
-def _best_splits(hists, stats, depth, num_bins, missing_type, feature_mask,
-                 p: GrowParams) -> dict:
+def _best_splits(hists, stats, depth, st: GrowState) -> dict:
     """Best split of each of a batch of leaves, no split where the children
     would pass ``max_depth``: one kernel-S launch on the card, which
     applies the depth limit itself."""
-    return find_best_split(hists.contiguous(), stats.contiguous(), num_bins,
-                           missing_type, feature_mask, p.split, depth,
-                           p.max_depth)
+    p = st.params
+    return find_best_split(hists.contiguous(), stats.contiguous(),
+                           st.num_bins, st.missing_type, st.feature_mask,
+                           p.split, depth, p.max_depth)
+
+
+def _dequant(st: GrowState, h: torch.Tensor) -> torch.Tensor:
+    return h if st.hist_scale is None else h * st.hist_scale
 
 
 def larger_child(parent: torch.Tensor, raw_small: torch.Tensor,
@@ -226,59 +381,47 @@ def _root_stats(grad, hess, mask, two_col, hist_scale):
     return stats if hist_scale is None else stats * hist_scale
 
 
-def _grow_serial(xt, grad, hess, sample_mask, feature_mask, num_bins,
-                 missing_type, p, hist_scale, li_dtype) -> dict:
-    """The non-speculative best-first loop (:1056-1211)."""
-    sp = p.split
-    L = p.num_leaves
-    B = sp.max_bin
-    F, N = xt.shape
-    dev = xt.device
-    f32 = torch.float32
-    ids32 = torch.arange(L, dtype=torch.int32, device=dev)
-    ids64 = ids32.to(torch.int64)
+def _reset_leaves(st: GrowState, hist0, stats0, best0) -> None:
+    """The per-leaf state of a tree with one leaf, the root, and empty
+    records."""
+    st.pool.zero_()
+    st.pool[0] = hist0
+    st.leaf_stats.zero_()
+    st.leaf_stats[0] = stats0
+    st.leaf_depth.zero_()
+    for k, arr in st.best.items():
+        arr.fill_(NEG_INF if k == "gain" else 0)
+        arr[0] = best0[k][0]
+    for arr in st.rec.values():
+        arr.zero_()
+    st.n_leaves.fill_(1)
 
-    def best_of(hists, stats, depth):
-        return _best_splits(hists, stats, depth, num_bins, missing_type,
-                            feature_mask, p)
 
-    def masked_hist(leaf_idx, leaf_id):
-        """(raw, dequantized) histogram of one leaf."""
-        h = masked_histogram(xt, grad, hess, sample_mask, leaf_idx, leaf_id,
-                             B)
-        return h, (h if hist_scale is None else h * hist_scale)
+def _masked_hist(st: GrowState, leaf_id) -> tuple:
+    """(raw, dequantized) histogram of one leaf (kernel H)."""
+    h = masked_histogram(st.xt, st.grad, st.hess, st.sample_mask,
+                         st.leaf_idx, leaf_id, st.params.split.max_bin)
+    return h, _dequant(st, h)
 
-    leaf_idx = torch.zeros(N, dtype=li_dtype, device=dev)
-    root_stats = _root_stats(grad, hess, sample_mask, False, hist_scale)
-    root_hist = masked_hist(leaf_idx, ids32[0])[1]
-    root_best = best_of(root_hist[None], root_stats[None],
-                        torch.zeros(1, dtype=torch.int32, device=dev))
 
-    def per_leaf(shape, dtype, fill=0):
-        return torch.full((L,) + shape, fill, dtype=dtype, device=dev)
+def _serial_root(st: GrowState) -> None:
+    st.leaf_idx.zero_()
+    root_stats = _root_stats(st.grad, st.hess, st.sample_mask, False,
+                             st.hist_scale)
+    root_hist = _masked_hist(st, st.ids32[0])[1]
+    root_best = _best_splits(root_hist[None], root_stats[None],
+                             torch.zeros(1, dtype=torch.int32,
+                                         device=st.xt.device), st)
+    _reset_leaves(st, root_hist, root_stats, root_best)
 
-    pool = per_leaf((F, B, 3), f32)
-    pool[0] = root_hist
-    leaf_stats_ = per_leaf((3,), f32)
-    leaf_stats_[0] = root_stats
-    leaf_depth = per_leaf((), torch.int32)
-    best = {
-        "gain": per_leaf((), f32, NEG_INF),
-        "feature": per_leaf((), torch.int32),
-        "threshold": per_leaf((), torch.int32),
-        "default_left": per_leaf((), torch.bool, False),
-        "left_stats": per_leaf((3,), f32),
-        "left_mask": per_leaf((B,), torch.bool, False),
-    }
-    for k, arr in best.items():
-        arr[0] = root_best[k][0]
 
-    S = L - 1
-    rec = _records(S, B, dev)
-    n_leaves = torch.ones((), dtype=torch.int32, device=dev)
-    zero3 = torch.zeros(3, dtype=f32, device=dev)
-
-    for t in range(S):
+def serial_steps(st: GrowState) -> None:
+    """The non-speculative best-first loop's ``num_leaves - 1`` steps
+    (:1056-1211)."""
+    L = st.params.num_leaves
+    xt, ids32, best, rec = st.xt, st.ids32, st.best, st.rec
+    zero3 = torch.zeros(3, dtype=torch.float32, device=xt.device)
+    for t in range(L - 1):
         new = t + 1
         l1 = torch.argmax(best["gain"]).reshape(1)          # (1,) int64
         cand = {k: _pick(v, l1) for k, v in best.items()}
@@ -287,29 +430,31 @@ def _grow_serial(xt, grad, hess, sample_mask, feature_mask, num_bins,
         # row routing: rows of leaf l that go right move to leaf `new`
         col = _pick(xt, cand["feature"].to(torch.int64).reshape(1))
         goes_left = cand["left_mask"][col.to(torch.int32)]
-        mine = leaf_idx == _pick(ids32, l1).to(li_dtype)
-        leaf_idx = leaf_idx.masked_fill(mine & ~goes_left & valid, new)
+        mine = st.leaf_idx == _pick(ids32, l1).to(st.li_dtype)
+        st.leaf_idx.masked_fill_(mine & ~goes_left & valid, new)
 
         left_stats = cand["left_stats"]
-        parent_stats = _pick(leaf_stats_, l1)
+        parent_stats = _pick(st.leaf_stats, l1)
         right_stats = parent_stats - left_stats
         # subtraction trick: smaller child from one pass, larger = parent
         # minus smaller
         small_is_left = left_stats[2] <= right_stats[2]
         small_id = torch.where(small_is_left, _pick(ids32, l1), ids32[new])
-        raw_small, hist_small = masked_hist(leaf_idx, small_id)
-        hist_large = larger_child(_pick(pool, l1), raw_small, hist_scale)
+        raw_small, hist_small = _masked_hist(st, small_id)
+        hist_large = larger_child(_pick(st.pool, l1), raw_small,
+                                  st.hist_scale)
         hist_l = torch.where(small_is_left, hist_small, hist_large)
         hist_r = torch.where(small_is_left, hist_large, hist_small)
-        depth = _pick(leaf_depth, l1) + 1
-        children = best_of(torch.stack([hist_l, hist_r]),
-                           torch.stack([left_stats, right_stats]),
-                           depth.reshape(1))
+        depth = _pick(st.leaf_depth, l1) + 1
+        children = _best_splits(torch.stack([hist_l, hist_r]),
+                                torch.stack([left_stats, right_stats]),
+                                depth.reshape(1), st)
 
-        pair = torch.cat([l1, ids64[new].reshape(1)])
-        _put(pool, pair, torch.stack([hist_l, hist_r]), valid)
-        _put(leaf_stats_, pair, torch.stack([left_stats, right_stats]), valid)
-        _put(leaf_depth, pair, depth.expand(2), valid)
+        pair = torch.cat([l1, st.ids64[new].reshape(1)])
+        _put(st.pool, pair, torch.stack([hist_l, hist_r]), valid)
+        _put(st.leaf_stats, pair, torch.stack([left_stats, right_stats]),
+             valid)
+        _put(st.leaf_depth, pair, depth.expand(2), valid)
         for k, arr in best.items():
             _put(arr, pair, children[k], valid)
 
@@ -322,10 +467,7 @@ def _grow_serial(xt, grad, hess, sample_mask, feature_mask, num_bins,
         rec["left_stats"][t] = torch.where(valid, left_stats, zero3)
         rec["right_stats"][t] = torch.where(valid, right_stats, zero3)
         rec["valid"][t] = valid
-        n_leaves = n_leaves + valid.to(torch.int32)
-
-    return {**rec, "leaf_idx": leaf_idx, "leaf_stats": leaf_stats_,
-            "n_leaves": n_leaves}
+        st.n_leaves.add_(valid.to(torch.int32))
 
 
 def _records(S: int, B: int, dev) -> dict:
@@ -355,182 +497,185 @@ def _value_operand(grad, hess, mask, p: GrowParams) -> torch.Tensor:
     return vals.contiguous()
 
 
-def _grow_wave(xt, grad, hess, sample_mask, feature_mask, num_bins,
-               missing_type, p, hist_scale, li_dtype) -> dict:
-    """Wave growth: ``wave_body`` / ``wave_body_c2f`` and ``commit_wave``
-    (:1293-1339, :1432-1724) under ``wave_cond`` (:1221-1223)."""
+def _scan_c2f(st: GrowState, coarse, win, lo, stats, depth) -> dict:
+    p = st.params
+    b = find_best_split_c2f(coarse, win, lo, stats, st.num_bins,
+                            st.missing_type, st.feature_mask, p.split,
+                            p.refine_shift)
+    return depth_limit(b, depth, p.max_depth)
+
+
+def _window(st: GrowState, coarse, stats) -> torch.Tensor:
+    return choose_window(coarse, stats, st.num_bins, st.missing_type,
+                         st.params.split, st.params.refine_shift)
+
+
+def _wave_root(st: GrowState, g, h) -> None:
+    """The wave loop's root: the batched pass with one live lane, coarse
+    then windowed under c2f (:908-919), where no pass runs at full
+    resolution."""
+    p = st.params
+    shift = p.refine_shift
+    dev = st.xt.device
+    st.leaf_idx.zero_()
+    root_stats = _root_stats(g, h, st.sample_mask, p.two_col, st.hist_scale)
+    zero1 = torch.zeros(1, dtype=torch.int32, device=dev)
+    sel0 = torch.zeros(st.xt.shape[1], dtype=torch.int8, device=dev)
+    root_hist = _dequant(st, multi_histogram(
+        st.xt, st.kvals, sel0, st.Bp, 1, p.two_col, shift, st.miss_bin))
+    if shift:
+        lo0 = _window(st, root_hist, root_stats[None])
+        root_win = _dequant(st, window_histogram(
+            st.xt, st.kvals, sel0, lo0, st.R, 1, p.two_col, st.miss_bin))
+        root_best = _scan_c2f(st, root_hist, root_win, lo0,
+                              root_stats[None], zero1)
+    else:
+        root_best = _best_splits(root_hist, root_stats[None], zero1, st)
+    _reset_leaves(st, root_hist[0], root_stats, root_best)
+
+
+def _wave_head(st: GrowState) -> None:
+    """The next wave's lanes (the top-W leaves by gain, ``top_k`` order:
+    descending, ties to the lower leaf id; valid lanes form a prefix, so
+    record slots stay contiguous) and its flags (``wave_cond`` and the
+    live lane count), which :func:`read_flags` reads."""
+    L = st.params.num_leaves
+    W = st.width
+    gain = st.best["gain"][:L]
+    t0 = st.n_leaves.to(torch.int64) - 1          # next free record slot
+    remaining = (L - 1) - t0
+    srt = torch.sort(gain, descending=True, stable=True)
+    st.topg.copy_(srt.values[:W])
+    st.ids.copy_(srt.indices[:W])
+    st.valid_w.copy_((st.topg > 0) & (st.w_ar < remaining))
+    st.t0.copy_(t0)
+    st.flags.copy_(torch.stack([st.n_leaves.to(torch.float32), gain.max(),
+                                st.valid_w.sum().to(torch.float32)]))
+
+
+def read_flags(st: GrowState):
+    """The one read of a wave: the live lane count of the next wave, or
+    None when the tree is done (``wave_cond`` fails)."""
+    n_leaves, max_gain, live = st.flags.tolist()
+    if not (n_leaves < st.params.num_leaves and max_gain > 0):
+        return None
+    return int(live)
+
+
+def wave_body(st: GrowState, wide: bool = False) -> None:
+    """One wave after its flag read: ``wave_body`` / ``wave_body_c2f`` and
+    ``commit_wave`` (:1293-1339, :1432-1724), then the next wave's lanes
+    and flags.  ``wide`` (c2f only, :meth:`GrowState.is_wide`): more than
+    W/2 lanes are live, so the windowed pass takes all 2W children."""
+    p = st.params
     sp = p.split
     L = p.num_leaves
-    B = sp.max_bin
-    W = min(p.speculate, L)
-    F, N = xt.shape
-    dev = xt.device
-    f32, i32, i64 = torch.float32, torch.int32, torch.int64
-    kvals = _value_operand(grad, hess, sample_mask, p)
-    miss_bin = torch.where(missing_type != 0, num_bins - 1,
-                           torch.full_like(num_bins, -1)).to(i32) \
-        if sp.any_missing else None
-    leaf_bound = 256 if li_dtype == torch.uint8 else L + 1
+    W = st.width
     shift = p.refine_shift
+    i32 = torch.int32
+    best, rec = st.best, st.rec
+    ids, topg, valid_w = st.ids, st.topg, st.valid_w
+    dummy = torch.full_like(ids, L)
+    ids_leaf = torch.where(valid_w, ids, dummy)
+    t_j = st.t0 + st.w_ar
+    ids_rec = torch.where(valid_w, t_j, torch.full_like(t_j, L - 1))
+    new_ids = t_j + 1
+    new_leaf = torch.where(valid_w, new_ids, dummy)
+
+    cw = {k: v.index_select(0, ids) for k, v in best.items()}
+    lstat_w = cw["left_stats"]
+    rstat_w = st.leaf_stats.index_select(0, ids) - lstat_w
+    small_left_w = lstat_w[:, 2] <= rstat_w[:, 2]
+    depth_w = st.leaf_depth.index_select(0, ids) + 1
+
+    rows = [ids_leaf, cw["feature"], cw["threshold"], new_ids, small_left_w]
+    if sp.any_missing:
+        rows.append(cw["default_left"])
+    tbl = torch.stack([r.to(i32) for r in rows])
+    hist_small, leaf_out, _ = routed_histogram(
+        st.xt, st.kvals, st.leaf_idx, tbl, st.Bp, W, p.two_col, st.miss_bin,
+        leaf_bound=st.leaf_bound, shift=shift)
+    st.leaf_idx.copy_(leaf_out)
+    hist_large = larger_child(st.pool.index_select(0, ids), hist_small,
+                              st.hist_scale)
+    hist_small = _dequant(st, hist_small)
+    sl4 = small_left_w[:, None, None, None]
+    hist_l = torch.where(sl4, hist_small, hist_large)
+    hist_r = torch.where(sl4, hist_large, hist_small)
     if shift:
-        # the last coarse slot is reserved for the missing bin, which
-        # value bins (at most B - 2) never reach (:696-706)
-        Bp = ((B - 1) >> shift) + 1 + int(sp.any_missing)
-        R = 2 << shift               # two coarse bins at fine resolution
-    else:
-        Bp = B
+        # children interleaved [l0, r0, l1, r1, ...]: live children form a
+        # prefix, so the children past W hold rows only when more than W/2
+        # lanes are live (:1648-1688).  Then one pass takes all 2W lanes
+        # (the reference's two passes of W come from its lane width; live
+        # child ids are distinct and dummy ids match no row, so the sums
+        # are the same), else W lanes and zeros for the rest.
+        def pair(a, b):
+            return torch.stack([a, b], 1).reshape((2 * W,) + a.shape[1:])
 
-    def dequant(h):
-        return h if hist_scale is None else h * hist_scale
-
-    def scan(hists, stats, depth):
-        return _best_splits(hists, stats, depth, num_bins, missing_type,
-                            feature_mask, p)
-
-    def scan_c2f(coarse, win, lo, stats, depth):
-        b = find_best_split_c2f(coarse, win, lo, stats, num_bins,
-                                missing_type, feature_mask, sp, shift)
-        return depth_limit(b, depth, p.max_depth)
-
-    def window(coarse, stats):
-        return choose_window(coarse, stats, num_bins, missing_type, sp, shift)
-
-    leaf_idx = torch.zeros(N, dtype=li_dtype, device=dev)
-    root_stats = _root_stats(grad, hess, sample_mask, p.two_col, hist_scale)
-    zero1 = torch.zeros(1, dtype=i32, device=dev)
-    sel0 = torch.zeros(N, dtype=torch.int8, device=dev)
-    # the batched pass with one live lane: coarse then windowed under
-    # c2f (:908-919), where no pass runs at full resolution
-    root_hist = dequant(multi_histogram(xt, kvals, sel0, Bp, 1, p.two_col,
-                                        shift, miss_bin))
-    if shift:
-        lo0 = window(root_hist, root_stats[None])
-        root_win = dequant(window_histogram(xt, kvals, sel0, lo0, R, 1,
-                                            p.two_col, miss_bin))
-        root_best = scan_c2f(root_hist, root_win, lo0, root_stats[None],
-                             zero1)
-    else:
-        root_best = scan(root_hist, root_stats[None], zero1)
-
-    # per-leaf state with a dummy row L: the target of invalid lanes
-    def per_leaf(shape, dtype, fill=0):
-        return torch.full((L + 1,) + shape, fill, dtype=dtype, device=dev)
-
-    pool = per_leaf((F, Bp, 3), f32)     # coarse under c2f (:973-985)
-    pool[0] = root_hist[0]
-    leaf_stats_ = per_leaf((3,), f32)
-    leaf_stats_[0] = root_stats
-    leaf_depth = per_leaf((), i32)
-    best = {
-        "gain": per_leaf((), f32, NEG_INF),
-        "feature": per_leaf((), i32),
-        "threshold": per_leaf((), i32),
-        "default_left": per_leaf((), torch.bool, False),
-        "left_stats": per_leaf((3,), f32),
-        "left_mask": per_leaf((B,), torch.bool, False),
-    }
-    for k, arr in best.items():
-        arr[0] = root_best[k][0]
-    rec = _records(L, B, dev)          # slot L-1 is the dummy record
-    n_leaves = torch.ones((), dtype=i32, device=dev)
-    w_ar = torch.arange(W, dtype=i64, device=dev)
-    n_waves = 0
-
-    while True:
-        t0 = n_leaves.to(i64) - 1          # next free split-record slot
-        remaining = (L - 1) - t0
-        # top_k order: descending, ties to the lower leaf id
-        srt = torch.sort(best["gain"][:L], descending=True, stable=True)
-        topg, ids = srt.values[:W], srt.indices[:W]
-        # valid lanes form a prefix, so record slots stay contiguous
-        valid_w = (topg > 0) & (w_ar < remaining)
-        # the one read of the wave: wave_cond and the live lane count
-        flags = torch.stack([n_leaves.to(f32), best["gain"][:L].max(),
-                             valid_w.sum().to(f32)]).tolist()
-        if not (flags[0] < L and flags[1] > 0):
-            break
-        live = int(flags[2])
-        n_waves += 1
-        dummy = torch.full_like(ids, L)
-        ids_leaf = torch.where(valid_w, ids, dummy)
-        t_j = t0 + w_ar
-        ids_rec = torch.where(valid_w, t_j, torch.full_like(t_j, L - 1))
-        new_ids = t_j + 1
-        new_leaf = torch.where(valid_w, new_ids, dummy)
-
-        cw = {k: v.index_select(0, ids) for k, v in best.items()}
-        lstat_w = cw["left_stats"]
-        rstat_w = leaf_stats_.index_select(0, ids) - lstat_w
-        small_left_w = lstat_w[:, 2] <= rstat_w[:, 2]
-        depth_w = leaf_depth.index_select(0, ids) + 1
-
-        rows = [ids_leaf, cw["feature"], cw["threshold"], new_ids,
-                small_left_w]
-        if sp.any_missing:
-            rows.append(cw["default_left"])
-        tbl = torch.stack([r.to(i32) for r in rows])
-        hist_small, leaf_idx, _ = routed_histogram(
-            xt, kvals, leaf_idx, tbl, Bp, W, p.two_col, miss_bin,
-            leaf_bound=leaf_bound, shift=shift)
-        hist_large = larger_child(pool.index_select(0, ids), hist_small,
-                                  hist_scale)
-        hist_small = dequant(hist_small)
-        sl4 = small_left_w[:, None, None, None]
-        hist_l = torch.where(sl4, hist_small, hist_large)
-        hist_r = torch.where(sl4, hist_large, hist_small)
-        if shift:
-            # children interleaved [l0, r0, l1, r1, ...]: live children
-            # form a prefix, so the children past W hold rows only when
-            # more than W/2 lanes are live (:1648-1688).  Then one pass
-            # takes all 2W lanes (the reference's two passes of W come from
-            # its lane width; live child ids are distinct and dummy ids
-            # match no row, so the sums are the same), else W lanes and
-            # zeros for the rest.
-            def pair(a, b):
-                return torch.stack([a, b], 1).reshape((2 * W,) + a.shape[1:])
-
-            ch_ids = pair(ids_leaf, new_leaf)
-            ch_hist = pair(hist_l, hist_r)
-            ch_stats = pair(lstat_w, rstat_w)
-            ch_depth = pair(depth_w, depth_w)
-            win_lo = window(ch_hist, ch_stats)                 # (2W, F)
-            lane_ids = ch_ids.to(i32)
-            if 2 * live > W:
-                win = lanes_window_histogram(
-                    xt, kvals, leaf_idx, lane_ids, win_lo, R, 2 * W,
-                    p.two_col, miss_bin, leaf_bound)
-            else:
-                win = lanes_window_histogram(
-                    xt, kvals, leaf_idx, lane_ids[:W], win_lo[:W], R, W,
-                    p.two_col, miss_bin, leaf_bound)
-                win = torch.cat([win, torch.zeros_like(win)])
-            win = dequant(win)
-            bests = scan_c2f(ch_hist, win, win_lo, ch_stats, ch_depth)
+        ch_ids = pair(ids_leaf, new_leaf)
+        ch_hist = pair(hist_l, hist_r)
+        ch_stats = pair(lstat_w, rstat_w)
+        ch_depth = pair(depth_w, depth_w)
+        win_lo = _window(st, ch_hist, ch_stats)                 # (2W, F)
+        lane_ids = ch_ids.to(i32)
+        if wide:
+            win = lanes_window_histogram(
+                st.xt, st.kvals, st.leaf_idx, lane_ids, win_lo, st.R, 2 * W,
+                p.two_col, st.miss_bin, st.leaf_bound)
         else:
-            ch_ids = torch.cat([ids_leaf, new_leaf])
-            ch_hist = torch.cat([hist_l, hist_r])
-            ch_stats = torch.cat([lstat_w, rstat_w])
-            ch_depth = torch.cat([depth_w, depth_w])
-            # all 2W children's best splits in one batched scan
-            bests = scan(ch_hist, ch_stats, ch_depth)
+            win = lanes_window_histogram(
+                st.xt, st.kvals, st.leaf_idx, lane_ids[:W], win_lo[:W], st.R,
+                W, p.two_col, st.miss_bin, st.leaf_bound)
+            win = torch.cat([win, torch.zeros_like(win)])
+        win = _dequant(st, win)
+        bests = _scan_c2f(st, ch_hist, win, win_lo, ch_stats, ch_depth)
+    else:
+        ch_ids = torch.cat([ids_leaf, new_leaf])
+        ch_hist = torch.cat([hist_l, hist_r])
+        ch_stats = torch.cat([lstat_w, rstat_w])
+        ch_depth = torch.cat([depth_w, depth_w])
+        # all 2W children's best splits in one batched scan
+        bests = _best_splits(ch_hist, ch_stats, ch_depth, st)
 
-        pool.index_copy_(0, ch_ids, ch_hist)
-        leaf_stats_.index_copy_(0, ch_ids, ch_stats)
-        leaf_depth.index_copy_(0, ch_ids, ch_depth)
-        for k, arr in best.items():
-            arr.index_copy_(0, ch_ids, bests[k].to(arr.dtype))
-        for k, val in (("leaf", ids), ("feature", cw["feature"]),
-                       ("threshold", cw["threshold"]),
-                       ("default_left", cw["default_left"]),
-                       ("gain", topg), ("left_stats", lstat_w),
-                       ("right_stats", rstat_w),
-                       ("left_mask", cw["left_mask"]), ("valid", valid_w)):
-            rec[k].index_copy_(0, ids_rec, val.to(rec[k].dtype))
-        n_leaves = n_leaves + valid_w.sum().to(i32)
+    st.pool.index_copy_(0, ch_ids, ch_hist)
+    st.leaf_stats.index_copy_(0, ch_ids, ch_stats)
+    st.leaf_depth.index_copy_(0, ch_ids, ch_depth)
+    for k, arr in best.items():
+        arr.index_copy_(0, ch_ids, bests[k].to(arr.dtype))
+    for k, val in (("leaf", ids), ("feature", cw["feature"]),
+                   ("threshold", cw["threshold"]),
+                   ("default_left", cw["default_left"]),
+                   ("gain", topg), ("left_stats", lstat_w),
+                   ("right_stats", rstat_w),
+                   ("left_mask", cw["left_mask"]), ("valid", valid_w)):
+        rec[k].index_copy_(0, ids_rec, val.to(rec[k].dtype))
+    st.n_leaves.add_(valid_w.sum().to(i32))
+    _wave_head(st)
 
-    return {**{k: v[:L - 1] for k, v in rec.items()}, "leaf_idx": leaf_idx,
-            "leaf_stats": leaf_stats_, "n_leaves": n_leaves,
-            "n_waves": torch.tensor(n_waves, dtype=i32, device=dev)}
+
+def tree_tail(st: GrowState) -> None:
+    """A tree's last phase: the leaf values from the leaf stats and, under
+    quantization, their renewal from full-precision sums
+    (RenewIntGradTreeOutput) keyed by the final leaf assignment (kernel
+    Q); no value where the tree did not split."""
+    p = st.params
+    sp = p.split
+    L = p.num_leaves
+    leaf_stats_ = st.leaf_stats[:L]
+    leaf_values = leaf_output(leaf_stats_[:, 0], leaf_stats_[:, 1],
+                              sp.lambda_l1, sp.lambda_l2, sp.max_delta_step)
+    final = leaf_values
+    if p.quantize:
+        ex = leaf_stats(st.leaf_idx, st.grad_raw, st.hess_raw,
+                        st.sample_mask, L)
+        st.leaf_stats_exact.copy_(ex)
+        final = torch.where(ex[:, 2] > 0,
+                            leaf_output(ex[:, 0], ex[:, 1], sp.lambda_l1,
+                                        sp.lambda_l2, sp.max_delta_step),
+                            leaf_values)
+    st.leaf_values.copy_(leaf_values)
+    st.leaf_values_final.copy_(torch.where(st.n_leaves > 1, final,
+                                           torch.zeros_like(final)))
 
 
 def route_rows(xt: torch.Tensor, rec_leaf: torch.Tensor,

@@ -52,12 +52,13 @@ import torch
 from . import kernels
 
 __all__ = ["histogram_plain", "masked_histogram_plain", "masked_histogram",
-           "hist_plan", "multi_width", "multi_histogram_plain",
-           "multi_histogram",
+           "masked_histogram_plan", "hist_plan", "multi_width",
+           "multi_histogram_plain", "multi_histogram",
            "routed_histogram_plain", "routed_histogram",
            "group_smem", "group_plan",
            "window_histogram_plain", "window_histogram",
            "lanes_window_histogram_plain", "lanes_window_histogram",
+           "lanes_window_plan",
            "leaf_smem", "leaf_plan", "LEAF_MAX", "leaf_stats_plain",
            "leaf_stats", "LAUNCHES"]
 
@@ -149,6 +150,18 @@ def _active_clusters(lib, device, bin_bytes, idx_bytes, smem) -> int:
     return _ACTIVE_CLUSTERS[key]
 
 
+def masked_histogram_plan(bins: torch.Tensor, leaf_idx: torch.Tensor,
+                          max_bin: int) -> dict:
+    """Kernel H's launch plan for these operands on their card, whose
+    active clusters are asked once (a graph capture asks first)."""
+    F, n = bins.shape
+    lib = kernels.load()
+    sms = kernels.sm_count(bins.device)
+    smem = hist_plan(F, max_bin, n, sms)["smem"]
+    return hist_plan(F, max_bin, n, sms, _active_clusters(
+        lib, bins.device, bins.element_size(), leaf_idx.element_size(), smem))
+
+
 def masked_histogram(bins: torch.Tensor, grad: torch.Tensor,
                      hess: torch.Tensor, mask: torch.Tensor,
                      leaf_idx: torch.Tensor, leaf_id: torch.Tensor,
@@ -183,10 +196,7 @@ def masked_histogram(bins: torch.Tensor, grad: torch.Tensor,
     if leaf_idx.data_ptr() % 16:
         leaf_idx = leaf_idx.clone()        # the kernel loads aligned words
     lib = kernels.load()
-    sms = kernels.sm_count(bins.device)
-    smem = hist_plan(F, max_bin, n, sms)["smem"]
-    plan = hist_plan(F, max_bin, n, sms, _active_clusters(
-        lib, bins.device, bins.element_size(), leaf_idx.element_size(), smem))
+    plan = masked_histogram_plan(bins, leaf_idx, max_bin)
     partial = torch.empty(plan["clusters"] * F * max_bin * 3,
                           dtype=torch.float64, device=bins.device)
     out = torch.empty(F, max_bin, 3, dtype=torch.float32, device=bins.device)
@@ -710,6 +720,26 @@ def window_histogram(bins: torch.Tensor, vals: torch.Tensor,
     return out
 
 
+def lanes_window_plan(bins: torch.Tensor, leaf_idx: torch.Tensor,
+                      vals: torch.Tensor, r_bins: int, width: int,
+                      two_col: bool, leaf_bound: int) -> dict:
+    """Kernel V-lanes' launch plan for these operands on their card (its
+    blocks an SM asked once; a graph capture asks first, for both widths
+    of the coarse-to-fine wave).  ``leaf_bound`` as the wrapper takes it
+    (256 for uint8 leaf ids)."""
+    F, n = bins.shape
+    cols = 2 if two_col else 3
+    acc = 4 if vals.dtype == torch.int8 else 12
+    idx_bytes = leaf_idx.element_size()
+    lib = kernels.load()
+    return _group_launch_plan(
+        lambda smem: lib.ltt_lanes_active_blocks(
+            bins.element_size(), idx_bytes, int(acc == 4), cols, smem),
+        ("kernel V-lanes", bins.element_size(), idx_bytes), bins.device, F,
+        r_bins, width, cols, acc, n, member_bytes=leaf_bound,
+        map_words=1 + width)
+
+
 def lanes_window_histogram(bins: torch.Tensor, vals: torch.Tensor,
                            leaf_idx: torch.Tensor, lane_ids: torch.Tensor,
                            win_lo: torch.Tensor, r_bins: int, width: int,
@@ -741,11 +771,8 @@ def lanes_window_histogram(bins: torch.Tensor, vals: torch.Tensor,
     dev = bins.device
     acc = 4 if vals.dtype == torch.int8 else 12
     idx_bytes = leaf_idx.element_size()
-    plan = _group_launch_plan(
-        lambda smem: lib.ltt_lanes_active_blocks(
-            bins.element_size(), idx_bytes, int(acc == 4), cols, smem),
-        ("kernel V-lanes", bins.element_size(), idx_bytes), dev, F, r_bins,
-        width, cols, acc, n, member_bytes=leaf_bound, map_words=1 + width)
+    plan = lanes_window_plan(bins, leaf_idx, vals, r_bins, width, two_col,
+                             leaf_bound)
     exp_blocks, emax = _exp_scratch(vals, n)
     part = _partial(plan["row_blocks"], F, width, r_bins, two_col, vals)
     out = torch.empty(width, F, r_bins, 3, dtype=torch.float32, device=dev)

@@ -32,7 +32,7 @@ __all__ = ["EPS", "NEG_INF", "SplitParams", "leaf_output", "leaf_gain",
            "lane_scalars", "prefix_sum", "find_best_split_plain",
            "depth_limit",
            "find_best_split", "choose_window", "find_best_split_c2f",
-           "LAUNCHES"]
+           "done_counters", "LAUNCHES"]
 
 EPS = 1e-15
 NEG_INF = -1e30
@@ -214,10 +214,12 @@ def _record_views(W, F, B, device):
 _DONE: dict = {}
 
 
-def _done_counters(W: int, device, stream: int) -> torch.Tensor:
+def done_counters(W: int, device, stream: int) -> torch.Tensor:
     """Kernel S's per-lane completion counters for launches on ``stream``
     of ``device``: zeroed once; each launch leaves them zero again.  Each
-    stream has its own, so launches on two streams cannot mix counts."""
+    stream has its own, so launches on two streams cannot mix counts.  A
+    graph capture makes its stream's counters first (``ops/graphs.py``):
+    made inside a capture, their zeroing would be captured, not run."""
     key = (torch.device(device).index, stream)
     done = _DONE.get(key)
     if done is None or done.numel() < W:
@@ -460,7 +462,7 @@ def find_best_split(hist: torch.Tensor, parent: torch.Tensor,
         max(p.min_sum_hessian_in_leaf, EPS) if p.counts_proxy
         else p.min_sum_hessian_in_leaf, p.min_gain_to_split,
         int(p.any_missing), int(p.counts_proxy), part.data_ptr(),
-        _done_counters(W, dev, stream).data_ptr(), rec["gain"].data_ptr(),
+        done_counters(W, dev, stream).data_ptr(), rec["gain"].data_ptr(),
         rec["left_stats"].data_ptr(), rec["feature"].data_ptr(),
         rec["threshold"].data_ptr(), rec["default_left"].data_ptr(),
         rec["left_mask"].data_ptr(), stream)

@@ -43,6 +43,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: heavy tests (oracle CLI, engine sweeps, "
                    "8-device mesh); deselect with -m 'not slow'")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (skips without one)")
 
 
 def pytest_collection_modifyitems(config, items):

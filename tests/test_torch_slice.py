@@ -181,7 +181,7 @@ def test_cuda_default_raises_without_a_card():
     {"boosting": "dart"}, {"bagging_fraction": 0.5, "bagging_freq": 1},
     {"speculative_tolerance": 0.1}, {"boosting": "goss"},
     {"tree_learner": "data"}, {"monotone_constraints": [1, 0, 0, 0, 0, 0]},
-    {"fused_iters": 4}, {"objective": "multiclass", "num_class": 3},
+    {"categorical_feature": "0"}, {"objective": "multiclass", "num_class": 3},
 ])
 def test_unimplemented_parameters_raise(params):
     X, y = _data(6, "binary", False, n=200)
