@@ -10,37 +10,39 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
 1. prints the card (name and power limit, from nvidia-smi) and builds the
    kernels (one nvcc per source, all started together);
 2. holds every kernel against its plain PyTorch version on the same CUDA
-   tensors, at the main paths' full-width shapes and at ragged shapes,
-   and times kernel, plain version and, where one exists, the one-call
-   PyTorch equivalent (``cuda_ms``: one CUDA event pair around a run of
+   tensors, at the main paths' full-width shapes and at ragged shapes, and
+   times kernel, plain version and, where one exists, the one-call PyTorch
+   equivalent (``cuda_ms``: one CUDA event pair around a run of
    back-to-back launches): kernel H at leaf densities 1 (the root pass),
    1/8, 1/32 and 1/255 with float, integer and wide-exponent values (each
    also a repeat launch compared bit for bit, and its device time from
-   ``torch.profiler``), kernels S and L of the exact path (S at W=2,
-   also with max_depth active, gains equal, in one CUDA launch a call
-   counted by ``torch.profiler``, with its device time beside the time of
-   back-to-back calls; L exact for uint8 and int32 ids and ragged
-   lengths), and kernels M (its root pass at full resolution: one lane,
-   every row, two-column int8, exact, in 2 CUDA launches a call; W=64
-   two-column int8, exact; W=21 float and wide-exponent float values
-   within rel 1e-5; each with a repeat launch bit for bit), R (W=64, 6-row
-   lane tables, two-column int8 exact and W=21 float within rel 1e-5, each
-   with a repeat launch bit for bit, its launches a call and device time;
-   and every edge table of ``ROUTED_EDGE_CASES``, exact), Q (exact at
-   L = 255, 7 and 31 on uint8 ids and at L = 1000 on int32 ids,
-   wide-exponent grad and hess within rel 1e-6, each with a repeat launch
-   bit for bit, in 3 CUDA launches a call) and S at the wave's 128
-   children with the counts proxy; and the coarse-to-fine kernels: M
-   coarse (the root pass, and W=64, two-column int8, shift 4 with the
-   reserved missing slot; W=21 float), R coarse (W=64, as R above), V
-   (the root's window: W=1, two-column int8, exact in 2 CUDA launches a
-   call; float values at W=1 and W=21 and wide-exponent ones within rel
-   1e-5; W=64 through an int32 selector, exact; each with a repeat launch
-   bit for bit) and V-lanes (W=64 and a
-   wave's 2W=128 children in one call on a uint8 leaf vector with dummy
-   lanes and windows at both edges, each in 2 CUDA launches a call with
-   its sector floor; int32 leaf ids at leaf bound 32768 and ragged
-   lengths; float and wide-exponent values), all exact on integers;
+   ``torch.profiler``), kernels S and L of the exact path (S at W=2, also
+   with max_depth active, gains equal, in one CUDA launch a call counted by
+   ``torch.profiler``, with its device time beside the time of back-to-back
+   calls; L exact for uint8 and int32 ids and ragged lengths, and in its
+   float64 mode, a validation set's score, exact at ragged lengths and over
+   500k and 10.5M rows with uint8 and int32 ids, with its device time and
+   one CUDA launch a call), and kernels M (its root pass at full
+   resolution: one lane, every row, two-column int8, exact, in 2 CUDA
+   launches a call; W=64 two-column int8, exact; W=21 float and
+   wide-exponent float values within rel 1e-5; each with a repeat launch
+   bit for bit), R (W=64, 6-row lane tables, two-column int8 exact and W=21
+   float within rel 1e-5, each with a repeat launch bit for bit, its
+   launches a call and device time; and every edge table of
+   ``ROUTED_EDGE_CASES``, exact), Q (exact at L = 255, 7 and 31 on uint8
+   ids and at L = 1000 on int32 ids, wide-exponent grad and hess within rel
+   1e-6, each with a repeat launch bit for bit, in 3 CUDA launches a call)
+   and S at the wave's 128 children with the counts proxy; and the
+   coarse-to-fine kernels: M coarse (the root pass, and W=64, two-column
+   int8, shift 4 with the reserved missing slot; W=21 float), R coarse
+   (W=64, as R above), V (the root's window: W=1, two-column int8, exact in
+   2 CUDA launches a call; float values at W=1 and W=21 and wide-exponent
+   ones within rel 1e-5; W=64 through an int32 selector, exact; each with a
+   repeat launch bit for bit) and V-lanes (W=64 and a wave's 2W=128
+   children in one call on a uint8 leaf vector with dummy lanes and windows
+   at both edges, each in 2 CUDA launches a call with its sector floor;
+   int32 leaf ids at leaf bound 32768 and ragged lengths; float and
+   wide-exponent values), all exact on integers;
 3. the exact path: trains the Higgs-shaped configuration at full width
    (10.5M x 28, num_leaves=255, max_bin=255, learning_rate=0.1,
    min_sum_hessian_in_leaf=100) in three modes, 6 trees each, the launch
@@ -67,7 +69,25 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    at 127 leaves, and both wave kinds with coarse-to-fine refinement) on
    the card and on the CPU, each at fused_iters 1 and 4, and requires
    identical trees card against CPU, and fused_iters=4 the same bits as
-   fused_iters=1 on each device.
+   fused_iters=1 on each device;
+7. (run before phase 6, on phase 3's data) each of the three paths at
+   full width with the 500k-row holdout as a validation set, through
+   ``train(valid_sets=..., evals_result=..., early_stopping_rounds=...,
+   learning_rates=...)`` with ``metric=auc,binary_logloss`` (exact 3
+   trees, waves 6), the launch counters set to 0 just before and read
+   just after: the validation scorer (``route_rows`` and kernel L's
+   float64 add) replays as a CUDA graph, once a tree; the holdout score
+   within 1e-5 of the served trees' prediction on the raw holdout, and
+   every recorded metric within 1e-9 of its numpy formula on the fetched
+   score; the same rounds eagerly (the same trees, scores and metrics bit
+   for bit) and at fused_iters=5 without the validation set under the
+   same learning-rate schedule (the same trees and training score bit for
+   bit: the rate is a device scalar, and a block served at another rate
+   is rewound).  Seconds an iteration with and without the validation
+   set, eval's host milliseconds an iteration, the scorer's replay time,
+   device time and CUDA kernels;
+8. ``cv`` reduced (50k rows, 3 folds) on the card and on the CPU: the
+   same means and deviations (logloss within 1e-6, AUC within 1e-4).
 
 Every phase passes or the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
@@ -98,6 +118,7 @@ WINDOW_NAMES = ("WindowTag",)
 # the shared body's reduction under its tag
 LEAF_NAMES = ("leaf_bound_kernel", "leaf_stats_kernel", "LeafTag")
 SPLIT_NAMES = ("best_split_kernel",)
+LOOKUP_NAMES = ("leaf_add_kernel",)
 ROUTED_NAMES = ("route_kernel", "RoutedTag")
 N_ROWS = 10_500_000
 N_FEATURES = 28
@@ -132,6 +153,30 @@ def make_higgs_shaped(n_rows, n_features, seed=0):
     return X, y
 
 
+def np_auc(label, score):
+    """ROC AUC by rank-sum over sorted scores, one area term per unique
+    score (``binary_metric.hpp`` AUCMetric): the numpy formula the
+    port's torch metric is held to."""
+    order = np.argsort(score, kind="mergesort")
+    s, y = score[order], label[order] > 0
+    pos = float(np.sum(y))
+    neg = len(y) - pos
+    if pos <= 0 or neg <= 0:
+        return 1.0
+    starts = np.concatenate([[0], np.nonzero(np.diff(s))[0] + 1])
+    tie_pos = np.add.reduceat(y.astype(np.float64), starts)
+    tie_neg = np.add.reduceat((~y).astype(np.float64), starts)
+    neg_below = np.cumsum(tie_neg) - tie_neg
+    return float(np.sum(tie_pos * (neg_below + tie_neg / 2.0)) /
+                 (pos * neg))
+
+
+def np_logloss(label, prob):
+    p = np.clip(prob, 1e-15, 1 - 1e-15)
+    return float(np.mean(-(label * np.log(p) + (1 - label) *
+                           np.log(1 - p))))
+
+
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -155,7 +200,7 @@ def cuda_ms(fn, reps, warmup=1):
     return a.elapsed_time(b) / reps
 
 
-def profile_calls(fn, reps, names, warmup=1, tries=5):
+def profile_calls(fn, reps, names, warmup=1, tries=5, whole=True):
     """(device milliseconds of one call of ``fn``: the summed durations of
     the CUDA kernels whose names contain one of ``names``; CUDA kernels
     the card ran per call), from ``torch.profiler`` over ``reps`` calls
@@ -164,8 +209,11 @@ def profile_calls(fn, reps, names, warmup=1, tries=5):
     launched in the first milliseconds after it starts
     (``lightgbm_tpu_torch/tools/prof_window.py`` counts how often), so
     the host waits 20 ms before the first call.  A window with no kernel
-    named in ``names``, or whose kernel count is not a multiple of
-    ``reps``, is profiled again, up to ``tries`` times."""
+    named in ``names``, or (``whole``) whose kernel count is not a
+    multiple of ``reps``, is profiled again, up to ``tries`` times.
+    Without ``whole`` the window is taken as it comes and the kernels a
+    call may be fractional (5 replays of the validation scorer's graph
+    showed 7,642 CUDA kernels in every try)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -182,7 +230,7 @@ def profile_calls(fn, reps, names, warmup=1, tries=5):
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         us = sum(e.time_range.end - e.time_range.start for e in evts
                  if any(k in e.name for k in names))
-        if us > 0 and len(evts) % reps == 0:
+        if us > 0 and (len(evts) % reps == 0 or not whole):
             return us / 1e3 / reps, len(evts) / reps
         seen.append(len(evts))
     fail(f"the profiler recorded no whole window of {reps} calls of "
@@ -332,18 +380,67 @@ def same_record(torch, k, q, ctx):
     return float((k["gain"] - q["gain"]).abs().max())
 
 
-def check_lookup(torch, tl, dev, N, idx_dtype, seed):
+def check_lookup(torch, tl, dev, N, idx_dtype, seed, score_dtype=None):
+    """Kernel L against its plain version, exactly, on a float32 score or
+    (``score_dtype``) a float64 one."""
     g = torch.Generator(device=dev).manual_seed(seed)
     vals = torch.randn(255, generator=g, device=dev)
     idx = torch.randint(0, 255, (N,), generator=g, device=dev,
                         dtype=torch.int32).to(idx_dtype)
-    score = torch.randn(N, generator=g, device=dev)
+    score = torch.randn(N, generator=g, device=dev,
+                        dtype=score_dtype or torch.float32)
     k = tl.take_small_add(score.clone(), vals, idx)
     q = tl.take_small_add_plain(score.clone(), vals, idx)
     torch.cuda.synchronize()
     if not torch.equal(k, q):
-        fail(f"kernel L differs from plain (N={N}, {idx_dtype})")
+        fail(f"kernel L differs from plain (N={N}, {idx_dtype}, "
+             f"{score.dtype})")
     return 0.0, (score, vals, idx)
+
+
+def measure_lookup_f64(torch, tl, dev):
+    """Kernel L's float64 mode (a validation set's score): exact against
+    its plain version at ragged lengths and over 500k (the holdout) and
+    10.5M rows with uint8 and int32 ids; ms, device ms and the bound (a
+    row reads its id and its 8-byte score and writes the score: 17 bytes
+    with uint8 ids, 20 with int32 ids) of each full-size case."""
+    for seed, (n_, idt) in enumerate(
+            [(n_, idt) for n_ in (1, 17, 100_003)
+             for idt in (torch.int32, torch.uint8)], start=60):
+        check_lookup(torch, tl, dev, n_, idt, seed, torch.float64)
+    cases = []
+    for n_ in (N_HOLDOUT, N_ROWS):
+        for idt in (torch.uint8, torch.int32):
+            err, (score, vals, idx) = check_lookup(
+                torch, tl, dev, n_, idt, 70 + len(cases), torch.float64)
+
+            def call():
+                return tl.take_small_add(score, vals, idx)
+
+            ms = cuda_ms(call, reps=50)
+            dev_ms, n_launch = profile_calls(call, 20, LOOKUP_NAMES)
+            if n_launch != 1:
+                fail(f"kernel L (float64) made {n_launch} CUDA launches a "
+                     f"call, not 1")
+            plain = cuda_ms(lambda: tl.take_small_add_plain(score, vals,
+                                                            idx), reps=10)
+            idx64 = idx.to(torch.int64)
+            lib = cuda_ms(lambda: vals[idx64], reps=50)
+            b_ms, b_by = bound(n_ * (idx.element_size() + 16) +
+                               vals.numel() * 4, n_)
+            cases.append(dict(rows=n_, ids=str(idt).split(".")[-1],
+                              max_abs_err=err, ms=ms, device_ms=dev_ms,
+                              launches_per_call=n_launch, plain_ms=plain,
+                              bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+            print(f"kernel L float64, N={n_} {idt}: exact; {ms:.4f} ms, "
+                  f"device {dev_ms:.4f} ms (plain {plain:.3f}, vals[idx] "
+                  f"{lib:.3f}, bound {b_ms:.4f} by {b_by})", flush=True)
+            del score, idx, idx64
+    # the kernels line: the holdout's shape as the valid scorer runs it
+    # (int32 ids from route_rows), the others beside
+    main = next(c for c in cases if c["rows"] == N_HOLDOUT and
+                c["ids"] == "int32")
+    return dict(main, cases=cases)
 
 
 # kernel R's edge tables; tests/test_torch_kernel_plans.py holds the
@@ -601,6 +698,7 @@ def phase_kernels(torch, dev):
           f"{lib_l:.3f}, bound {b_l[0]:.4f} by {b_l[1]}) at N={N}",
           flush=True)
     del score, idx, idx64
+    out["leaf_lookup_f64"] = measure_lookup_f64(torch, tl, dev)
     out.update(phase_kernels_wave(torch, dev, th, ts, bins))
     return out
 
@@ -1424,7 +1522,6 @@ def _summary(runs):
 def phase_full_width(torch, ltt):
     """Phase 3: the serial (exact) path end to end at the Higgs shape.
     Returns the data for the next phase and this path's numbers."""
-    from lightgbm_tpu_torch.metrics import auc
     t0 = time.perf_counter()
     X, y = make_higgs_shaped(N_ROWS + N_HOLDOUT, N_FEATURES, seed=0)
     Xh, yh = X[N_ROWS:], y[N_ROWS:]
@@ -1448,7 +1545,7 @@ def phase_full_width(torch, ltt):
     predict_s = time.perf_counter() - t0
     if prob.shape != (N_HOLDOUT,) or not np.all(np.isfinite(prob)):
         fail("holdout predictions are not finite of the expected shape")
-    score = auc(yh, prob)
+    score = np_auc(yh, prob)
     print(f"exact path: holdout predict {predict_s:.3f} s, holdout AUC "
           f"{score:.5f}, trees {booster.num_trees()} x "
           f"{[t.num_leaves for t in booster.models]} leaves", flush=True)
@@ -1470,7 +1567,6 @@ def _wave_phase(torch, ltt, data, exact_auc, params, path, names, tier):
     it resolved to as ``tier`` describes them (a test of the growth
     parameters, and its text), holdout AUC no more than 0.02 below the
     exact path's."""
-    from lightgbm_tpu_torch.metrics import auc
     ds, Xh, yh = data
     runs = run_paths(torch, ltt, ds, params, path)
     main = runs["graphs"]
@@ -1482,7 +1578,7 @@ def _wave_phase(torch, ltt, data, exact_auc, params, path, names, tier):
     if prob.shape != (N_HOLDOUT,) or not np.all(np.isfinite(prob)):
         fail(f"{path} holdout predictions are not finite of the expected "
              f"shape")
-    score = auc(yh, prob)
+    score = np_auc(yh, prob)
     print(f"{path}: holdout AUC {score:.5f} (exact path {exact_auc:.5f}), "
           f"trees {booster.num_trees()} x "
           f"{[t.num_leaves for t in booster.models]} leaves", flush=True)
@@ -1612,6 +1708,226 @@ def phase_device_vs_cpu(ltt):
               f"on both devices", flush=True)
 
 
+# phase 7: each path with the holdout as a validation set; trees a run
+VALID_TREES = {"exact": 3, "wave": 6, "c2f": 6}
+VALID_METRICS = ("auc", "binary_logloss")
+
+
+def lr_schedule(n):
+    """A per-iteration learning-rate schedule of ``n`` rounds."""
+    return [0.1 * 0.95 ** i for i in range(n)]
+
+
+class _Clock:
+    """A callback that stamps the start of every iteration after the
+    card has finished the previous one."""
+    order = 0
+    before_iteration = True
+
+    def __init__(self, torch):
+        self.torch, self.t = torch, []
+
+    def __call__(self, env):
+        self.torch.cuda.synchronize()
+        self.t.append(time.perf_counter())
+
+
+def _iteration_s(stamps, end):
+    """Seconds of each iteration after the warm-up tree and the capture
+    (iterations 2 on)."""
+    t = stamps + [end]
+    return [b - a for a, b in zip(t[2:-1], t[3:])]
+
+
+def _check_valid_score(b, Xh, yh, res, what, i=-1, score=None):
+    """The holdout's score against the served trees' prediction on the raw
+    holdout (1e-5), and each recorded metric of iteration ``i`` against
+    the numpy formula on the fetched score (1e-9)."""
+    if score is None:
+        score = b._gbdt.valid_sets[0].score.cpu().numpy()
+        want = b.predict(Xh, raw_score=True, num_iteration=-1)
+        if score.shape != (N_HOLDOUT,) or not np.all(np.isfinite(score)):
+            fail(f"{what}: the holdout score is not finite of its shape")
+        diff = float(np.max(np.abs(score - want)))
+        if diff > 1e-5:
+            fail(f"{what}: the holdout score is {diff} from the served "
+                 f"trees' prediction")
+    prob = 1.0 / (1.0 + np.exp(-score))
+    for name, value in (("auc", np_auc(yh, prob)),
+                        ("binary_logloss", np_logloss(yh, prob))):
+        got = res["holdout"][name][i]
+        if abs(got - value) > 1e-9 * max(1.0, abs(value)):
+            fail(f"{what}: recorded {name} {got} at iteration {i} is not "
+                 f"the numpy formula's {value}")
+
+
+def run_valid(torch, ltt, ds, Xh, yh, params, n_trees, path):
+    """The main path of this phase: ``n_trees`` rounds of ``ltt.train``
+    with the holdout as a validation set, ``metric=auc,binary_logloss``,
+    early stopping, ``evals_result`` and a learning-rate schedule, on
+    CUDA graphs; the launch counters set to 0 just before and read just
+    after.  Returns the booster, its records and timings."""
+    from lightgbm_tpu_torch.ops import graphs
+    p = dict(params, metric=",".join(VALID_METRICS))
+    clock, res = _Clock(torch), {}
+    valid = ds.create_valid(Xh, label=yh).construct()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b = ltt.train(p, ds, num_boost_round=n_trees, valid_sets=[valid],
+                  valid_names=["holdout"], evals_result=res,
+                  early_stopping_rounds=n_trees,
+                  learning_rates=lr_schedule(n_trees), callbacks=[clock],
+                  verbose_eval=False)
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    counts = read_counts()
+    replays = graphs.REPLAYS["graph_replays"]
+    if b.num_trees() != n_trees:
+        fail(f"{path} with a validation set trained {b.num_trees()} trees")
+    return b, res, counts, replays, _iteration_s(clock.t, end), end - t0
+
+
+def run_valid_eager(torch, ltt, ds, Xh, yh, params, n_trees):
+    """The same rounds with every kernel launched from Python: the
+    per-iteration API (update, the schedule's rate, eval_set), each
+    iteration's holdout score fetched."""
+    p = dict(params, metric=",".join(VALID_METRICS))
+    b = ltt.Booster(p, ds, _eager=True)
+    b.add_valid(ds.create_valid(Xh, label=yh), "holdout")
+    res, scores = {"holdout": {m: [] for m in VALID_METRICS}}, []
+    for i, lr in enumerate(lr_schedule(n_trees)):
+        b._gbdt.shrinkage_rate = lr
+        b.update()
+        for _, name, value, _ in b.eval_valid():
+            res["holdout"][name].append(value)
+        scores.append(b._gbdt.valid_sets[0].score.cpu().numpy().copy())
+    return b, res, scores
+
+
+def _same_bits(a, b, what):
+    """Two boosters' trees (their model text prints every value in full)
+    and training scores the same bits, or fail."""
+    if a.num_trees() != b.num_trees():
+        fail(f"{what}: {a.num_trees()} vs {b.num_trees()} trees")
+    for i in range(a.num_trees()):
+        if a.models[i].to_string(i) != b.models[i].to_string(i):
+            fail(f"{what}: tree {i} differs")
+    if not np.array_equal(a._gbdt.train_score(), b._gbdt.train_score()):
+        fail(f"{what}: the training scores differ")
+
+
+def phase_valid(torch, ltt, data, path, params, names, no_valid_s):
+    """Phase 7, one path: the holdout as a validation set at full width
+    (the main path, on graphs), checked against the served trees'
+    prediction and the metrics' numpy formulas; the same rounds eagerly
+    (holdout scores and metrics the same bits) and at fused_iters=5
+    without the validation set (fusion on, rewound at every rate change):
+    the same trees and training scores bit for bit."""
+    ds, Xh, yh = data
+    n = VALID_TREES[path]
+    p = dict(params, device_type=DEVICE)
+    b, res, counts, replays, iter_s, total_s = run_valid(
+        torch, ltt, ds, Xh, yh, p, n, path)
+    _check_launches(counts, names + ("leaf_lookup_f64",), f"{path} valid")
+    if replays <= 0:
+        fail(f"{path} with a validation set made no graph replays")
+    scorer = b._gbdt.valid_sets[0].scorer
+    if scorer.graph is None:
+        fail(f"{path}: the validation scorer was not captured")
+    if counts["leaf_lookup_f64"] != n:
+        fail(f"{path}: kernel L's float64 mode ran "
+             f"{counts['leaf_lookup_f64']} times in {n} trees")
+    _check_valid_score(b, Xh, yh, res, f"{path} (graphs)")
+    b_score = b._gbdt.valid_sets[0].score.cpu().numpy().copy()
+    # eval's host time, and the scorer's replay on the card (which adds
+    # into the holdout's score: its bits are kept above)
+    eval_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        b.eval_set()
+        eval_ms.append((time.perf_counter() - t0) * 1e3)
+    run = scorer.graph.replay
+    scorer_ms = cuda_ms(run, reps=10)
+    scorer_dev_ms, scorer_kernels = profile_calls(run, 5, ("",),
+                                                  whole=False)
+
+    e, res_e, scores_e = run_valid_eager(torch, ltt, ds, Xh, yh, p, n)
+    _same_bits(b, e, f"{path}: graphs vs eager, with a validation set")
+    for i, sc in enumerate(scores_e):
+        _check_valid_score(e, Xh, yh, res_e, f"{path} (eager)", i, sc)
+    if not np.array_equal(scores_e[-1], b_score):
+        fail(f"{path}: the holdout scores differ between graphs and eager")
+    for m in VALID_METRICS:
+        if res_e["holdout"][m] != res["holdout"][m]:
+            fail(f"{path}: recorded {m} differs between graphs and eager")
+    del e
+    pf = dict(p, fused_iters=FUSED_K)
+    f = ltt.train(pf, ds, num_boost_round=n, learning_rates=lr_schedule(n),
+                  verbose_eval=False)
+    _same_bits(b, f, f"{path}: graphs vs fused_iters={FUSED_K} under a "
+                     f"learning-rate schedule")
+    blocks = f._gbdt.block_sizes
+    del f
+    out = dict(
+        trees=n, seconds_per_iteration=statistics.median(iter_s),
+        iteration_seconds=iter_s, total_seconds=total_s,
+        seconds_per_iteration_without_valid=no_valid_s,
+        eval_host_ms=statistics.median(eval_ms), eval_host_ms_runs=eval_ms,
+        scorer_ms=scorer_ms, scorer_device_ms=scorer_dev_ms,
+        scorer_cuda_kernels=scorer_kernels,
+        scorer_graph_launches=scorer.graph.kernel_launches(),
+        kernel_launches_per_tree={k: v / n for k, v in counts.items()},
+        graph_replays_per_tree=replays / n, fused_blocks=blocks,
+        best_iteration=b.best_iteration, holdout=res["holdout"])
+    print(f"{path} with a 500k-row validation set: "
+          f"{out['seconds_per_iteration']:.4f} s an iteration (without it "
+          f"{no_valid_s:.4f}; runs {[round(x, 4) for x in iter_s]}), eval "
+          f"{out['eval_host_ms']:.2f} ms of host time an iteration, the "
+          f"scorer {scorer_ms:.3f} ms a replay (device {scorer_dev_ms:.3f} "
+          f"ms, {scorer_kernels:g} CUDA kernels, kernel L float64 "
+          f"{counts['leaf_lookup_f64'] / n:g} a tree); AUC "
+          f"{res['holdout']['auc'][-1]:.5f}; graphs, eager and "
+          f"fused_iters={FUSED_K} (blocks {blocks}) under the schedule the "
+          f"same bits", flush=True)
+    del b
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+CV_ROUNDS = 4
+
+
+def phase_cv(torch, ltt):
+    """Phase 8: ``cv`` reduced (50k rows, 3 folds, 4 rounds, exact at 31
+    leaves) on the card and on the CPU: the same fold rows, logloss means
+    and deviations within 1e-6, AUC within 1e-4 (card and CPU leaf values
+    may differ by an ulp, and rows that close may swap)."""
+    X, y = make_higgs_shaped(50_000, N_FEATURES, seed=3)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        p = dict(TRAIN_PARAMS, num_leaves=31, device_type=dev,
+                 metric="auc,binary_logloss")
+        t0 = time.perf_counter()
+        out[dev] = ltt.cv(p, ltt.Dataset(X, label=y, params=p),
+                          num_boost_round=CV_ROUNDS, nfold=3, seed=1)
+        print(f"cv on {dev}: {time.perf_counter() - t0:.2f} s", flush=True)
+    worst = {}
+    for k, v in out["cpu"].items():
+        a = np.asarray(out[DEVICE][k])
+        if a.shape != (CV_ROUNDS,) or not np.all(np.isfinite(a)):
+            fail(f"cv {k}: {a}")
+        worst[k] = float(np.max(np.abs(a - np.asarray(v))))
+        if worst[k] > (1e-4 if "auc" in k else 1e-6):
+            fail(f"cv {k} differs between the card and the CPU by "
+                 f"{worst[k]}")
+    if out[DEVICE]["valid auc-mean"][-1] < 0.6:
+        fail("cv AUC is not that of a trained model")
+    print(f"cv: 3 folds on the card as on the CPU, max differences "
+          f"{worst}", flush=True)
+    return {k: v for k, v in out[DEVICE].items()}
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -1652,9 +1968,26 @@ def main():
                                        e2e["holdout_auc"])
     # ---- phase 5: wave255 as it ships, with coarse-to-fine -----------
     c2f_counts, e2e_c2f = phase_c2f(torch, ltt, data, e2e["holdout_auc"])
+    # ---- phase 7: each path with the holdout as a validation set -----
+    valid_counts, e2e_valid = {}, {}
+    for path, params, names, e in (
+            ("exact", TRAIN_PARAMS, ("histogram", "best_split",
+                                     "leaf_lookup"), e2e),
+            ("wave", dict(TRAIN_PARAMS, **WAVE_PARAMS),
+             ("multi_histogram", "routed_histogram", "leaf_stats",
+              "best_split", "leaf_lookup"), e2e_wave),
+            ("c2f", dict(TRAIN_PARAMS, **WAVE255_PARAMS),
+             ("multi_histogram", "window_histogram", "routed_histogram",
+              "lanes_window_histogram", "leaf_stats", "leaf_lookup"),
+             e2e_c2f)):
+        valid_counts[path], e2e_valid[path] = phase_valid(
+            torch, ltt, data, path, params, names,
+            e["seconds_per_iteration"])
     del data
     # ---- phase 6: device vs cpu --------------------------------------
     phase_device_vs_cpu(ltt)
+    # ---- phase 8: cv on the card -------------------------------------
+    cv_result = phase_cv(torch, ltt)
 
     # (route, source, the TPU kernel it replaces, the path whose run
     # gives its launches and whose shapes its numbers are taken at:
@@ -1668,6 +2001,10 @@ def main():
                        "lightgbm_tpu/ops/split.py:899", wave_counts),
         "leaf_lookup": ("lightgbm_tpu_torch/csrc/lookup.cu",
                         "lightgbm_tpu/ops/lookup.py:35", c2f_counts),
+        # the valid scorer's add (lightgbm_tpu/models/gbdt.py:2629)
+        "leaf_lookup_f64": ("lightgbm_tpu_torch/csrc/lookup.cu",
+                            "lightgbm_tpu/ops/lookup.py:35",
+                            valid_counts["c2f"]),
         "multi_histogram": ("lightgbm_tpu_torch/csrc/multi_hist.cu",
                             "lightgbm_tpu/ops/histogram.py:396",
                             c2f_counts),
@@ -1698,11 +2035,16 @@ def main():
                                       **stats[name]}
         if name == "best_split":
             row["at_2w128"] = stats["best_split_2w"]
+        if name == "leaf_lookup_f64":
+            row["launches_by_path"] = {k: v[name]
+                                       for k, v in valid_counts.items()}
         rows.append(row)
     print(json.dumps({"card": card, "e2e_exact": e2e, "e2e_wave": e2e_wave,
                       "e2e_c2f": e2e_c2f, "launches_exact": exact_counts,
                       "launches_wave": wave_counts,
-                      "launches_c2f": c2f_counts}), flush=True)
+                      "launches_c2f": c2f_counts, "e2e_valid": e2e_valid,
+                      "launches_valid": valid_counts, "cv": cv_result}),
+          flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,13 @@
 """Public ``Dataset`` / ``Booster`` API.
 
 Counterpart of ``lightgbm_tpu/basic.py`` for this slice: a ``Dataset``
-over a dense numerical matrix (binned on the device at first use), and a
-``Booster`` that trains, predicts and reads and writes the model text.
-The device comes from ``device_type`` (``cuda`` by default, which raises
-without a card; ``cpu`` on request).
+over a dense numerical matrix (binned on the device at first use; a
+validation set, ``reference=`` or ``create_valid``, bins with its
+reference's mappers), and a ``Booster`` that trains, evaluates its
+metrics on the training data and validation sets, predicts and reads and
+writes the model text.  The device comes from ``device_type`` (``cuda``
+by default, which raises without a card; ``cpu`` on request); a dataset
+with a reference lives on its reference's device.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import numpy as np
 
 from .config import Config
 from .io.dataset import TorchDataset
+from .metrics import create_metrics, default_metric_for
 from .models import model_io
 from .models.gbdt import GBDT
 from .objectives import create_objective
@@ -35,22 +39,28 @@ def _to_matrix(data) -> np.ndarray:
 
 
 class Dataset:
-    """Training data: binned on the device at first use."""
+    """Training or validation data: binned on the device at first use,
+    with the bin mappers of ``reference`` when one is given."""
 
-    def __init__(self, data, label=None, weight=None, feature_name="auto",
+    def __init__(self, data, label=None, reference: "Dataset" = None,
+                 weight=None, feature_name="auto",
                  params: Optional[Dict[str, Any]] = None, **kwargs):
-        unsupported = {k: v for k, v in kwargs.items()
-                       if v is not None and v != "auto"}
+        unsupported = sorted(k for k, v in kwargs.items()
+                             if v is not None and not
+                             (isinstance(v, str) and v == "auto"))
         if unsupported:
             raise NotImplementedError(
-                f"Dataset arguments {sorted(unsupported)} are not "
+                f"Dataset arguments {unsupported} are not "
                 f"implemented by lightgbm_tpu_torch yet")
         self.data = data
         self.label = label
+        self.reference = reference
         self.weight = weight
         self.feature_name = feature_name
         self.params = dict(params) if params else {}
         self._constructed: Optional[TorchDataset] = None
+        self.raw_mat: Optional[np.ndarray] = None
+        self.used_indices: Optional[np.ndarray] = None
 
     def construct(self) -> "Dataset":
         if self._constructed is not None:
@@ -59,17 +69,53 @@ class Dataset:
         cfg.check_supported()
         names = None if self.feature_name in ("auto", None) \
             else list(self.feature_name)
+        mat, label, weight = _to_matrix(self.data), self.label, self.weight
+        if self.used_indices is not None:
+            mat = mat[self.used_indices]
+            label = None if label is None else \
+                np.asarray(label)[self.used_indices]
+            weight = None if weight is None else \
+                np.asarray(weight)[self.used_indices]
+        mappers = None
+        device = None
+        if self.reference is not None:
+            ref = self.reference.construct()._constructed
+            mappers, device = ref.mappers, ref.device
         self._constructed = TorchDataset.from_raw(
-            _to_matrix(self.data), self.label, cfg,
-            resolve_device(cfg.device_type), weight=self.weight,
-            feature_names=names)
+            mat, label, cfg, device or resolve_device(cfg.device_type),
+            weight=weight, feature_names=names, mappers=mappers)
+        self.raw_mat = mat
         return self
+
+    def create_valid(self, data, label=None, weight=None,
+                     params: Optional[Dict[str, Any]] = None) -> "Dataset":
+        """A validation set binned with this dataset's mappers."""
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       params=params or self.params)
+
+    def subset(self, used_indices, params: Optional[Dict[str, Any]] = None
+               ) -> "Dataset":
+        """The rows ``used_indices``, binned with this dataset's mappers
+        (a validation set's subset keeps its reference's)."""
+        ds = Dataset(self.data, label=self.label,
+                     reference=self.reference if self.reference is not None
+                     else self, weight=self.weight,
+                     feature_name=self.feature_name,
+                     params=params or self.params)
+        ds.used_indices = np.asarray(used_indices)
+        return ds
 
     def num_data(self) -> int:
         return self.construct()._constructed.num_data
 
     def num_feature(self) -> int:
         return self.construct()._constructed.num_total_features
+
+    def get_label(self) -> np.ndarray:
+        return np.asarray(self.construct()._constructed.metadata.label)
+
+    def get_weight(self) -> Optional[np.ndarray]:
+        return self.construct()._constructed.metadata.weight
 
 
 class Booster:
@@ -82,7 +128,10 @@ class Booster:
         """``_eager`` (internal): launch every kernel of training from
         Python on the card too, not as replays of CUDA graphs."""
         self.params = dict(params) if params else {}
+        self.best_iteration = -1
+        self.best_score: Dict[str, Dict[str, float]] = {}
         self._gbdt: Optional[GBDT] = None
+        self.train_set = train_set
         self.models = []
         if train_set is not None:
             train_set.params = {**train_set.params, **self.params}
@@ -91,8 +140,10 @@ class Booster:
             self.device = train_set._constructed.device
             self._objective = create_objective(self.config.objective,
                                                self.config)
+            metrics = create_metrics(self._resolve_metric_names(self.config),
+                                     self.config)
             self._gbdt = GBDT(self.config, train_set._constructed,
-                              self._objective, eager=_eager)
+                              self._objective, metrics, eager=_eager)
             self.models = self._gbdt.models
             ds = train_set._constructed
             self._feature_names = ds.feature_names
@@ -105,6 +156,24 @@ class Booster:
             self.model_from_string(model_str)
         else:
             Log.fatal("need train_set, model_str or model_file")
+
+    @staticmethod
+    def _resolve_metric_names(config) -> List[str]:
+        """``metric``: comma-separated names or a list; empty means the
+        objective's own loss, and ``None`` / ``na`` / ``null`` none
+        (``lightgbm_tpu/basic.py:457-470``)."""
+        m = config.metric
+        if isinstance(m, str):
+            names = [t.strip() for t in m.split(",")] if m else []
+        else:
+            names = list(m or [])
+        if not names:
+            if config.objective in ("none", "custom", "null", "na"):
+                return []
+            names = [default_metric_for(config.objective)]
+        if any(n.lower() in ("none", "na", "null") for n in names):
+            return []
+        return names
 
     def model_from_string(self, model_str: str) -> "Booster":
         """Load trees and header fields from model text."""
@@ -128,11 +197,37 @@ class Booster:
         self._max_feature_idx = info["max_feature_idx"]
         return self
 
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        """Register a validation set; it is binned with the training set's
+        mappers if it was not given a reference."""
+        if self._gbdt is None:
+            Log.fatal("this booster holds no training data")
+        data.reference = data.reference or self.train_set
+        data.construct()
+        if not self.train_set._constructed.check_align(data._constructed):
+            Log.fatal("validation set %s bins are not aligned with the "
+                      "training set (construct it with reference=train_set)",
+                      name)
+        self._gbdt.add_valid(name, data.raw_mat, data._constructed)
+        return self
+
     def update(self) -> bool:
         """One boosting iteration; True when training should stop."""
         if self._gbdt is None:
             Log.fatal("this booster holds no training data")
         return self._gbdt.train_one_iter()
+
+    def eval_set(self) -> list:
+        """(data name, metric name, value, higher_better) of every metric
+        on the training data (with ``is_provide_training_metric``) and
+        each validation set."""
+        return self._gbdt.eval_set()
+
+    def eval_valid(self) -> list:
+        return [r for r in self._gbdt.eval_set() if r[0] != "training"]
+
+    def eval_train(self) -> list:
+        return [r for r in self._gbdt.eval_set() if r[0] == "training"]
 
     def current_iteration(self) -> int:
         return self._gbdt.iter if self._gbdt is not None else len(self.models)
@@ -140,11 +235,19 @@ class Booster:
     def num_trees(self) -> int:
         return len(self.models)
 
+    def _num_iteration(self, num_iteration: Optional[int]) -> int:
+        """``None`` means the best iteration when early stopping found one,
+        else every tree; an explicit value <= 0 every tree."""
+        if num_iteration is None:
+            return self.best_iteration if self.best_iteration > 0 else -1
+        return num_iteration
+
     def predict(self, data, num_iteration: Optional[int] = None,
                 raw_score: bool = False) -> np.ndarray:
         trees = self.models
-        if num_iteration is not None and num_iteration > 0:
-            trees = trees[:num_iteration]
+        ni = self._num_iteration(num_iteration)
+        if ni > 0:
+            trees = trees[:ni]
         ff = flatten_forest(trees, self.device)
         raw = predict_raw(ff, _to_matrix(data), self.device).cpu().numpy()
         return raw if raw_score else self._objective.convert_output(raw)
@@ -161,7 +264,7 @@ class Booster:
             objective_str=self._objective_string(),
             feature_names=self._feature_names,
             feature_infos=self._feature_infos,
-            num_iteration=-1 if num_iteration is None else num_iteration,
+            num_iteration=self._num_iteration(num_iteration),
             parameters="")
 
     def save_model(self, filename: str,

@@ -7,16 +7,24 @@
 //
 //   score[i] += vals[leaf_idx[i]]
 //
+// The same kernel adds into a float64 score, the validation sets' score
+// (lightgbm_tpu/models/gbdt.py:2629: `take_small(vals, li)` cast to float64
+// and added on the host): score64[i] += (double)vals32[leaf_idx[i]].  The
+// table stays float32; each lane loads and stores its four float64 scores
+// as two 16-byte double2 words.
+//
 // What bounds it on an H100: bytes.  One pass reads the ids and the score
 // and writes the score back: 9 bytes a row with uint8 ids, 94.5 MB at
-// 10.5M rows, about 28 us at 3.35 TB/s.  Nothing is materialised between
+// 10.5M rows, about 28 us at 3.35 TB/s (float64 scores: 17 bytes a row
+// with uint8 ids, 20 with int32 ids).  Nothing is materialised between
 // the lookup and the add.
 //
 // The design, for that: every access is coalesced and many are in flight.
 // - The table (at most 512 float32 leaf values) is staged in shared memory.
 // - A warp works on tiles of 128 rows, lane i on rows 4i..4i+3 of a tile:
 //   one 4-byte word of uint8 ids (128 contiguous bytes a warp) or one int4
-//   of int32 ids, and one float4 of score (512 contiguous bytes a warp).
+//   of int32 ids, and one float4 of score (512 contiguous bytes a warp;
+//   two double2, 1024 bytes a warp, for a float64 score).
 // - Each lane loads four tiles' ids and scores before it stores any.
 // - The grid is one sweep of the card (4 blocks of 256 threads an SM), and
 //   the N / 128 whole tiles are split among the warps in contiguous ranges
@@ -49,10 +57,51 @@ __device__ inline void ids4(const int32_t* idx, int64_t r, int* e) {
   e[3] = v.w;
 }
 
-template <typename IdxT>
+// four consecutive scores of a lane, as one 16-byte word (float) or two
+// (double)
+template <typename ScoreT>
+struct Score4;
+
+template <>
+struct Score4<float> {
+  float4 v;
+  __device__ inline void load(const float* s, int64_t r) {
+    v = *reinterpret_cast<const float4*>(s + r);
+  }
+  __device__ inline void add(const float* tab, const int* e) {
+    v.x += tab[e[0]];
+    v.y += tab[e[1]];
+    v.z += tab[e[2]];
+    v.w += tab[e[3]];
+  }
+  __device__ inline void store(float* s, int64_t r) const {
+    *reinterpret_cast<float4*>(s + r) = v;
+  }
+};
+
+template <>
+struct Score4<double> {
+  double2 a, b;
+  __device__ inline void load(const double* s, int64_t r) {
+    a = *reinterpret_cast<const double2*>(s + r);
+    b = *reinterpret_cast<const double2*>(s + r + 2);
+  }
+  __device__ inline void add(const float* tab, const int* e) {
+    a.x += (double)tab[e[0]];
+    a.y += (double)tab[e[1]];
+    b.x += (double)tab[e[2]];
+    b.y += (double)tab[e[3]];
+  }
+  __device__ inline void store(double* s, int64_t r) const {
+    *reinterpret_cast<double2*>(s + r) = a;
+    *reinterpret_cast<double2*>(s + r + 2) = b;
+  }
+};
+
+template <typename IdxT, typename ScoreT>
 __global__ void __launch_bounds__(kThreads, 4)
 leaf_add_kernel(const IdxT* __restrict__ idx, const float* __restrict__ vals,
-                int table, float* __restrict__ score, int64_t n,
+                int table, ScoreT* __restrict__ score, int64_t n,
                 int64_t tiles) {
   __shared__ float tab[kMaxTable];
   for (int i = threadIdx.x; i < table; i += kThreads) tab[i] = vals[i];
@@ -64,60 +113,70 @@ leaf_add_kernel(const IdxT* __restrict__ idx, const float* __restrict__ vals,
   const int64_t t1 = (w + 1) * tiles / warps;
   for (; t + kUnroll <= t1; t += kUnroll) {
     int e[kUnroll][4];
-    float4 s[kUnroll];
+    Score4<ScoreT> s[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int64_t r = (t + u) * kTile + lane * 4;
       ids4(idx, r, e[u]);
-      s[u] = *reinterpret_cast<const float4*>(score + r);
+      s[u].load(score, r);
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int64_t r = (t + u) * kTile + lane * 4;
-      s[u].x += tab[e[u][0]];
-      s[u].y += tab[e[u][1]];
-      s[u].z += tab[e[u][2]];
-      s[u].w += tab[e[u][3]];
-      *reinterpret_cast<float4*>(score + r) = s[u];
+      s[u].add(tab, e[u]);
+      s[u].store(score, r);
     }
   }
   for (; t < t1; ++t) {
     const int64_t r = t * kTile + lane * 4;
     int e[4];
     ids4(idx, r, e);
-    float4 s = *reinterpret_cast<const float4*>(score + r);
-    s.x += tab[e[0]];
-    s.y += tab[e[1]];
-    s.z += tab[e[2]];
-    s.w += tab[e[3]];
-    *reinterpret_cast<float4*>(score + r) = s;
+    Score4<ScoreT> s;
+    s.load(score, r);
+    s.add(tab, e);
+    s.store(score, r);
   }
   if (w == warps - 1) {                      // the masked epilogue
     for (int64_t r = tiles * kTile + lane; r < n; r += 32)
-      score[r] += tab[(int)idx[r]];
+      score[r] += (ScoreT)tab[(int)idx[r]];
   }
 }
 
-}  // namespace
-
-// `blocks` comes from the wrapper (`lookup_plan` in ops/lookup.py);
-// `tiles` is n / 128 rounded down.  score and idx are 16-byte aligned.
-extern "C" int ltt_leaf_add(const void* idx, int idx_bytes, const void* vals,
-                            int table, void* score, int64_t n, int blocks,
-                            int64_t tiles, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
+template <typename ScoreT>
+int leaf_add(const void* idx, int idx_bytes, const void* vals, int table,
+             void* score, int64_t n, int blocks, int64_t tiles,
+             cudaStream_t stream) {
   if (table > kMaxTable || table < 1 || tiles != n / kTile || blocks < 1)
     return (int)cudaErrorInvalidValue;
   if (idx_bytes == 1) {
-    leaf_add_kernel<uint8_t><<<blocks, kThreads, 0, stream>>>(
-        (const uint8_t*)idx, (const float*)vals, table, (float*)score, n,
+    leaf_add_kernel<uint8_t, ScoreT><<<blocks, kThreads, 0, stream>>>(
+        (const uint8_t*)idx, (const float*)vals, table, (ScoreT*)score, n,
         tiles);
   } else if (idx_bytes == 4) {
-    leaf_add_kernel<int32_t><<<blocks, kThreads, 0, stream>>>(
-        (const int32_t*)idx, (const float*)vals, table, (float*)score, n,
+    leaf_add_kernel<int32_t, ScoreT><<<blocks, kThreads, 0, stream>>>(
+        (const int32_t*)idx, (const float*)vals, table, (ScoreT*)score, n,
         tiles);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// `blocks` comes from the wrapper (`lookup_plan` in ops/lookup.py);
+// `tiles` is n / 128 rounded down.  score and idx are 16-byte aligned;
+// `score_bytes` is 4 (a float32 score) or 8 (float64).
+extern "C" int ltt_leaf_add(const void* idx, int idx_bytes, const void* vals,
+                            int table, void* score, int score_bytes,
+                            int64_t n, int blocks, int64_t tiles,
+                            void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (score_bytes == 4)
+    return leaf_add<float>(idx, idx_bytes, vals, table, score, n, blocks,
+                           tiles, stream);
+  if (score_bytes == 8)
+    return leaf_add<double>(idx, idx_bytes, vals, table, score, n, blocks,
+                            tiles, stream);
+  return (int)cudaErrorInvalidValue;
 }

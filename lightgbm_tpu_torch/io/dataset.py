@@ -136,6 +136,15 @@ class TorchDataset:
         meta.set_weight(weight)
         return cls(mappers, binned, meta, device, feature_names)
 
+    def check_align(self, other: "TorchDataset") -> bool:
+        """Train/valid bin compatibility (``Dataset::CheckAlign``)."""
+        if self.num_total_features != other.num_total_features:
+            return False
+        for a, b in zip(self.mappers, other.mappers):
+            if a.num_bin != b.num_bin or a.bin_type != b.bin_type:
+                return False
+        return True
+
     def real_feature_index(self, inner: int) -> int:
         return self.used_features[inner]
 

@@ -8,12 +8,31 @@ coarse-to-fine refinement, quantized gradients, the lane width), one
 boosting iteration (:2245-2310: boost_from_average, gradients, tree build
 with the tree's quantization key, score update) and the fused super-step
 (``_fused_ok``, ``_fused_bias_pending``, ``_train_superstep``,
-``_serve_fused`` and the stop replay, :1194-1225, :1476-1860) are ported.
+``_serve_fused``, the stop replay and the rewind ``_fused_rewind``,
+:1194-1225, :1476-1880, :2455-2480), validation sets (``ValidSet``,
+``add_valid``, :1020-1054; the per-tree valid score update, :2608-2631)
+and the evaluation (``eval_set``, ``_eval_one_set``, :2866-2900) are
+ported.
 
 The score update is the one the JAX package's iteration performs, from
 the build's own float32 leaf values (renewed under quantization):
 ``score += leaf_values_final * learning_rate`` gathered by leaf id
-(kernel L on the card).  Each tree runs through an ``ops/graphs.py``
+(kernel L on the card).  The learning rate is a device float32 scalar the
+host writes before a block's trees, so a captured graph multiplies by the
+current rate, and each block records the rate its trees were built with:
+its host trees are shrunk by that rate, and a served block whose rate
+differs from the current one (a ``learning_rates`` schedule) is rewound
+to its served boundary before the next tree.
+
+A validation set holds its binned matrix on the booster's device and a
+float64 score.  After each tree its scorer (``ops/graphs.py``
+``ValidScorer``) routes the valid rows through the tree's device records
+(``route_rows``) and adds the shrunken float32 leaf values into the score
+with kernel L's float64 mode; on the card it replays as one CUDA graph a
+valid set.  Validation sets and a training metric turn the fused
+super-step off (``_fused_ok``), as in the JAX package: each iteration's
+metrics read the scores after its tree; a set attached mid-block rewinds
+the block.  Each tree runs through an ``ops/graphs.py``
 runner: on the card as replays of CUDA graphs from the second tree on,
 eagerly on the CPU (or when the booster is made with ``eager=True``).
 
@@ -40,18 +59,19 @@ import torch
 from ..config import Config
 from ..io.dataset import TorchDataset
 from ..objectives import Objective
-from ..ops.graphs import TreeRunner
+from ..ops.graphs import TreeRunner, ValidScorer
 from ..ops.grow import (GrowParams, GrowState, key_words, tree_head,
                         tree_tail)
 from ..ops.histogram import multi_width
 from ..ops.lookup import take_small_add
+from ..ops.predict import flatten_forest, predict_raw
 from ..ops.split import SplitParams
 from ..utils import prng
 from ..utils.log import Log
 from .tree import Tree
 
-__all__ = ["GBDT", "records_to_tree", "host_records", "record_layout",
-           "pack_records", "fetch_records"]
+__all__ = ["GBDT", "ValidSet", "records_to_tree", "host_records",
+           "record_layout", "pack_records", "fetch_records"]
 
 _KEPS = 1e-15
 # the records the host reads of a tree (records_to_tree), besides the leaf
@@ -170,24 +190,48 @@ def fetch_records(rows: torch.Tensor, layout: list) -> dict:
     return out
 
 
+class ValidSet:
+    """A validation set: its raw rows (host), labels and weights, its
+    binned matrix ``xt`` (F, N) and float64 score (N,) on the booster's
+    device, and its scorer."""
+
+    def __init__(self, name: str, raw: np.ndarray, data: TorchDataset,
+                 device: torch.device):
+        self.name = name
+        self.raw = raw
+        self.metadata = data.metadata
+        self.xt = data.binned.to(device)
+        self.label = data.label.to(device=device, dtype=torch.float64)
+        self.weight = None if data.weight is None else \
+            data.weight.to(device=device, dtype=torch.float64)
+        self.score = torch.zeros(data.num_data, dtype=torch.float64,
+                                 device=device)
+        self.scorer: ValidScorer = None
+
+
 class GBDT:
     """Gradient boosting loop of the port (serial learner, gbdt).
 
+    ``metrics``: the evaluation metrics (``metrics.create_metrics``).
     ``eager=True`` launches every tree's kernels from Python on the card
     too, as the port did before its trees ran on CUDA graphs (for
     profiling and for the tests that hold the graphs to it)."""
 
     def __init__(self, config: Config, train_set: TorchDataset,
-                 objective: Objective, eager: bool = False):
+                 objective: Objective, metrics=(), eager: bool = False):
         config.check_supported()
         self.config = config
         self.train_set = train_set
         self.objective = objective
+        self.metrics = list(metrics)
+        self.valid_sets: List[ValidSet] = []
         self.device = train_set.device
         self.models: List[Tree] = []
         self.iter = 0
         self.num_class = 1
         self.num_tree_per_iteration = 1
+        # the host's rate (callbacks change it) and the device's, which the
+        # captured tail reads; written before a block whose rate differs
         self.shrinkage_rate = config.learning_rate
         self.num_data = train_set.num_data
         F = len(train_set.used_features)
@@ -257,6 +301,9 @@ class GBDT:
                                      self._missing_type, self.grow_params)
         self._vals = torch.zeros(config.num_leaves, dtype=torch.float32,
                                  device=dev)
+        self._lr = torch.full((), self.shrinkage_rate, dtype=torch.float32,
+                              device=dev)
+        self._lr_host = self.shrinkage_rate
         self._layout = record_layout(host_records(st))
         self._row = torch.zeros(sum(int(np.prod(s)) if s else 1
                                     for _, s, _ in self._layout),
@@ -283,7 +330,7 @@ class GBDT:
     def _tree_tail(self) -> None:
         st = self._state
         tree_tail(st)
-        torch.mul(st.leaf_values_final, self.shrinkage_rate, out=self._vals)
+        torch.mul(st.leaf_values_final, self._lr, out=self._vals)
         take_small_add(self._score, self._vals, st.leaf_idx)
         pack_records(host_records(st), self._layout, self._row)
 
@@ -308,11 +355,14 @@ class GBDT:
     # ---- the fused super-step -----------------------------------------
 
     def _fused_ok(self) -> bool:
-        """Super-step eligibility.  The JAX package falls back to the
-        per-iteration path for custom objectives, leaf-renewal and
-        multi-model objectives, validation sets and training metrics; the
-        port has none of them yet."""
-        return self.config.fused_iters > 1 and self.num_features > 0
+        """Super-step eligibility (``lightgbm_tpu/models/gbdt.py:1195``):
+        validation sets and a training metric read the scores every
+        iteration, so they run the per-iteration path.  (The JAX package
+        also falls back for custom, leaf-renewal and multi-model
+        objectives; the port has none of them yet.)"""
+        return (self.config.fused_iters > 1 and self.num_features > 0 and
+                not self.valid_sets and
+                not self.config.is_provide_training_metric)
 
     def _fused_bias_pending(self) -> bool:
         """True when the next iteration is the boost_from_average iteration
@@ -329,10 +379,27 @@ class GBDT:
         split (training stops)."""
         if self._stop_flag:
             return True
+        fused = self._fused_ok()
         blk = self._fused_block
-        if blk is not None and blk["served"] < len(blk["trees"]):
-            return self._serve_fused()
-        fused = self._fused_ok() and not self._fused_bias_pending()
+        if blk is not None:
+            in_flight = blk["served"] < len(blk["trees"])
+            # a learning_rates schedule changed the shrinkage since
+            # dispatch: the unserved trees were built at the old rate
+            lr_drift = blk["lr"] != self.shrinkage_rate
+            if fused and in_flight and not lr_drift:
+                return self._serve_fused()
+            if in_flight:
+                # eligibility drifted mid-block (a valid set attached, a
+                # training metric asked for) or the rate changed: rewind
+                # to the served boundary, then dispatch anew
+                self._fused_rewind()
+            elif not fused:
+                self._fused_block = None
+                self._discard_queue()
+        if self._sq and self._sq[0]["lr"] != self.shrinkage_rate:
+            # blocks dispatched ahead at the old rate
+            self._discard_queue()
+        fused = fused and not self._fused_bias_pending()
         target = 1 + self._pipeline_depth() if fused else 1
         while len(self._sq) < target:
             if not self._dispatch_block(fused, required=not self._sq):
@@ -379,12 +446,15 @@ class GBDT:
         return slot
 
     def _boost_from_average(self) -> float:
-        """Iteration 0's initial score, added to the training score."""
+        """Iteration 0's initial score, added to the training score and to
+        every validation set's."""
         if self.iter == 0 and self.config.boost_from_average and \
                 not self.models:
             init = self.objective.boost_from_score()
             if abs(init) > _KEPS:
                 self._score.add_(init)
+                for vs in self.valid_sets:
+                    vs.score.add_(init)
                 Log.info("Start training from score %f", init)
                 return init
         return 0.0
@@ -413,6 +483,9 @@ class GBDT:
         fence = {"rng_state": self._rng_feature.get_state(),
                  "tid": self._trees_dispatched}
         tid = self._trees_dispatched
+        if self.shrinkage_rate != self._lr_host:
+            self._lr.fill_(self.shrinkage_rate)
+            self._lr_host = self.shrinkage_rate
         self._trees_dispatched += K
         slot = self._slot()
         slot["host_masks"][:K] = torch.from_numpy(np.stack(
@@ -428,6 +501,9 @@ class GBDT:
             st.feature_mask.copy_(slot["masks"][k])
             st.key_words.copy_(slot["words"][k])
             waves.append(self.runner.run())
+            # valid sets run the per-iteration path: blocks of one tree
+            for vs in self.valid_sets:
+                vs.scorer.run(self.runner)
             slot["rows"][k].copy_(self._row)
             slot["leaf_idx"][k, :self.num_data].copy_(st.leaf_idx)
             slot["vals"][k].copy_(self._vals)
@@ -438,19 +514,37 @@ class GBDT:
             event.record()
         self._sq.append({"slot": slot, "i0": i0, "k": K, "fence": fence,
                          "init_score": init_score, "waves": waves,
-                         "event": event})
+                         "event": event, "lr": self.shrinkage_rate})
         return True
 
     def _discard_queue(self) -> None:
-        """Drop every dispatched block not landed and restore the host
-        state their dispatches consumed (feature-fraction draws, tree
-        ids)."""
+        """Drop every dispatched block not landed and restore what their
+        dispatches consumed: the training score (the oldest one's start
+        copy), the feature-fraction draws and the tree ids."""
         if not self._sq:
             return
         first = self._sq[0]
         self._sq = []
+        self._score.copy_(first["slot"]["start"])
         self._rng_feature.set_state(first["fence"]["rng_state"])
         self._trees_dispatched = int(first["fence"]["tid"])
+
+    def _fused_rewind(self) -> None:
+        """Discard the landed block's unserved trees and every block
+        dispatched after it, and restore the sequential state at its
+        served boundary: the score replayed over the served trees, the
+        tree ids, and the feature-fraction stream rewound to the block's
+        start with the served trees' draws drawn again
+        (``lightgbm_tpu/models/gbdt.py:1855-1878``)."""
+        self._discard_queue()
+        blk = self._fused_block
+        pos = blk["served"]
+        self._score.copy_(self._replay_score(pos))
+        self._trees_dispatched = int(blk["fence"]["tid"]) + pos
+        self._rng_feature.set_state(blk["fence"]["rng_state"])
+        for _ in range(pos):
+            self._feature_fraction_mask()
+        self._fused_block = None
 
     def _land_block(self) -> bool:
         """Fetch the oldest dispatched block's records (one copy, already
@@ -475,18 +569,25 @@ class GBDT:
             tree = records_to_tree({k: v[t] for k, v in host.items()},
                                    self.config, self.train_set,
                                    counts_proxy=self._counts_proxy)
-            tree.apply_shrinkage(self.shrinkage_rate)
+            # the rate the block's device score used
+            tree.apply_shrinkage(entry["lr"])
             if t == 0 and abs(init_score) > _KEPS:
                 tree.add_bias(init_score)
             trees.append(tree)
         self._fused_block = {"slot": slot, "trees": trees,
                              "stop_idx": stop_idx, "served": 0,
-                             "waves": entry["waves"]}
+                             "waves": entry["waves"], "lr": entry["lr"],
+                             "fence": entry["fence"]}
         if stop_idx is not None:
             # trees after the stop ran on the device: drop the blocks
             # dispatched after this one and replay the score up to it
             self._discard_queue()
             self._score.copy_(self._replay_score(stop_idx))
+            if abs(init_score) > _KEPS:
+                # the constant stop tree holds the initial score
+                # (lightgbm_tpu/models/gbdt.py:2566-2570)
+                for vs in self.valid_sets:
+                    vs.score.add_(init_score)
         return self._serve_fused()
 
     def _serve_fused(self) -> bool:
@@ -516,14 +617,63 @@ class GBDT:
                            slot["leaf_idx"][t, :self.num_data])
         return score
 
-    def train_score(self) -> np.ndarray:
-        """(N,) training score of the trees served so far: while a block
-        is served, or blocks are in flight, the device score is ahead."""
+    def train_score_tensor(self) -> torch.Tensor:
+        """(N,) float32 training score of the trees served so far, on the
+        device: while a block is served, or blocks are in flight, the
+        device score is ahead."""
         blk = self._fused_block
         if blk is not None and blk["served"] < len(blk["trees"]):
-            score = self._replay_score(blk["served"])
-        elif self._sq:
-            score = self._sq[0]["slot"]["start"]
-        else:
-            score = self._score
-        return score.cpu().numpy().copy()
+            return self._replay_score(blk["served"])
+        if self._sq:
+            return self._sq[0]["slot"]["start"]
+        return self._score
+
+    def train_score(self) -> np.ndarray:
+        """:meth:`train_score_tensor` as a host array."""
+        return self.train_score_tensor().cpu().numpy().copy()
+
+    # ---- validation sets and metrics ----------------------------------
+
+    def add_valid(self, name: str, raw: np.ndarray,
+                  data: TorchDataset) -> None:
+        """Register a validation set: ``data`` is its binned matrix, aligned
+        with the train set's bin mappers, and ``raw`` its rows.  The trees
+        served so far are added to its score from ``raw``
+        (``lightgbm_tpu/models/gbdt.py:1020-1054``)."""
+        vs = ValidSet(name, raw, data, self.device)
+        if self.models:
+            vs.score += predict_raw(flatten_forest(self.models, self.device),
+                                    raw, self.device)
+        vs.scorer = ValidScorer(self._state, vs.xt, self._vals, vs.score)
+        self.valid_sets.append(vs)
+
+    def _eval_one_set(self, name: str, score: torch.Tensor, label, weight
+                      ) -> list:
+        """Every metric on one dataset's raw float64 score, after the
+        objective's output transform; rank metrics give one entry a
+        position (``lightgbm_tpu/models/gbdt.py:2866-2889``)."""
+        score = self.objective.convert_output(score)
+        out = []
+        for m in self.metrics:
+            if hasattr(m, "eval_all"):
+                for mname, val in m.eval_all(label, score, weight):
+                    out.append((name, mname, val, m.higher_better))
+            else:
+                out.append((name, m.name, m.eval(label, score, weight),
+                            m.higher_better))
+        return out
+
+    def eval_set(self) -> list:
+        """Every metric on the training data (with
+        ``is_provide_training_metric``) and each validation set, as
+        (dataset name, metric name, value, higher_better)."""
+        out = []
+        if self.config.is_provide_training_metric and self.objective:
+            ts = self.train_set
+            out.extend(self._eval_one_set(
+                "training", self.train_score_tensor().to(torch.float64),
+                ts.label, ts.weight))
+        for vs in self.valid_sets:
+            out.extend(self._eval_one_set(vs.name, vs.score, vs.label,
+                                          vs.weight))
+        return out

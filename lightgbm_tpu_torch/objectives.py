@@ -4,8 +4,8 @@ Counterpart of ``lightgbm_tpu/objectives.py`` for the objectives of this
 slice: ``BinaryLogloss`` (``binary``) and ``RegressionL2``
 (``regression``).  ``get_gradients(score) -> (grad, hess)`` over (N,)
 float32 device tensors, ``boost_from_score`` (the initial score) and
-``convert_output`` (raw score -> prediction).  Any other objective name
-raises.
+``convert_output`` (raw score -> prediction, on a numpy array or a
+tensor, which stays on its device).  Any other objective name raises.
 
 The binary gradients are evaluated in float64 and rounded once to
 float32: ``exp`` differs by an ulp between the card's and the CPU's
@@ -33,6 +33,11 @@ def register(*names):
         cls.name = names[0]
         return cls
     return deco
+
+
+def _xp(x):
+    """The array module of ``x``: torch for a tensor, else numpy."""
+    return torch if isinstance(x, torch.Tensor) else np
 
 
 def create_objective(name: str, config) -> "Objective":
@@ -100,7 +105,7 @@ class RegressionL2(Objective):
 
     def convert_output(self, raw):
         if self.config.reg_sqrt:
-            return np.sign(raw) * raw * raw
+            return _xp(raw).sign(raw) * raw * raw
         return raw
 
 
@@ -169,4 +174,4 @@ class Binary(Objective):
         return float(np.log(p / (1 - p)) / self.sigmoid)
 
     def convert_output(self, raw):
-        return 1.0 / (1.0 + np.exp(-self.sigmoid * raw))
+        return 1.0 / (1.0 + _xp(raw).exp(-self.sigmoid * raw))

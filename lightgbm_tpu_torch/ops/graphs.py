@@ -18,9 +18,12 @@ once as a ``torch.cuda.CUDAGraph`` and replayed for every later tree:
 
 :class:`TreeRunner` runs a booster's first tree eagerly, the warm-up that
 builds the kernels and asks the card for their launch plans, and
-captures its graphs at the second, after :func:`prepare`.  On the CPU,
-or when asked, it launches every phase eagerly; the graphs replay the
-same launches, so the trees are the same bits.  A failed capture or
+captures its graphs at the second, after :func:`prepare`.  A validation
+set's scorer (:class:`ValidScorer`: ``route_rows`` over the tree's
+records, then kernel L's float64 add) is one more graph, captured into
+the same pool the first time it runs after the tree's graphs exist.  On
+the CPU, or when asked, it launches every phase eagerly; the graphs
+replay the same launches, so the trees are the same bits.  A failed capture or
 replay raises: nothing falls back to eager launches.
 
 Launch counters: the wrappers count a launch where they enqueue it, so a
@@ -31,14 +34,15 @@ every replay, so the counters keep meaning kernel launches executed;
 """
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
 
 from . import histogram, kernels, lookup, split
-from .grow import GrowState, serial_steps, wave_body, wave_loop
+from .grow import GrowState, route_rows, serial_steps, wave_body, wave_loop
 
-__all__ = ["Graph", "TreeRunner", "prepare", "REPLAYS"]
+__all__ = ["Graph", "TreeRunner", "ValidScorer", "prepare", "REPLAYS"]
 
 LAUNCH_COUNTERS = (histogram.LAUNCHES, split.LAUNCHES, lookup.LAUNCHES)
 REPLAYS = {"graph_replays": 0}
@@ -58,6 +62,12 @@ class Graph:
     def __init__(self, fn, stream: torch.cuda.Stream, pool):
         before = _counts()
         self.graph = torch.cuda.CUDAGraph()
+        # Python's cycle collector must not run inside a capture: a booster
+        # it collects frees pinned host buffers, and the host allocator's
+        # event calls on another stream can invalidate the capture
+        gc.collect()
+        gc_was_on = gc.isenabled()
+        gc.disable()
         try:
             t0 = time.perf_counter()
             with torch.cuda.graph(self.graph, pool=pool, stream=stream):
@@ -66,6 +76,8 @@ class Graph:
             self.instantiate_s = time.perf_counter() - t1
             self.capture_s = t1 - t0
         finally:
+            if gc_was_on:
+                gc.enable()
             after = _counts()
             for counter, b in zip(LAUNCH_COUNTERS, before):
                 counter.update(b)
@@ -132,6 +144,7 @@ class TreeRunner:
                 tail()
             self.phases = {"tree": tree}
         self.graphs = None
+        self.stream = self.pool = None
         self.trees = 0
         self.flag_reads = 0
         self.info = None
@@ -162,12 +175,16 @@ class TreeRunner:
         dev = self.st.xt.device
         stream = torch.cuda.Stream(dev)
         prepare(self.st, stream)
+        # collect dead cycles now, so the memory they free is not counted
+        # against the pool (each Graph collects again before capturing)
+        gc.collect()
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         pool = torch.cuda.graph_pool_handle()
         graphs = {name: Graph(fn, stream, pool)
                   for name, fn in self.phases.items()}
+        self.stream, self.pool = stream, pool
         torch.cuda.empty_cache()
         self.info = {
             "graphs": {name: g.kernel_launches()
@@ -177,3 +194,34 @@ class TreeRunner:
             "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
         }
         self.graphs = graphs
+
+
+class ValidScorer:
+    """A validation set's score update after each tree: the rows of ``xt``
+    (F, N) routed through the split records in ``st`` (``route_rows``)
+    into the static leaf-id buffer ``li``, then ``score += vals[li]``
+    (``score`` (N,) float64, ``vals`` the booster's shrunken float32 leaf
+    values: kernel L's float64 mode on the card).  It reads only device
+    buffers, so it runs eagerly until ``runner`` holds its tree graphs
+    and from then on as replays of one graph of its own."""
+
+    def __init__(self, st: GrowState, xt: torch.Tensor, vals: torch.Tensor,
+                 score: torch.Tensor):
+        self.st, self.xt, self.vals, self.score = st, xt, vals, score
+        self.li = torch.zeros(xt.shape[1], dtype=torch.int32,
+                              device=xt.device)
+        self.graph = None
+
+    def _score(self) -> None:
+        rec = self.st.rec
+        route_rows(self.xt, rec["leaf"], rec["feature"], rec["left_mask"],
+                   rec["valid"], self.st.params.num_leaves, out=self.li)
+        lookup.take_small_add(self.score, self.vals, self.li)
+
+    def run(self, runner: TreeRunner) -> None:
+        if runner.graphs is None:
+            self._score()
+            return
+        if self.graph is None:
+            self.graph = Graph(self._score, runner.stream, runner.pool)
+        self.graph.replay()

@@ -680,14 +680,22 @@ def tree_tail(st: GrowState) -> None:
 
 def route_rows(xt: torch.Tensor, rec_leaf: torch.Tensor,
                rec_feature: torch.Tensor, rec_left_mask: torch.Tensor,
-               rec_valid: torch.Tensor, num_leaves: int) -> torch.Tensor:
+               rec_valid: torch.Tensor, num_leaves: int,
+               out: torch.Tensor = None) -> torch.Tensor:
     """Replay a tree's split records over a binned matrix -> (N,) int32
-    leaf assignment (the device scorer for binned validation sets)."""
+    leaf assignment (the device scorer for binned validation sets): split
+    ``t`` moves the rows of leaf ``rec_leaf[t]`` whose bin goes right to
+    leaf ``t + 1``.  ``out``: an (N,) int32 buffer to write into.  Reads
+    nothing back to the host, so a CUDA graph can hold it."""
     N = xt.shape[1]
-    li = torch.zeros(N, dtype=torch.int32, device=xt.device)
-    for t in range(num_leaves - 1):
-        col = _pick(xt, rec_feature[t].to(torch.int64).reshape(1))
-        goes_left = rec_left_mask[t][col.to(torch.int32)]
-        move = rec_valid[t] & (li == rec_leaf[t]) & ~goes_left
-        li = li.masked_fill(move, t + 1)
+    S = num_leaves - 1
+    li = torch.zeros(N, dtype=torch.int32, device=xt.device) \
+        if out is None else out.zero_()
+    feats = rec_feature[:S].to(torch.int64)
+    # (S, B): the bins a valid split sends right
+    right = ~rec_left_mask[:S] & rec_valid[:S, None]
+    for t in range(S):
+        col = xt.index_select(0, feats[t:t + 1]).squeeze(0)
+        moves = right[t].index_select(0, col.to(torch.int32))
+        li.masked_fill_(moves & (li == rec_leaf[t]), t + 1)
     return li

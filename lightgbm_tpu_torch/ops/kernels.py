@@ -51,7 +51,7 @@ _SIGNATURES = {
     "ltt_best_split": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                        _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                        _P, _P],
-    "ltt_leaf_add": [_P, _I, _P, _I, _P, _I64, _I, _I64, _P],
+    "ltt_leaf_add": [_P, _I, _P, _I, _P, _I, _I64, _I, _I64, _P],
     "ltt_multi_hist": [_P, _I, _P, _P, _I, _I, _I64, _I, _I, _I, _I, _P,
                        _I, _I, _I64, _I, _P, _P, _P, _P],
     "ltt_multi_active_blocks": [_I, _I, _I, _I],
