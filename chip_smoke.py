@@ -42,7 +42,11 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    children in one call on a uint8 leaf vector with dummy lanes and windows
    at both edges, each in 2 CUDA launches a call with its sector floor;
    int32 leaf ids at leaf bound 32768 and ragged lengths; float and
-   wide-exponent values), all exact on integers;
+   wide-exponent values), all exact on integers; and kernel B, the
+   sampling draw, in each mode (bernoulli and stratified bagging, GOSS
+   with ties at its threshold, MVS), bit for bit against its plain
+   version at 1, 31, 1025 and 10.5M rows, with a repeat launch, one CUDA
+   launch a call;
 3. the exact path: trains the Higgs-shaped configuration at full width
    (10.5M x 28, num_leaves=255, max_bin=255, learning_rate=0.1,
    min_sum_hessian_in_leaf=100) in three modes, 6 trees each, the launch
@@ -66,8 +70,11 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    holdout AUC no more than 0.02 below the exact path's;
 6. trains reduced copies (50k rows with missing values, 10 iterations:
    the exact path at 31 leaves, float waves, quantized two-column waves
-   at 127 leaves, and both wave kinds with coarse-to-fine refinement) on
-   the card and on the CPU, each at fused_iters 1 and 4, and requires
+   at 127 leaves, and both wave kinds with coarse-to-fine refinement; and
+   with row sampling: stratified bagging on float waves, GOSS on the
+   two-column coarse-to-fine waves, MVS on the two-column waves, whose
+   CPU runs are at fused_iters=1 only) on the card and on the CPU, each
+   at fused_iters 1 and 4, and requires
    identical trees card against CPU, and fused_iters=4 the same bits as
    fused_iters=1 on each device;
 7. (run before phase 6, on phase 3's data) each of the three paths at
@@ -87,7 +94,17 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    set, eval's host milliseconds an iteration, the scorer's replay time,
    device time and CUDA kernels;
 8. ``cv`` reduced (50k rows, 3 folds) on the card and on the CPU: the
-   same means and deviations (logloss within 1e-6, AUC within 1e-4).
+   same means and deviations (logloss within 1e-6, AUC within 1e-4);
+9. (run after phase 5, on phase 3's data) row sampling at full width:
+   bench.py's goss255 (wave255 as it ships with boosting=goss), exact255
+   with bernoulli bagging (bagging_fraction=0.7, bagging_freq=2) and
+   wave255 without coarse-to-fine with MVS (bagging_fraction=0.6), each
+   on CUDA graphs and at fused_iters=5 (goss255 also eagerly), the launch
+   counters set to 0 just before each run and read just after: the same
+   trees bit for bit and the same kernel launches, one kernel-B launch a
+   tree, holdout AUC above 0.6; seconds an iteration beside the unsampled
+   path's of phases 3-5, and the threshold step's time (GOSS's order
+   statistic, MVS's scores and mu) on the trained booster's gradients.
 
 Every phase passes or the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
@@ -120,6 +137,12 @@ LEAF_NAMES = ("leaf_bound_kernel", "leaf_stats_kernel", "LeafTag")
 SPLIT_NAMES = ("best_split_kernel",)
 LOOKUP_NAMES = ("leaf_add_kernel",)
 ROUTED_NAMES = ("route_kernel", "RoutedTag")
+# kernel B's launch (csrc/sample.cu), and the 32-bit integer and float
+# operations of one draw: the 20 Threefry rounds (an add, a funnel-shift
+# rotation and a xor each), the 5 key injections (3 adds each), the key
+# schedule, the output xor, the float conversion and the compare
+SAMPLE_NAMES = ("sample_kernel",)
+THREEFRY_OPS = 83
 N_ROWS = 10_500_000
 N_FEATURES = 28
 N_HOLDOUT = 500_000
@@ -1361,17 +1384,127 @@ def phase_kernels_c2f(torch, dev, th, bins, qv, g):
     return {f"c2f_{k}": v for k, v in out.items()}
 
 
+# ---- kernel B: the sampling draw ---------------------------------------
+SAMPLE_MODES = ("bernoulli", "stratified", "goss", "mvs")
+# GOSS at bench.py's goss255 rates (the defaults), MVS at 0.6
+GOSS_TOP, GOSS_OTHER, MVS_FRACTION, MVS_VAR_WEIGHT = 0.2, 0.1, 0.6, 1e-6
+
+
+def sample_calls(torch, ts, dev, n, mode, seed):
+    """(kernel call, plain call, inputs) of one mode of kernel B at ``n``
+    rows: random key words, |g * h| on 40 exact values (GOSS's threshold
+    inside a run of ties), label signs at a 0.4 rate; GOSS's and MVS's
+    device thresholds from ``ops/sample.py``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    words = torch.randint(0, 2 ** 32, (4,), generator=g, device=dev,
+                          dtype=torch.int64)
+    gh = torch.randint(0, 40, (n,), generator=g, device=dev).float() / 64
+    inp = {"words": words, "gh": gh}
+    if mode in ("bernoulli", "stratified"):
+        pos = None
+        if mode == "stratified":
+            pos = (torch.rand(n, generator=g, device=dev) < 0.4).to(
+                torch.uint8)
+        inp["label_pos"] = pos
+        args = (words, n, 0.7 if pos is None else 1.0, 0.5, 0.9, pos)
+        return (lambda: ts.bag_weights(*args),
+                lambda: ts.bag_weights_plain(*args), inp)
+    if mode == "goss":
+        top_k = max(int(n * GOSS_TOP), 1)
+        other_k = int(n * GOSS_OTHER)
+        thr, _, _, p_tie = ts.goss_threshold(gh, top_k)
+        inp.update(thr=thr)
+        args = (words, gh, thr, p_tie, other_k / max(n - top_k, 1),
+                (n - top_k) / float(max(other_k, 1)))
+        return (lambda: ts.goss_weights(*args),
+                lambda: ts.goss_weights_plain(*args), inp)
+    s = ts.mvs_scores(gh, MVS_VAR_WEIGHT)
+    mu = ts.mvs_threshold(s, MVS_FRACTION * n)
+    return (lambda: ts.mvs_weights(words, s, mu),
+            lambda: ts.mvs_weights_plain(words, s, mu), inp)
+
+
+def check_sample(torch, kernel, plain, ctx):
+    """Kernel B against its plain version and a repeat launch, bit for
+    bit (the weights' int32 views); returns the kernel's weights."""
+    k = kernel()
+    k2 = kernel()
+    q = plain()
+    torch.cuda.synchronize()
+    for other, what in ((k2, "a repeat launch"), (q, "its plain version")):
+        if not torch.equal(k.view(torch.int32), other.view(torch.int32)):
+            fail(f"kernel B differs from {what} ({ctx})")
+    return k
+
+
+def sample_work(torch, mode, n, inp, w):
+    """(bytes, operations) the draw of this run's data needs: a row
+    writes its weight, reads its label byte (stratified) or its gh or s
+    (GOSS, MVS); a draw a row, GOSS a second one at each tie its first
+    draw left out and none above the threshold."""
+    draws = n
+    nbytes = 4 * n + 32
+    if mode == "stratified":
+        nbytes += n
+    elif mode in ("goss", "mvs"):
+        nbytes += 4 * n
+    if mode == "goss":
+        gh, thr = inp["gh"], inp["thr"]
+        n_gt = int((gh > thr).sum())
+        tie = gh == thr
+        left_out = int((tie & (w != 1)).sum())
+        draws = n - n_gt + left_out
+    return nbytes, draws * THREEFRY_OPS
+
+
+def phase_kernels_sample(torch, dev):
+    """Kernel B in each mode against its plain version, bit for bit, with
+    a repeat launch: at ragged lengths and at the full width (10.5M rows),
+    where one call is one CUDA launch (the profiler counts them) and its
+    time, device time, bound and the plain version's time are taken."""
+    from lightgbm_tpu_torch.ops import sample as ts
+    out = {}
+    for mode in SAMPLE_MODES:
+        for seed, n_ in enumerate((1, 31, 1025), start=90):
+            kernel, plain, _ = sample_calls(torch, ts, dev, n_, mode, seed)
+            check_sample(torch, kernel, plain, f"{mode}, N={n_}")
+        kernel, plain, inp = sample_calls(torch, ts, dev, N_ROWS, mode, 99)
+        w = check_sample(torch, kernel, plain, f"{mode}, N={N_ROWS}")
+        ms = cuda_ms(kernel, reps=50)
+        dev_ms, n_launch = profile_calls(kernel, 20, SAMPLE_NAMES)
+        if n_launch != 1:
+            fail(f"kernel B ({mode}) made {n_launch} CUDA launches a call, "
+                 f"not 1")
+        plain_ms = cuda_ms(plain, reps=3)
+        nbytes, ops = sample_work(torch, mode, N_ROWS, inp, w)
+        b_ms, b_by = bound(nbytes, ops)
+        out[mode] = dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms,
+                         launches_per_call=n_launch, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                         bytes=nbytes, operations=ops,
+                         kept_share=float((w > 0).float().mean()))
+        print(f"kernel B {mode}: bit for bit (N = 1, 31, 1025, {N_ROWS}, "
+              f"repeat launches); {ms:.4f} ms, device {dev_ms:.4f} ms, "
+              f"{n_launch} CUDA launch a call (plain {plain_ms:.3f}, bound "
+              f"{b_ms:.4f} by {b_by}) at N={N_ROWS}", flush=True)
+        del kernel, plain, inp, w
+    torch.cuda.empty_cache()
+    return out
+
+
 def reset_counts():
-    from lightgbm_tpu_torch.ops import graphs, histogram, lookup, split
-    for counter in (histogram.LAUNCHES, split.LAUNCHES, lookup.LAUNCHES,
-                    graphs.REPLAYS):
+    from lightgbm_tpu_torch.ops import graphs
+    for counter in graphs.LAUNCH_COUNTERS + (graphs.REPLAYS,):
         for k in counter:
             counter[k] = 0
 
 
 def read_counts():
-    from lightgbm_tpu_torch.ops import histogram, lookup, split
-    return {**histogram.LAUNCHES, **split.LAUNCHES, **lookup.LAUNCHES}
+    from lightgbm_tpu_torch.ops import graphs
+    out = {}
+    for counter in graphs.LAUNCH_COUNTERS:
+        out.update(counter)
+    return out
 
 
 # phases 3-5: 1 warm-up + 5 measured trees a run; the fused run trains
@@ -1628,6 +1761,106 @@ def phase_c2f(torch, ltt, data, exact_auc):
     return counts, e2e
 
 
+# phase 9: the sampled configurations at full width on phase 3's data:
+# (params, the unsampled path whose seconds an iteration they stand
+# beside, the modes of run_path, kernel B's counter)
+SAMPLED = {
+    # bench.py's goss255 (bench.py:2088-2100): wave255 as it ships, GOSS
+    "goss255": (dict(TRAIN_PARAMS, **WAVE255_PARAMS, boosting="goss"),
+                "c2f", ("graphs", "eager", "fused"), "sample_goss"),
+    # tests/test_pipeline.py:100's bernoulli row on exact255
+    "exact255-bagging": (dict(TRAIN_PARAMS, bagging_fraction=0.7,
+                              bagging_freq=2),
+                         "exact", ("graphs", "fused"), "sample_bag"),
+    # that file's MVS row on wave255 without c2f
+    "wave255-noc2f-mvs": (dict(TRAIN_PARAMS, **WAVE_PARAMS, boosting="mvs",
+                               bagging_fraction=MVS_FRACTION),
+                          "wave", ("graphs", "fused"), "sample_mvs"),
+}
+
+
+def threshold_step(torch, booster):
+    """The sampled booster's threshold step on its current gradients
+    (GOSS's top-set order statistic, MVS's scores and mu), or None for
+    bagging: (ms back to back, device ms and CUDA kernels a call)."""
+    from lightgbm_tpu_torch.ops import sample as ts
+    g = booster._gbdt
+    cfg, n = g.config, g.num_data
+    grad, hess = g.objective.get_gradients(g._score)
+    gh = (grad * hess).abs()
+    if cfg.boosting == "goss":
+        top_k = max(int(n * cfg.top_rate), 1)
+
+        def fn():
+            return ts.goss_threshold(gh, top_k)
+    elif cfg.boosting == "mvs":
+        def fn():
+            return ts.mvs_threshold(ts.mvs_scores(gh, cfg.var_weight),
+                                    cfg.bagging_fraction * n)
+    else:
+        return None
+    ms = cuda_ms(fn, reps=10)
+    dev_ms, kernels = profile_calls(fn, 5, ("",), whole=False)
+    return ms, dev_ms, kernels
+
+
+def phase_sampled(torch, ltt, data, unsampled_s):
+    """Phase 9: each configuration of ``SAMPLED`` at full width, on CUDA
+    graphs (the main path), at fused_iters=5 and (goss255) eagerly: the
+    same trees bit for bit and the same kernel launches, one kernel-B
+    launch a tree, holdout AUC above 0.6; seconds an iteration beside the
+    unsampled path's from phases 3-5, the threshold step's time."""
+    ds, Xh, yh = data
+    out, counts_by = {}, {}
+    for name, (params, path, modes, counter) in SAMPLED.items():
+        p = dict(params, device_type=DEVICE)
+        runs = {m: run_path(torch, ltt, ds, p, m) for m in modes}
+        main = runs["graphs"]
+        b = main["booster"]
+        for m in modes[1:]:
+            _identical_trees(b, runs[m]["booster"], f"{name}: graphs vs {m}")
+            if runs[m]["counts"] != main["counts"]:
+                fail(f"{name}: kernel launches executed differ between "
+                     f"graphs {main['counts']} and {m} {runs[m]['counts']}")
+            del runs[m]["booster"]
+        counts = main["counts"]
+        if counts[counter] != N_TREES:
+            fail(f"{name}: kernel B ran {counts[counter]} times in {N_TREES} "
+                 f"trees, not once a tree")
+        if main["replays"] <= 0:
+            fail(f"{name}: no graph replays on the main path")
+        prob = b.predict(Xh)
+        if prob.shape != (N_HOLDOUT,) or not np.all(np.isfinite(prob)):
+            fail(f"{name}: holdout predictions are not finite of the "
+                 f"expected shape")
+        auc = np_auc(yh, prob)
+        if not 0.6 < auc <= 1.0:
+            fail(f"{name}: holdout AUC {auc} is not that of a trained model")
+        thr = threshold_step(torch, b)
+        e2e = {m: statistics.median(r["iter_s"]) for m, r in runs.items()}
+        out[name] = dict(
+            seconds_per_iteration=e2e["graphs"], modes=_summary(runs),
+            unsampled_seconds_per_iteration=unsampled_s[path],
+            kernel_b_launches_per_tree=counts[counter] / N_TREES,
+            threshold_ms=None if thr is None else thr[0],
+            threshold_device_ms=None if thr is None else thr[1],
+            threshold_cuda_kernels=None if thr is None else thr[2],
+            holdout_auc=auc, launches=counts)
+        counts_by[name] = counts
+        thr_text = "no threshold step" if thr is None else (
+            f"threshold step {thr[0]:.3f} ms (device {thr[1]:.3f} ms, "
+            f"{thr[2]:g} CUDA kernels)")
+        print(f"{name}: seconds per iteration "
+              f"{ {m: round(v, 4) for m, v in e2e.items()} } (unsampled "
+              f"{path} {unsampled_s[path]:.4f}), kernel B "
+              f"{counts[counter] / N_TREES:g} a tree, {thr_text}, holdout "
+              f"AUC {auc:.5f}; {', '.join(modes)} trees identical, the "
+              f"same kernel launches executed", flush=True)
+        del b, main["booster"]
+        torch.cuda.empty_cache()
+    return counts_by, out
+
+
 def _same_trees(a, b, what):
     """Identical splits and leaf values within rtol 1e-5, or fail."""
     if a.num_trees() != b.num_trees() or a.num_trees() != 10:
@@ -1657,23 +1890,40 @@ def phase_device_vs_cpu(ltt):
     at 127 leaves (W = 64), each wave kind without and with coarse-to-fine
     refinement (28 x 256 bins passes its gate), each at fused_iters 1 and
     4: identical trees card against CPU, and fused_iters=4 the same bits
-    as fused_iters=1 on each device."""
+    as fused_iters=1 on each device.  The row-sampling cells (stratified
+    bagging on float waves, GOSS on quantized two-column coarse-to-fine
+    waves, MVS on quantized two-column waves) train the CPU at
+    fused_iters=1 only, the card at both (the CPU's fused runs are held to
+    its per-iteration runs by tests/test_torch_boosting_fused.py)."""
     X, y = make_higgs_shaped(50_000, N_FEATURES, seed=1)
     rng = np.random.RandomState(2)
     X[rng.rand(len(X)) < 0.05, 5] = np.nan      # exercise missing values
+    float_waves = {"num_leaves": 31, "wave_splits": True,
+                   "hist_refinement": False}
+    # (parameters, fused_iters of the CPU runs)
     configs = {
-        "exact": {"num_leaves": 31},
-        "float waves": {"num_leaves": 31, "wave_splits": True,
-                        "hist_refinement": False},
-        "quantized two-column waves": dict(WAVE_PARAMS, num_leaves=127),
-        "float c2f waves": {"num_leaves": 31, "wave_splits": True},
-        "quantized two-column c2f waves": dict(WAVE255_PARAMS,
-                                               num_leaves=127),
+        "exact": ({"num_leaves": 31}, (1, 4)),
+        "float waves": (float_waves, (1, 4)),
+        "quantized two-column waves": (dict(WAVE_PARAMS, num_leaves=127),
+                                       (1, 4)),
+        "float c2f waves": ({"num_leaves": 31, "wave_splits": True}, (1, 4)),
+        "quantized two-column c2f waves": (dict(WAVE255_PARAMS,
+                                                num_leaves=127), (1, 4)),
+        "float waves, stratified bagging": (dict(
+            float_waves, pos_bagging_fraction=0.5, neg_bagging_fraction=0.9,
+            bagging_freq=1), (1,)),
+        "quantized two-column c2f waves, GOSS": (dict(
+            WAVE255_PARAMS, num_leaves=127, boosting="goss"), (1,)),
+        "quantized two-column waves, MVS": (dict(
+            WAVE_PARAMS, num_leaves=127, boosting="mvs",
+            bagging_fraction=MVS_FRACTION), (1,)),
     }
-    for what, extra in configs.items():
+    for what, (extra, cpu_fused) in configs.items():
         boosters = {}
         for fused in (1, 4):
             for dev in (DEVICE, "cpu"):
+                if dev == "cpu" and fused not in cpu_fused:
+                    continue
                 p = dict(TRAIN_PARAMS, **extra, device_type=dev,
                          fused_iters=fused)
                 t0 = time.perf_counter()
@@ -1689,23 +1939,26 @@ def phase_device_vs_cpu(ltt):
                 print(f"reduced {what} on {dev}, fused_iters={fused}: "
                       f"{time.perf_counter() - t0:.2f} s", flush=True)
         for fused in (1, 4):
-            a, b = boosters[DEVICE, fused], boosters["cpu", fused]
+            cpu = fused if fused in cpu_fused else 1
+            a, b = boosters[DEVICE, fused], boosters["cpu", cpu]
             worst = _same_trees(a, b, f"{what}, fused_iters={fused}")
             pa, pb = a.predict(X), b.predict(X)
             pdiff = float(np.max(np.abs(pa - pb)))
             if pdiff > 1e-5:
                 fail(f"{what}: predictions differ between cuda and cpu by "
                      f"{pdiff} at fused_iters={fused}")
-            print(f"device vs cpu, {what}, fused_iters={fused}: 10 trees "
-                  f"identical, max leaf value diff {worst:.3g}, max "
-                  f"prediction diff {pdiff:.3g}", flush=True)
-        for dev in (DEVICE, "cpu"):
+            print(f"device vs cpu, {what}, fused_iters={fused} on the card, "
+                  f"{cpu} on the cpu: 10 trees identical, max leaf value "
+                  f"diff {worst:.3g}, max prediction diff {pdiff:.3g}",
+                  flush=True)
+        devs = [d for d in (DEVICE, "cpu") if (d, 4) in boosters]
+        for dev in devs:
             if boosters[dev, 4].model_to_string() != \
                     boosters[dev, 1].model_to_string():
                 fail(f"{what} on {dev}: fused_iters=4 trees differ from "
                      f"fused_iters=1")
         print(f"{what}: fused_iters=4 trees the same bits as fused_iters=1 "
-              f"on both devices", flush=True)
+              f"on {' and '.join(devs)}", flush=True)
 
 
 # phase 7: each path with the holdout as a validation set; trees a run
@@ -1961,6 +2214,11 @@ def main():
 
     # ---- phase 2: kernels vs plain -----------------------------------
     stats = phase_kernels(torch, dev)
+    b_stats = phase_kernels_sample(torch, dev)
+    stats["sample_bag"] = dict(b_stats["bernoulli"],
+                               stratified=b_stats["stratified"])
+    stats["sample_goss"] = b_stats["goss"]
+    stats["sample_mvs"] = b_stats["mvs"]
     # ---- phase 3: the exact path end to end at full width ------------
     data, exact_counts, e2e = phase_full_width(torch, ltt)
     # ---- phase 4: wave255 without coarse-to-fine at full width -------
@@ -1968,6 +2226,11 @@ def main():
                                        e2e["holdout_auc"])
     # ---- phase 5: wave255 as it ships, with coarse-to-fine -----------
     c2f_counts, e2e_c2f = phase_c2f(torch, ltt, data, e2e["holdout_auc"])
+    # ---- phase 9: bagging, GOSS and MVS at full width -----------------
+    sampled_counts, e2e_sampled = phase_sampled(
+        torch, ltt, data, {"exact": e2e["seconds_per_iteration"],
+                           "wave": e2e_wave["seconds_per_iteration"],
+                           "c2f": e2e_c2f["seconds_per_iteration"]})
     # ---- phase 7: each path with the holdout as a validation set -----
     valid_counts, e2e_valid = {}, {}
     for path, params, names, e in (
@@ -2019,6 +2282,17 @@ def main():
         "lanes_window_histogram": ("lightgbm_tpu_torch/csrc/window_hist.cu",
                                    "lightgbm_tpu/ops/histogram.py:1113",
                                    c2f_counts),
+        # kernel B replaces no Pallas kernel: the JAX package draws its
+        # masks in XLA at these lines
+        "sample_bag": ("lightgbm_tpu_torch/csrc/sample.cu",
+                       "lightgbm_tpu/models/gbdt.py:1110",
+                       sampled_counts["exact255-bagging"]),
+        "sample_goss": ("lightgbm_tpu_torch/csrc/sample.cu",
+                        "lightgbm_tpu/models/boosting.py:78",
+                        sampled_counts["goss255"]),
+        "sample_mvs": ("lightgbm_tpu_torch/csrc/sample.cu",
+                       "lightgbm_tpu/models/boosting.py:162",
+                       sampled_counts["wave255-noc2f-mvs"]),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2038,11 +2312,14 @@ def main():
         if name == "leaf_lookup_f64":
             row["launches_by_path"] = {k: v[name]
                                        for k, v in valid_counts.items()}
+        if name.startswith("sample_"):
+            row["replaces_pallas_kernel"] = False
         rows.append(row)
     print(json.dumps({"card": card, "e2e_exact": e2e, "e2e_wave": e2e_wave,
                       "e2e_c2f": e2e_c2f, "launches_exact": exact_counts,
                       "launches_wave": wave_counts,
-                      "launches_c2f": c2f_counts, "e2e_valid": e2e_valid,
+                      "launches_c2f": c2f_counts,
+                      "e2e_sampled": e2e_sampled, "e2e_valid": e2e_valid,
                       "launches_valid": valid_counts, "cv": cv_result}),
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -4,14 +4,15 @@ A second package beside the JAX one, mirroring its layout and names.
 This slice covers serial-learner GBDT training on dense numerical data
 and batch predict: ``Dataset`` -> bin mappers -> binned matrix on the
 device -> gradients -> best-first tree growth -> score update -> model
-text -> predict, with validation sets scored on the device, metrics,
-callbacks, early stopping and ``cv``.  The histogram, best-split and
-leaf-lookup passes run as hand-written CUDA kernels for Hopper
-(``csrc/``, built with nvcc at first use); each has a plain PyTorch
-version beside it, which the CPU path uses.  Training and predict run on
-the card (``device_type=cuda``, the default) unless ``device_type=cpu``
-is passed; without a card the default raises.  The package imports
-nothing of JAX or of ``lightgbm_tpu``.
+text -> predict, with row sampling (bagging, GOSS, MVS), validation sets
+scored on the device, metrics, callbacks, early stopping and ``cv``.
+The histogram, best-split, leaf-lookup and sampling passes run as
+hand-written CUDA kernels for Hopper (``csrc/``, built with nvcc at
+first use); each has a plain PyTorch version beside it, which the CPU
+path uses.  Training and predict run on the card (``device_type=cuda``,
+the default) unless ``device_type=cpu`` is passed; without a card the
+default raises.  The package imports nothing of JAX or of
+``lightgbm_tpu``.
 """
 from .config import Config
 from .utils.log import Log, LightGBMError

@@ -19,6 +19,7 @@ from .config import Config
 from .io.dataset import TorchDataset
 from .metrics import create_metrics, default_metric_for
 from .models import model_io
+from .models.boosting import create_boosting
 from .models.gbdt import GBDT
 from .objectives import create_objective
 from .ops.predict import flatten_forest, predict_raw
@@ -142,8 +143,9 @@ class Booster:
                                                self.config)
             metrics = create_metrics(self._resolve_metric_names(self.config),
                                      self.config)
-            self._gbdt = GBDT(self.config, train_set._constructed,
-                              self._objective, metrics, eager=_eager)
+            self._gbdt = create_boosting(self.config, train_set._constructed,
+                                         self._objective, metrics,
+                                         eager=_eager)
             self.models = self._gbdt.models
             ds = train_set._constructed
             self._feature_names = ds.feature_names

@@ -1150,10 +1150,6 @@ UNSUPPORTED: List[Tuple[str, Any, str]] = [
     ("categorical_feature", lambda v: bool(v) and v != "auto",
      "categorical features"),
     ("forcedsplits_filename", bool, "forced splits"),
-    ("bagging_fraction", lambda v: v < 1.0, "bagging"),
-    ("pos_bagging_fraction", lambda v: v < 1.0, "bagging"),
-    ("neg_bagging_fraction", lambda v: v < 1.0, "bagging"),
-    ("bagging_freq", lambda v: v > 0, "bagging"),
     ("monotone_constraints", lambda v: any(float(x) != 0 for x in v),
      "monotone constraints"),
     ("feature_contri", lambda v: any(float(x) != 1.0 for x in v),
@@ -1162,8 +1158,9 @@ UNSUPPORTED: List[Tuple[str, Any, str]] = [
      "near-tie preference for armed leaves (speculative arming)"),
     ("tree_learner", lambda v: v not in ("serial", ""),
      "parallel tree learners"),
-    ("boosting", lambda v: v not in ("gbdt", "gbrt"),
-     "boosting modes other than gbdt"),
+    ("boosting", lambda v: v in ("dart", "rf", "random_forest"),
+     "DART and random-forest boosting (ROADMAP.md Queue 1 item 3b, with "
+     "rollback_one_iter)"),
 ]
 
 

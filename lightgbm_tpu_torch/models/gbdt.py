@@ -14,6 +14,16 @@ with the tree's quantization key, score update) and the fused super-step
 and the evaluation (``eval_set``, ``_eval_one_set``, :2866-2900) are
 ported.
 
+Row sampling (bernoulli and stratified bagging here, GOSS and MVS in
+``models/boosting.py``) draws a float32 weight a row inside each tree's
+head, so that the draw is part of the tree's CUDA graph: the gradients
+are multiplied by it and the tree's sample mask set to where it is above
+0, as ``_dispatch_build`` does (:2104-2126).  The draw is keyed by the
+PRNG fold of the tree's global iteration (the slot's ``bag_words``), so
+fused and sequential runs draw the same bits; bagging's
+``bagging_freq`` cache is the draw of the last redraw's iteration,
+computed anew for each tree, so no sampling state outlives a block.
+
 The score update is the one the JAX package's iteration performs, from
 the build's own float32 leaf values (renewed under quantization):
 ``score += leaf_values_final * learning_rate`` gathered by leaf id
@@ -59,6 +69,7 @@ import torch
 from ..config import Config
 from ..io.dataset import TorchDataset
 from ..objectives import Objective
+from ..ops import sample
 from ..ops.graphs import TreeRunner, ValidScorer
 from ..ops.grow import (GrowParams, GrowState, key_words, tree_head,
                         tree_tail)
@@ -210,7 +221,8 @@ class ValidSet:
 
 
 class GBDT:
-    """Gradient boosting loop of the port (serial learner, gbdt).
+    """Gradient boosting loop of the port (serial learner, gbdt, with
+    bernoulli and stratified bagging).
 
     ``metrics``: the evaluation metrics (``metrics.create_metrics``).
     ``eager=True`` launches every tree's kernels from Python on the card
@@ -295,6 +307,15 @@ class GBDT:
         self._rng_feature = np.random.RandomState(
             config.feature_fraction_seed & 0x7FFFFFFF)
         objective.init(train_set.metadata, self.num_data, dev)
+        # row sampling: a weight a row drawn in each tree's head from the
+        # key words of the tree's iteration (:meth:`_sample_words`), which a
+        # block's slot holds like the quantization words
+        # (lightgbm_tpu/models/gbdt.py:732, :2104-2126)
+        self._bag_key = prng.prng_key(config.bagging_seed & 0x7FFFFFFF)
+        self._sampled = self._samples()
+        self._bag_words = torch.zeros(4, dtype=torch.int64, device=dev)
+        self._label_pos = (train_set.label > 0).to(torch.uint8) \
+            if self._bagging_active() and self._pos_neg() else None
 
         # one tree's static buffers, its device epilogue and its runner
         self._state = st = GrowState(self._xt, self._mask, self._num_bins,
@@ -324,7 +345,14 @@ class GBDT:
     # ---- one tree on the device ---------------------------------------
 
     def _tree_head(self) -> None:
+        """The gradients, weighted by the tree's sample where it has one
+        (its presence mask into the tree's static sample mask), then the
+        tree's head (lightgbm_tpu/models/gbdt.py:2104-2126)."""
         grad, hess = self.objective.get_gradients(self._score)
+        if self._sampled:
+            w = self._sample_weights(self._bag_words, grad, hess)
+            grad, hess = grad * w, hess * w
+            self._mask.copy_(w > 0)
         tree_head(self._state, grad, hess)
 
     def _tree_tail(self) -> None:
@@ -344,6 +372,54 @@ class GBDT:
             k = max(1, int(frac * F))
             mask[self._rng_feature.choice(F, size=k, replace=False)] = True
         return mask
+
+    # ---- row sampling --------------------------------------------------
+
+    def _pos_neg(self) -> bool:
+        cfg = self.config
+        return cfg.pos_bagging_fraction < 1.0 or cfg.neg_bagging_fraction < 1.0
+
+    def _bagging_active(self) -> bool:
+        """Bernoulli or stratified bagging
+        (``lightgbm_tpu/models/gbdt.py:1069``)."""
+        cfg = self.config
+        return cfg.bagging_freq > 0 and (cfg.bagging_fraction < 1.0 or
+                                         self._pos_neg())
+
+    def _samples(self) -> bool:
+        """Whether every tree is drawn a sample (fixed for a booster)."""
+        return self._bagging_active()
+
+    def _sample_words(self, it: int) -> tuple:
+        """The four key words of iteration ``it``'s draw: bagging redraws
+        every ``bagging_freq`` iterations, so its mask at ``it`` is the draw
+        of ``fold_in(key, it - it % bagging_freq)``, the JAX package's
+        cached mask (:1127-1140, :1603) computed anew."""
+        if not self._bagging_active():
+            return 0, 0, 0, 0
+        key = prng.fold_in(self._bag_key,
+                           it - it % self.config.bagging_freq)
+        return int(key[0]), int(key[1]), 0, 0
+
+    def _sample_weights(self, words: torch.Tensor, grad: torch.Tensor,
+                        hess: torch.Tensor) -> torch.Tensor:
+        """The (N,) float32 weights of the draw keyed by ``words``
+        ((4,) int64, :meth:`_sample_words`): bagging's
+        (``_draw_bag_mask_impl``, :1110-1125)."""
+        cfg = self.config
+        return sample.bag_weights(words, self.num_data, cfg.bagging_fraction,
+                                  cfg.pos_bagging_fraction,
+                                  cfg.neg_bagging_fraction, self._label_pos)
+
+    def sample_weights(self, it: int, grad: torch.Tensor,
+                       hess: torch.Tensor):
+        """Iteration ``it``'s (N,) float32 row weights for these gradients,
+        or None when the booster does not sample."""
+        if not self._sampled:
+            return None
+        words = torch.tensor(self._sample_words(it), dtype=torch.int64,
+                             device=grad.device)
+        return self._sample_weights(words, grad, hess)
 
     def _quant_words(self, tid: int) -> tuple:
         """Key words of dispatched tree ``tid``: the booster's key folded
@@ -432,6 +508,12 @@ class GBDT:
                                               pin_memory=cuda),
                     "host_words": torch.zeros((K, 2), dtype=torch.int64,
                                               pin_memory=cuda),
+                    # each tree's sampling key words (_sample_words)
+                    "bag_words": torch.zeros((K, 4), dtype=torch.int64,
+                                             device=dev),
+                    "host_bag_words": torch.zeros((K, 4),
+                                                  dtype=torch.int64,
+                                                  pin_memory=cuda),
                     "rows": rows,
                     "host": torch.zeros(rows.shape, dtype=torch.float64,
                                         pin_memory=True) if cuda else rows,
@@ -492,7 +574,9 @@ class GBDT:
             [self._feature_fraction_mask() for _ in range(K)]))
         slot["host_words"][:K] = torch.tensor(
             [self._quant_words(tid + k) for k in range(K)])
-        for name in ("masks", "words"):
+        slot["host_bag_words"][:K] = torch.tensor(
+            [self._sample_words(i0 + k) for k in range(K)])
+        for name in ("masks", "words", "bag_words"):
             slot[name][:K].copy_(slot["host_" + name][:K], non_blocking=True)
         slot["start"].copy_(self._score)
         st = self._state
@@ -500,6 +584,8 @@ class GBDT:
         for k in range(K):
             st.feature_mask.copy_(slot["masks"][k])
             st.key_words.copy_(slot["words"][k])
+            if self._sampled:
+                self._bag_words.copy_(slot["bag_words"][k])
             waves.append(self.runner.run())
             # valid sets run the per-iteration path: blocks of one tree
             for vs in self.valid_sets:

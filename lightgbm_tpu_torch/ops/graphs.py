@@ -39,12 +39,13 @@ import time
 
 import torch
 
-from . import histogram, kernels, lookup, split
+from . import histogram, kernels, lookup, sample, split
 from .grow import GrowState, route_rows, serial_steps, wave_body, wave_loop
 
 __all__ = ["Graph", "TreeRunner", "ValidScorer", "prepare", "REPLAYS"]
 
-LAUNCH_COUNTERS = (histogram.LAUNCHES, split.LAUNCHES, lookup.LAUNCHES)
+LAUNCH_COUNTERS = (histogram.LAUNCHES, split.LAUNCHES, lookup.LAUNCHES,
+                   sample.LAUNCHES)
 REPLAYS = {"graph_replays": 0}
 
 

@@ -1,0 +1,230 @@
+"""Row sampling on the device: bagging, GOSS and MVS weights.
+
+Counterpart of the JAX package's sampling masks, which it draws in XLA
+(no Pallas kernel): bernoulli and stratified bagging
+(``_draw_bag_mask_impl``, ``lightgbm_tpu/models/gbdt.py:1110-1125``),
+GOSS (``GOSS._goss_mask_impl``, ``lightgbm_tpu/models/boosting.py:78``)
+and MVS (``MVS._mvs_mask_impl`` and ``_threshold_device``, :119, :162).
+Each gives a float32 weight a row, bit for bit the JAX package's for the
+same gradients, labels and keys: 0 leaves the row out of the tree, 1
+keeps it, a larger value keeps it upweighted.
+
+The thresholds (:func:`goss_threshold`, :func:`mvs_threshold`) are
+PyTorch sorts and scans, as they are XLA sorts and scans in the JAX
+package; they read nothing back to the host, so a CUDA graph of a tree's
+head holds them.  The per-row draw is kernel B (``csrc/sample.cu``),
+called through :func:`bag_weights`, :func:`goss_weights` and
+:func:`mvs_weights`: a CUDA tensor launches the kernel (or raises), a
+CPU tensor takes the plain version beside it (``*_plain``, on
+``prng.uniform_rows``).  The key words are a (4,) int64 tensor on the
+device: words 0-1 the draw's key, 2-3 GOSS's tie key.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..utils.prng import uniform_rows
+from . import kernels
+from .split import fma32, prefix_sum
+
+__all__ = ["bag_weights", "bag_weights_plain", "goss_threshold",
+           "goss_weights", "goss_weights_plain", "mvs_scores",
+           "mvs_threshold", "mvs_weights", "mvs_weights_plain",
+           "sample_plan", "LAUNCHES"]
+
+# kernel B's launch constants (csrc/sample.cu)
+SAMPLE_THREADS = 256
+SAMPLE_BLOCKS_PER_SM = 8
+# the C entry point's modes
+_BAG, _STRATIFIED, _GOSS, _MVS = 0, 1, 2, 3
+
+# launches of kernel B, one a call, by mode
+LAUNCHES = {"sample_bag": 0, "sample_goss": 0, "sample_mvs": 0}
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to float32, as the JAX package's float32 compares and
+    products round a Python float."""
+    return float(np.float32(x))
+
+
+def sample_plan(n: int, sms: int) -> int:
+    """Kernel B's blocks: a thread a row, at most 8 blocks of 256 an SM
+    (the rest in the grid-stride loop)."""
+    return max(1, min(SAMPLE_BLOCKS_PER_SM * sms,
+                      -(-n // SAMPLE_THREADS)))
+
+
+def _launch(mode: int, words: torch.Tensor, inp, sc0, sc1, c0: float,
+            c1: float, n: int, counter: str) -> torch.Tensor:
+    """One kernel-B launch writing a new (n,) float32 weight vector."""
+    dev = words.device
+    if words.dtype != torch.int64 or words.shape != (4,) or \
+            not words.is_contiguous():
+        raise ValueError("words must be a contiguous (4,) int64 tensor")
+    for t in (inp, sc0, sc1):
+        if t is not None and t.device != dev:
+            raise ValueError("all inputs must be on one device")
+    if not 0 < n < 2 ** 32:
+        raise ValueError("kernel B draws 1 to 2^32 - 1 rows")
+    lib = kernels.load()
+    w = torch.empty(n, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = lib.ltt_sample(mode, words.data_ptr(), ptr(inp), ptr(sc0),
+                        ptr(sc1), c0, c1, w.data_ptr(), n,
+                        sample_plan(n, kernels.sm_count(dev)), stream)
+    kernels.check(rc, "kernel B (ltt_sample)")
+    LAUNCHES[counter] += 1
+    return w
+
+
+def _rows(t: torch.Tensor, dtype, n: int, what: str) -> None:
+    if t.dtype != dtype or t.shape != (n,) or not t.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous {dtype} ({n},)")
+
+
+def _scalar(t: torch.Tensor, what: str) -> None:
+    if t.dtype != torch.float32 or t.numel() != 1:
+        raise ValueError(f"{what} must be one float32 value")
+
+
+# ---- bagging (bernoulli and stratified) -------------------------------
+
+def bag_weights_plain(words: torch.Tensor, n: int, frac: float,
+                      pos_frac: float, neg_frac: float,
+                      label_pos: Optional[torch.Tensor]) -> torch.Tensor:
+    """``u < frac`` as float32, or with ``label_pos`` (uint8, label > 0)
+    ``u < pos_frac`` on positive rows and ``u < neg_frac`` on the rest."""
+    u = uniform_rows(words[:2], n)
+    if label_pos is None:
+        return (u < _f32(frac)).to(torch.float32)
+    return torch.where(label_pos > 0, u < _f32(pos_frac),
+                       u < _f32(neg_frac)).to(torch.float32)
+
+
+def bag_weights(words: torch.Tensor, n: int, frac: float, pos_frac: float,
+                neg_frac: float,
+                label_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Bagging's (n,) float32 weights on the device of ``words``: kernel
+    B on the card, :func:`bag_weights_plain` on the CPU."""
+    if words.device.type == "cpu":
+        return bag_weights_plain(words, n, frac, pos_frac, neg_frac,
+                                 label_pos)
+    if label_pos is None:
+        return _launch(_BAG, words, None, None, None, _f32(frac), 0.0, n,
+                       "sample_bag")
+    _rows(label_pos, torch.uint8, n, "label_pos")
+    return _launch(_STRATIFIED, words, label_pos, None, None,
+                   _f32(pos_frac), _f32(neg_frac), n, "sample_bag")
+
+
+# ---- GOSS --------------------------------------------------------------
+
+def goss_threshold(gh: torch.Tensor, top_k: int) -> tuple:
+    """GOSS's top set of ``gh`` (N,) float32 -> (thr, n_gt, n_tie, p_tie),
+    device tensors: ``thr`` the ``top_k``-th largest value (1,), the rows
+    above it and at it (the latter at least 1), and the rate
+    ``clip((top_k - n_gt) / n_tie, 0, 1)`` at which rows at it are
+    admitted, an int32 quotient in float32 as the JAX package computes
+    it.  ``-sort(-gh)`` is the JAX package's order, NaN last."""
+    s_desc = -torch.sort(-gh).values
+    thr = s_desc[top_k - 1:top_k]
+    n_gt = (gh > thr).sum()
+    n_tie = (gh == thr).sum().clamp(min=1)
+    p_tie = ((top_k - n_gt).to(torch.float32) /
+             n_tie.to(torch.float32)).clamp(0.0, 1.0).reshape(1)
+    return thr, n_gt, n_tie, p_tie
+
+
+def goss_weights_plain(words: torch.Tensor, gh: torch.Tensor,
+                       thr: torch.Tensor, p_tie: torch.Tensor,
+                       rest_rate: float, amp: float) -> torch.Tensor:
+    """1 on the top set (above ``thr``, or at it where the tie key's
+    uniform is below ``p_tie``), ``amp`` where the rest's uniform is below
+    ``rest_rate``, else 0 (float32)."""
+    n = gh.shape[0]
+    top = (gh > thr) | ((gh == thr) &
+                        (uniform_rows(words[2:], n) < p_tie))
+    pick = ~top & (uniform_rows(words[:2], n) < _f32(rest_rate))
+    return torch.where(top, torch.ones_like(gh),
+                       torch.where(pick, torch.full_like(gh, _f32(amp)),
+                                   torch.zeros_like(gh)))
+
+
+def goss_weights(words: torch.Tensor, gh: torch.Tensor, thr: torch.Tensor,
+                 p_tie: torch.Tensor, rest_rate: float,
+                 amp: float) -> torch.Tensor:
+    """GOSS's (N,) float32 weights: kernel B on the card,
+    :func:`goss_weights_plain` on the CPU.  ``thr`` and ``p_tie`` are
+    one-element float32 device tensors (:func:`goss_threshold`)."""
+    if gh.device.type == "cpu":
+        return goss_weights_plain(words, gh, thr, p_tie, rest_rate, amp)
+    n = gh.shape[0]
+    _rows(gh, torch.float32, n, "gh")
+    _scalar(thr, "thr")
+    _scalar(p_tie, "p_tie")
+    return _launch(_GOSS, words, gh, thr.contiguous(), p_tie.contiguous(),
+                   _f32(rest_rate), _f32(amp), n, "sample_goss")
+
+
+# ---- MVS ---------------------------------------------------------------
+
+def mvs_scores(gh: torch.Tensor, var_weight: float) -> torch.Tensor:
+    """``sqrt(gh * gh + var_weight)`` in float32, the product fused into
+    the add (one rounding), as the JAX package's CPU compile contracts it
+    in ``_mvs_mask_impl``.  The root is taken in float64 and rounded once:
+    PyTorch's float32 ``sqrt`` on the CPU is not correctly rounded, and a
+    float64 root of a float32 value rounds to the float32 root."""
+    sq = fma32(gh, gh, torch.full_like(gh, _f32(var_weight)))
+    return torch.sqrt(sq.to(torch.float64)).to(torch.float32)
+
+
+def mvs_threshold(s: torch.Tensor, target: float) -> torch.Tensor:
+    """MVS's threshold ``mu`` (1,) float32 for scores ``s`` (N,) and the
+    expected sample size ``target`` (``_threshold_device``): over the
+    descending order statistic, ``est = i + suffix_sum[i] / s[i]`` at the
+    first ``i`` where it exceeds the target, ``suffix_sum[i] / (target -
+    i)``; the smallest score when it never does.  The suffix sums take
+    XLA's CPU cumsum order (:func:`prefix_sum` of the reversed vector)."""
+    n = s.shape[0]
+    tgt = _f32(target)
+    s_desc = -torch.sort(-s).values
+    suffix = prefix_sum(s_desc.flip(0), 0).flip(0)
+    idx = torch.arange(n, dtype=torch.float32, device=s.device)
+    est = idx + suffix / s_desc.clamp(min=_f32(1e-35))
+    over = est > tgt
+    i = over.to(torch.uint8).argmax().reshape(1)
+    mu_in = suffix.index_select(0, i) / \
+        (tgt - i.to(torch.float32)).clamp(min=_f32(1e-10))
+    return torch.where(over.any(), mu_in, s_desc[-1:])
+
+
+def mvs_weights_plain(words: torch.Tensor, s: torch.Tensor,
+                      mu: torch.Tensor) -> torch.Tensor:
+    """``p = min(s / max(mu, 1e-35), 1)``; ``1 / max(p, 1e-35)`` where the
+    uniform is below ``p``, else 0 (float32)."""
+    prob = (s / mu.clamp(min=_f32(1e-35))).clamp(max=1.0)
+    keep = uniform_rows(words[:2], s.shape[0]) < prob
+    return torch.where(keep, 1.0 / prob.clamp(min=_f32(1e-35)),
+                       torch.zeros_like(s))
+
+
+def mvs_weights(words: torch.Tensor, s: torch.Tensor,
+                mu: torch.Tensor) -> torch.Tensor:
+    """MVS's (N,) float32 weights: kernel B on the card,
+    :func:`mvs_weights_plain` on the CPU.  ``mu`` is a one-element
+    float32 device tensor (:func:`mvs_threshold`)."""
+    if s.device.type == "cpu":
+        return mvs_weights_plain(words, s, mu)
+    n = s.shape[0]
+    _rows(s, torch.float32, n, "s")
+    _scalar(mu, "mu")
+    return _launch(_MVS, words, s, mu.contiguous(), None, 0.0, 0.0, n,
+                   "sample_mvs")
