@@ -46,7 +46,12 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    sampling draw, in each mode (bernoulli and stratified bagging, GOSS
    with ties at its threshold, MVS), bit for bit against its plain
    version at 1, 31, 1025 and 10.5M rows, with a repeat launch, one CUDA
-   launch a call;
+   launch a call; and kernel T, the validation scorer's route, exact
+   against its plain version with a repeat launch on random split records
+   (a tenth invalid, the missing bin to a random side) at 7, 31, 255 and
+   1500 leaves, uint8 and int16 bins, uint8 and int32 ids, ragged lengths,
+   and at 500k x 28 and 10.5M x 28 with 255 leaves, one CUDA launch a
+   call, with its bound from the sectors the rows' walks read;
 3. the exact path: trains the Higgs-shaped configuration at full width
    (10.5M x 28, num_leaves=255, max_bin=255, learning_rate=0.1,
    min_sum_hessian_in_leaf=100) in three modes, 6 trees each, the launch
@@ -73,8 +78,10 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    at 127 leaves, and both wave kinds with coarse-to-fine refinement; and
    with row sampling: stratified bagging on float waves, GOSS on the
    two-column coarse-to-fine waves, MVS on the two-column waves, whose
-   CPU runs are at fused_iters=1 only) on the card and on the CPU, each
-   at fused_iters 1 and 4, and requires
+   CPU runs are at fused_iters=1 only; DART on the exact loop at 31
+   leaves and a random forest on float waves, which do not fuse and run
+   at fused_iters=1 only) on the card and on the CPU, each at fused_iters
+   1 and 4, and requires
    identical trees card against CPU, and fused_iters=4 the same bits as
    fused_iters=1 on each device;
 7. (run before phase 6, on phase 3's data) each of the three paths at
@@ -82,8 +89,9 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    ``train(valid_sets=..., evals_result=..., early_stopping_rounds=...,
    learning_rates=...)`` with ``metric=auc,binary_logloss`` (exact 3
    trees, waves 6), the launch counters set to 0 just before and read
-   just after: the validation scorer (``route_rows`` and kernel L's
-   float64 add) replays as a CUDA graph, once a tree; the holdout score
+   just after: the validation scorer (kernel T routing the holdout's rows
+   and kernel L's float64 add, 2 kernel launches) replays as a CUDA
+   graph, once a tree; the holdout score
    within 1e-5 of the served trees' prediction on the raw holdout, and
    every recorded metric within 1e-9 of its numpy formula on the fetched
    score; the same rounds eagerly (the same trees, scores and metrics bit
@@ -104,7 +112,21 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    trees bit for bit and the same kernel launches, one kernel-B launch a
    tree, holdout AUC above 0.6; seconds an iteration beside the unsampled
    path's of phases 3-5, and the threshold step's time (GOSS's order
-   statistic, MVS's scores and mu) on the trained booster's gradients.
+   statistic, MVS's scores and mu) on the trained booster's gradients;
+10. (run after phase 7, on phase 3's data) DART on wave255 without
+   coarse-to-fine (drop_rate=0.3, skip_drop=0, 8 trees) and a random
+   forest on exact255 (bagging_fraction=0.632, bagging_freq=1,
+   feature_fraction=0.8, 6 trees), each with the 500k holdout as a
+   validation set, on CUDA graphs and eagerly, the launch counters set to
+   0 just before each run and read just after: the same trees, training
+   and holdout scores bit for bit, kernel T once a tree (the scorer's
+   graph holds it alone: the host tree's values are added after the tree
+   lands), the holdout score within 1e-5 and the training score within
+   1e-4 (first 500k rows) of the trees' prediction, before and after
+   ``rollback_one_iter``, holdout AUC above 0.6; then a gbdt rollback
+   inside a fused_iters=5 block.  Seconds an iteration beside the
+   unsampled path's, DART's drop and renormalization host ms an
+   iteration and the device bytes of its kept leaf ids.
 
 Every phase passes or the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
@@ -258,6 +280,34 @@ def profile_calls(fn, reps, names, warmup=1, tries=5, whole=True):
         seen.append(len(evts))
     fail(f"the profiler recorded no whole window of {reps} calls of "
          f"{names} in {tries} tries (CUDA kernels a window: {seen})")
+
+
+def kernels_seen(fn, reps, names):
+    """{kernel: [kernels recorded a call, device ms a recorded launch]}
+    from one ``torch.profiler`` window of ``reps`` calls of ``fn``, after
+    one call and 20 ms; a kernel is keyed by the first of ``names`` its
+    name contains, else by its name's first 48 characters.  The profiler
+    drops a few of a window's first kernels (``profile_calls``), so a
+    short window records fewer kernels a call than were launched; the
+    time a recorded launch does not depend on that."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(0.02)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    seen = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = next((k for k in names if k in e.name), e.name[:48])
+        row = seen.setdefault(key, [0, 0.0])
+        row[0] += 1
+        row[1] += (e.time_range.end - e.time_range.start) / 1e3
+    return {k: [n / reps, ms / n] for k, (n, ms) in seen.items()}
 
 
 def card_line():
@@ -460,9 +510,9 @@ def measure_lookup_f64(torch, tl, dev):
                   f"{lib:.3f}, bound {b_ms:.4f} by {b_by})", flush=True)
             del score, idx, idx64
     # the kernels line: the holdout's shape as the valid scorer runs it
-    # (int32 ids from route_rows), the others beside
+    # (uint8 ids from kernel T at 255 leaves), the others beside
     main = next(c for c in cases if c["rows"] == N_HOLDOUT and
-                c["ids"] == "int32")
+                c["ids"] == "uint8")
     return dict(main, cases=cases)
 
 
@@ -1492,6 +1542,137 @@ def phase_kernels_sample(torch, dev):
     return out
 
 
+# ---- kernel T: the validation scorer's route ---------------------------
+ROUTE_NAMES = ("tree_walk_kernel",)
+
+
+def route_records(torch, dev, L, B, F, seed, n_bins=None):
+    """A tree's ``L - 1`` split records as the growth loops write them:
+    split t splits one of the leaves 0..t on a random feature at a random
+    bin (the bins at or below it go left, the missing bin, the last of
+    ``n_bins``, to a random side); a tenth, at least one, are invalid with
+    garbage leaves, as a stopped tree or a wave's dummy lanes leave them."""
+    g = np.random.RandomState(seed)
+    S, nb = L - 1, n_bins or B
+    leaf = g.randint(0, np.arange(S) + 1)
+    feat = g.randint(0, F, S)
+    left = np.arange(B)[None, :] <= g.randint(0, nb - 1, S)[:, None]
+    left[:, nb - 1] = g.rand(S) < 0.5
+    valid = g.rand(S) >= 0.1
+    valid[g.randint(S)] = False
+    leaf[~valid] = g.randint(0, 2 * L, int((~valid).sum()))
+    as_t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev)
+    return (as_t(leaf, torch.int32), as_t(feat, torch.int32),
+            as_t(left, torch.bool), as_t(valid, torch.bool))
+
+
+def route_bins(torch, dev, F, N, n_bins, seed, dtype=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, n_bins, (F, N), generator=g, device=dev,
+                         dtype=torch.int32).to(dtype or torch.uint8)
+
+
+def check_route(torch, tr, xt, rec, L, out_dtype, ctx):
+    """Kernel T against its plain version and a repeat launch, exactly."""
+    n = xt.shape[1]
+    k = tr.route_rows(xt, *rec, L, out=torch.empty(n, dtype=out_dtype,
+                                                    device=xt.device))
+    k2 = tr.route_rows(xt, *rec, L, out=torch.full_like(k, 7))
+    q = tr.route_rows_plain(xt, *rec, L,
+                            out=torch.empty_like(k))
+    torch.cuda.synchronize()
+    if not torch.equal(k, k2):
+        fail(f"kernel T gave other ids on a repeat launch ({ctx})")
+    if not torch.equal(k, q):
+        fail(f"kernel T differs from its plain version ({ctx}): "
+             f"{int((k != q).sum())} rows")
+    return k
+
+
+def route_sectors(torch, xt, rec, L):
+    """(the distinct 32-byte sectors of ``xt`` the rows' walks read, the
+    mean walk length): a row reads feature f at each valid split on f
+    that finds it in the split's leaf."""
+    leaf, feat, left_mask, valid = rec
+    F, N = xt.shape
+    per = 32 // xt.element_size()
+    pad = -(-N // per) * per
+    touched = torch.zeros((F, pad), dtype=torch.bool, device=xt.device)
+    li = torch.zeros(N, dtype=torch.int32, device=xt.device)
+    right = ~left_mask & valid[:, None]
+    steps = torch.zeros((), dtype=torch.int64, device=xt.device)
+    feats, valids = feat.tolist(), valid.tolist()
+    for t in range(L - 1):
+        if not valids[t]:
+            continue
+        mine = li == leaf[t]
+        steps += mine.sum()
+        touched[feats[t], :N] |= mine
+        col = xt[feats[t]].to(torch.int64)
+        li.masked_fill_(right[t][col] & mine, t + 1)
+    sectors = int(touched.view(F, pad // per, per).any(2).sum())
+    return sectors, float(steps) / N
+
+
+def phase_kernels_route(torch, dev):
+    """Kernel T against its plain version, exactly, with a repeat launch:
+    7, 31, 255 and 1500 leaves (1500: the staged tree needs more than 48 KB
+    of shared memory), uint8 and int16 bins, uint8 and int32 ids, ragged
+    lengths; at 500k x 28 (the holdout) and 10.5M x 28 with 255 leaves,
+    its time, device time, one CUDA launch a call, bound (the sectors the
+    rows' walks touch, the ids written, the records) and the plain
+    version's time."""
+    from lightgbm_tpu_torch.ops import route as tr
+    F = N_FEATURES
+    seed = 200
+    for L, B, bdt in ((7, 64, torch.uint8), (31, 256, torch.uint8),
+                      (255, 256, torch.uint8), (255, 512, torch.int16),
+                      (1500, 256, torch.uint8)):
+        for n_ in (1, 31, 1025, 100_003):
+            for odt in (torch.uint8, torch.int32):
+                if odt == torch.uint8 and L > 256:
+                    continue
+                seed += 1
+                rec = route_records(torch, dev, L, B, F, seed,
+                                    n_bins=B - 3)
+                xt = route_bins(torch, dev, F, n_, B - 3, seed, bdt)
+                check_route(torch, tr, xt, rec, L, odt,
+                            f"L={L} B={B} {bdt} bins, N={n_}, {odt} ids")
+    out = {}
+    for n_ in (N_HOLDOUT, N_ROWS):
+        rec = route_records(torch, dev, 255, 256, F, 300, n_bins=255)
+        xt = route_bins(torch, dev, F, n_, 255, 301)
+        for odt in (torch.int32, torch.uint8):
+            k = check_route(torch, tr, xt, rec, 255, odt,
+                            f"L=255, N={n_}, {odt} ids")
+        call = lambda: tr.route_rows(xt, *rec, 255, out=k)
+        ms = cuda_ms(call, reps=20)
+        dev_ms, n_launch = profile_calls(call, 10, ROUTE_NAMES)
+        if n_launch != 1:
+            fail(f"kernel T made {n_launch} CUDA launches a call, not 1")
+        plain_ms = cuda_ms(lambda: tr.route_rows_plain(xt, *rec, 255,
+                                                       out=k), reps=2)
+        sectors, depth = route_sectors(torch, xt, rec, 255)
+        rec_bytes = 254 * (256 + 9)
+        b_ms, b_by = bound(sectors * 32 + n_ + rec_bytes, 0)
+        whole_ms = bound(xt.numel() + n_ + rec_bytes, 0)[0]
+        out[n_] = dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms,
+                       launches_per_call=n_launch, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                       sectors=sectors, mean_walk=depth,
+                       whole_matrix_bound_ms=whole_ms, rows=n_)
+        print(f"kernel T, N={n_}: exact (and at 7-1500 leaves, ragged "
+              f"lengths, int16 bins, repeat launches); {ms:.4f} ms, device "
+              f"{dev_ms:.4f} ms, {n_launch} CUDA launch a call (plain "
+              f"{plain_ms:.3f} ms; bound {b_ms:.4f} ms: {sectors} sectors "
+              f"of the walks, {depth:.2f} splits a row; the whole matrix "
+              f"{whole_ms:.4f})", flush=True)
+        del xt, k
+    torch.cuda.empty_cache()
+    # the kernels line: the holdout's shape, as the scorer runs it
+    return dict(out[N_HOLDOUT], at_10_5m=out[N_ROWS])
+
+
 def reset_counts():
     from lightgbm_tpu_torch.ops import graphs
     for counter in graphs.LAUNCH_COUNTERS + (graphs.REPLAYS,):
@@ -1894,33 +2075,42 @@ def phase_device_vs_cpu(ltt):
     bagging on float waves, GOSS on quantized two-column coarse-to-fine
     waves, MVS on quantized two-column waves) train the CPU at
     fused_iters=1 only, the card at both (the CPU's fused runs are held to
-    its per-iteration runs by tests/test_torch_boosting_fused.py)."""
+    its per-iteration runs by tests/test_torch_boosting_fused.py).  DART
+    on the exact loop at 31 leaves and a random forest on float waves run
+    at fused_iters=1 on both: these modes do not fuse."""
     X, y = make_higgs_shaped(50_000, N_FEATURES, seed=1)
     rng = np.random.RandomState(2)
     X[rng.rand(len(X)) < 0.05, 5] = np.nan      # exercise missing values
     float_waves = {"num_leaves": 31, "wave_splits": True,
                    "hist_refinement": False}
-    # (parameters, fused_iters of the CPU runs)
+    # (parameters, fused_iters of the card's runs, of the CPU's runs)
     configs = {
-        "exact": ({"num_leaves": 31}, (1, 4)),
-        "float waves": (float_waves, (1, 4)),
+        "exact": ({"num_leaves": 31}, (1, 4), (1, 4)),
+        "float waves": (float_waves, (1, 4), (1, 4)),
         "quantized two-column waves": (dict(WAVE_PARAMS, num_leaves=127),
-                                       (1, 4)),
-        "float c2f waves": ({"num_leaves": 31, "wave_splits": True}, (1, 4)),
+                                       (1, 4), (1, 4)),
+        "float c2f waves": ({"num_leaves": 31, "wave_splits": True},
+                            (1, 4), (1, 4)),
         "quantized two-column c2f waves": (dict(WAVE255_PARAMS,
-                                                num_leaves=127), (1, 4)),
+                                                num_leaves=127),
+                                           (1, 4), (1, 4)),
         "float waves, stratified bagging": (dict(
             float_waves, pos_bagging_fraction=0.5, neg_bagging_fraction=0.9,
-            bagging_freq=1), (1,)),
+            bagging_freq=1), (1, 4), (1,)),
         "quantized two-column c2f waves, GOSS": (dict(
-            WAVE255_PARAMS, num_leaves=127, boosting="goss"), (1,)),
+            WAVE255_PARAMS, num_leaves=127, boosting="goss"), (1, 4), (1,)),
         "quantized two-column waves, MVS": (dict(
             WAVE_PARAMS, num_leaves=127, boosting="mvs",
-            bagging_fraction=MVS_FRACTION), (1,)),
+            bagging_fraction=MVS_FRACTION), (1, 4), (1,)),
+        "exact, DART": ({"num_leaves": 31, "boosting": "dart",
+                         "drop_rate": 0.3, "skip_drop": 0.0}, (1,), (1,)),
+        "float waves, random forest": (dict(
+            float_waves, boosting="rf", bagging_fraction=0.632,
+            bagging_freq=1, feature_fraction=0.8), (1,), (1,)),
     }
-    for what, (extra, cpu_fused) in configs.items():
+    for what, (extra, card_fused, cpu_fused) in configs.items():
         boosters = {}
-        for fused in (1, 4):
+        for fused in card_fused:
             for dev in (DEVICE, "cpu"):
                 if dev == "cpu" and fused not in cpu_fused:
                     continue
@@ -1938,7 +2128,7 @@ def phase_device_vs_cpu(ltt):
                          f"fused_iters={fused}")
                 print(f"reduced {what} on {dev}, fused_iters={fused}: "
                       f"{time.perf_counter() - t0:.2f} s", flush=True)
-        for fused in (1, 4):
+        for fused in card_fused:
             cpu = fused if fused in cpu_fused else 1
             a, b = boosters[DEVICE, fused], boosters["cpu", cpu]
             worst = _same_trees(a, b, f"{what}, fused_iters={fused}")
@@ -1957,8 +2147,9 @@ def phase_device_vs_cpu(ltt):
                     boosters[dev, 1].model_to_string():
                 fail(f"{what} on {dev}: fused_iters=4 trees differ from "
                      f"fused_iters=1")
-        print(f"{what}: fused_iters=4 trees the same bits as fused_iters=1 "
-              f"on {' and '.join(devs)}", flush=True)
+        if devs:
+            print(f"{what}: fused_iters=4 trees the same bits as "
+                  f"fused_iters=1 on {' and '.join(devs)}", flush=True)
 
 
 # phase 7: each path with the holdout as a validation set; trees a run
@@ -2012,6 +2203,27 @@ def _check_valid_score(b, Xh, yh, res, what, i=-1, score=None):
         if abs(got - value) > 1e-9 * max(1.0, abs(value)):
             fail(f"{what}: recorded {name} {got} at iteration {i} is not "
                  f"the numpy formula's {value}")
+
+
+def scorer_parts_ms(torch, scorer):
+    """(kernel T's, kernel L's float64 add's) milliseconds a call, each
+    launched alone on the scorer's own inputs (the last tree's records,
+    the holdout's bins, ids and score) and timed by CUDA events."""
+    from lightgbm_tpu_torch.ops import lookup, route
+    rec, nl = scorer.st.rec, scorer.st.params.num_leaves
+    t_ms = cuda_ms(lambda: route.route_rows(
+        scorer.xt, rec["leaf"], rec["feature"], rec["left_mask"],
+        rec["valid"], nl, out=scorer.li), reps=20)
+    score = scorer.score.clone()
+    l_ms = cuda_ms(lambda: lookup.take_small_add(score, scorer.vals,
+                                                 scorer.li), reps=20)
+    return t_ms, l_ms
+
+
+def _seen(seen):
+    """``kernels_seen``'s result as text."""
+    return ", ".join(f"{k} {n:g} ({ms:.4f} ms a launch)"
+                     for k, (n, ms) in seen.items()) or "no kernel"
 
 
 def run_valid(torch, ltt, ds, Xh, yh, params, n_trees, path):
@@ -2082,15 +2294,20 @@ def phase_valid(torch, ltt, data, path, params, names, no_valid_s):
     p = dict(params, device_type=DEVICE)
     b, res, counts, replays, iter_s, total_s = run_valid(
         torch, ltt, ds, Xh, yh, p, n, path)
-    _check_launches(counts, names + ("leaf_lookup_f64",), f"{path} valid")
+    _check_launches(counts, names + ("leaf_lookup_f64", "route"),
+                    f"{path} valid")
     if replays <= 0:
         fail(f"{path} with a validation set made no graph replays")
     scorer = b._gbdt.valid_sets[0].scorer
     if scorer.graph is None:
         fail(f"{path}: the validation scorer was not captured")
-    if counts["leaf_lookup_f64"] != n:
-        fail(f"{path}: kernel L's float64 mode ran "
-             f"{counts['leaf_lookup_f64']} times in {n} trees")
+    for name in ("leaf_lookup_f64", "route"):
+        if counts[name] != n:
+            fail(f"{path}: kernel {name} ran {counts[name]} times in {n} "
+                 f"trees, not once a tree")
+    if scorer.graph.kernel_launches() != 2:
+        fail(f"{path}: the scorer's graph holds "
+             f"{scorer.graph.launches} kernel launches, not kernels T and L")
     _check_valid_score(b, Xh, yh, res, f"{path} (graphs)")
     b_score = b._gbdt.valid_sets[0].score.cpu().numpy().copy()
     # eval's host time, and the scorer's replay on the card (which adds
@@ -2102,8 +2319,18 @@ def phase_valid(torch, ltt, data, path, params, names, no_valid_s):
         eval_ms.append((time.perf_counter() - t0) * 1e3)
     run = scorer.graph.replay
     scorer_ms = cuda_ms(run, reps=10)
-    scorer_dev_ms, scorer_kernels = profile_calls(run, 5, ("",),
-                                                  whole=False)
+    # the replay's kernels as the profiler records them, against the same
+    # two launched eagerly, and each alone timed by CUDA events on this
+    # tree's records; the device time of a replay is the sum of its
+    # kernels' times a launch
+    names = ROUTE_NAMES + LOOKUP_NAMES
+    seen_graph = kernels_seen(run, 20, names)
+    seen_eager = kernels_seen(scorer._score, 20, names)
+    if not all(k in seen_graph for k in names):
+        fail(f"{path}: the profiler saw {_seen(seen_graph)} in the "
+             f"scorer's replays, not kernels T and L")
+    scorer_dev_ms = sum(seen_graph[k][1] for k in names)
+    t_ms, l_ms = scorer_parts_ms(torch, scorer)
 
     e, res_e, scores_e = run_valid_eager(torch, ltt, ds, Xh, yh, p, n)
     _same_bits(b, e, f"{path}: graphs vs eager, with a validation set")
@@ -2128,8 +2355,9 @@ def phase_valid(torch, ltt, data, path, params, names, no_valid_s):
         seconds_per_iteration_without_valid=no_valid_s,
         eval_host_ms=statistics.median(eval_ms), eval_host_ms_runs=eval_ms,
         scorer_ms=scorer_ms, scorer_device_ms=scorer_dev_ms,
-        scorer_cuda_kernels=scorer_kernels,
         scorer_graph_launches=scorer.graph.kernel_launches(),
+        scorer_seen_in_replay=seen_graph, scorer_seen_eager=seen_eager,
+        kernel_t_ms=t_ms, kernel_l_f64_ms=l_ms,
         kernel_launches_per_tree={k: v / n for k, v in counts.items()},
         graph_replays_per_tree=replays / n, fused_blocks=blocks,
         best_iteration=b.best_iteration, holdout=res["holdout"])
@@ -2137,15 +2365,199 @@ def phase_valid(torch, ltt, data, path, params, names, no_valid_s):
           f"{out['seconds_per_iteration']:.4f} s an iteration (without it "
           f"{no_valid_s:.4f}; runs {[round(x, 4) for x in iter_s]}), eval "
           f"{out['eval_host_ms']:.2f} ms of host time an iteration, the "
-          f"scorer {scorer_ms:.3f} ms a replay (device {scorer_dev_ms:.3f} "
-          f"ms, {scorer_kernels:g} CUDA kernels, kernel L float64 "
-          f"{counts['leaf_lookup_f64'] / n:g} a tree); AUC "
+          f"scorer {scorer_ms:.3f} ms a replay (device {scorer_dev_ms:.4f} "
+          f"ms; kernels T and L float64 {counts['route'] / n:g} and "
+          f"{counts['leaf_lookup_f64'] / n:g} a tree; the profiler saw "
+          f"{_seen(seen_graph)} a replay, {_seen(seen_eager)} a call "
+          f"eagerly; T {t_ms:.4f} ms and L {l_ms:.4f} ms launched alone, by "
+          f"events); AUC "
           f"{res['holdout']['auc'][-1]:.5f}; graphs, eager and "
           f"fused_iters={FUSED_K} (blocks {blocks}) under the schedule the "
           f"same bits", flush=True)
     del b
     torch.cuda.empty_cache()
     return counts, out
+
+
+# phase 10: DART and random forests at full width on phase 3's data with
+# the holdout as a validation set, and rollback_one_iter on each and
+# inside a fused gbdt block
+DART_TREES, RF_TREES = 8, 6
+TRAIN_SLICE = 500_000
+BOOSTING = {
+    # wave255 without c2f, DART (dart.hpp's defaults but for drop_rate,
+    # and no skipped drops, so every iteration drops)
+    "dart-wave255-noc2f": (dict(TRAIN_PARAMS, **WAVE_PARAMS,
+                                boosting="dart", drop_rate=0.3,
+                                skip_drop=0.0), DART_TREES, "wave",
+                           ("multi_histogram", "routed_histogram",
+                            "leaf_stats", "best_split", "leaf_lookup")),
+    # exact255 as a random forest: bagging at 1 - 1/e, as bootstrap
+    # samples keep, and feature_fraction 0.8
+    "rf-exact255": (dict(TRAIN_PARAMS, boosting="rf", bagging_fraction=0.632,
+                         bagging_freq=1, feature_fraction=0.8), RF_TREES,
+                    "exact", ("histogram", "best_split", "leaf_lookup",
+                              "leaf_lookup_f64", "sample_bag")),
+}
+
+
+def run_boosting(torch, ltt, ds, Xh, yh, params, n_trees, eager):
+    """``n_trees`` updates with the holdout as a validation set, graphed
+    (the main path) or eager, the launch counters set to 0 just before the
+    first and read just after the last.  Returns the booster, the
+    counters, graph replays, seconds of each iteration after the warm-up
+    tree and the capture, and DART's host milliseconds an iteration of
+    its drops and of its renormalization and the trees it dropped."""
+    from lightgbm_tpu_torch.ops import graphs
+    p = dict(params, device_type=DEVICE)
+    b = ltt.Booster(p, ds, _eager=eager)
+    b.add_valid(ds.create_valid(Xh, label=yh), "holdout")
+    g = b._gbdt
+    host = {"drop": [], "normalize": [], "dropped": []}
+    for name in ("drop", "normalize") if hasattr(g, "_drop") else ():
+        fn = getattr(g, "_" + name)
+
+        def timed(fn=fn, name=name):
+            t0 = time.perf_counter()
+            out = fn()
+            host[name].append((time.perf_counter() - t0) * 1e3)
+            if name == "drop":
+                host["dropped"].append(len(g._drop_index))
+            return out
+
+        setattr(g, "_" + name, timed)
+    reset_counts()
+    stamps = []
+    for _ in range(n_trees):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        if b.update():
+            fail(f"{p['boosting']} training stopped early")
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    return (b, read_counts(), graphs.REPLAYS["graph_replays"],
+            _iteration_s(stamps, end), host)
+
+
+def _check_boosting_scores(b, X, Xh, what):
+    """The holdout score within 1e-5 of the served trees' prediction, the
+    training score within 1e-4 of it on the first ``TRAIN_SLICE`` rows;
+    returns both differences."""
+    g = b._gbdt
+    score = g.valid_sets[0].score.cpu().numpy()
+    if score.shape != (N_HOLDOUT,) or not np.all(np.isfinite(score)):
+        fail(f"{what}: the holdout score is not finite of its shape")
+    dv = float(np.max(np.abs(score - b.predict(Xh, raw_score=True))))
+    dt = float(np.max(np.abs(g.train_score()[:TRAIN_SLICE] - b.predict(
+        X[:TRAIN_SLICE], raw_score=True))))
+    if dv > 1e-5 or dt > 1e-4:
+        fail(f"{what}: scores {dv} (holdout) and {dt} (training) from the "
+             f"served trees' prediction")
+    return dv, dt
+
+
+def phase_boosting(torch, ltt, data, unsampled_s):
+    """Phase 10: DART on wave255 without c2f and a random forest on
+    exact255 at full width, with the holdout as a validation set: on CUDA
+    graphs (the main path) and eagerly, the same trees, training and
+    holdout scores bit for bit; kernel T once a tree in the scorer's graph
+    (which routes only: the host tree's values are added after it lands);
+    the scores against the trees' prediction, before and after
+    ``rollback_one_iter``; the random forest's holdout AUC.  Then
+    ``rollback_one_iter`` inside a ``fused_iters=5`` gbdt block.  Seconds
+    an iteration beside the unsampled path's of phases 3-5, DART's host
+    milliseconds, the device bytes of its kept leaf ids."""
+    ds, Xh, yh = data
+    X = ds.data
+    out, counts_by = {}, {}
+    for name, (params, n, path, names) in BOOSTING.items():
+        b, counts, replays, iter_s, host = run_boosting(
+            torch, ltt, ds, Xh, yh, params, n, eager=False)
+        e = run_boosting(torch, ltt, ds, Xh, yh, params, n, eager=True)[0]
+        g = b._gbdt
+        _check_launches(counts, names + ("route",), name)
+        if counts["route"] != n or replays <= 0:
+            fail(f"{name}: kernel T ran {counts['route']} times in {n} "
+                 f"trees, {replays} graph replays")
+        scorer = g.valid_sets[0].scorer
+        if scorer.graph is None or scorer.graph.kernel_launches() != 1:
+            fail(f"{name}: the scorer's graph does not hold kernel T alone")
+        _same_bits(b, e, f"{name}: graphs vs eager")
+        if not np.array_equal(g.valid_sets[0].score.cpu().numpy(),
+                              e._gbdt.valid_sets[0].score.cpu().numpy()):
+            fail(f"{name}: the holdout scores differ between graphs and "
+                 f"eager")
+        del e
+        dv, dt = _check_boosting_scores(b, X, Xh, name)
+        auc = np_auc(yh, b.predict(Xh))
+        if not 0.6 < auc <= 1.0:
+            fail(f"{name}: holdout AUC {auc} is not that of a trained model")
+        kept = g.leaf_idx_bytes() if hasattr(g, "leaf_idx_bytes") else 0
+        seen = kernels_seen(scorer.graph.replay, 20, ROUTE_NAMES)
+        if ROUTE_NAMES[0] not in seen or LOOKUP_NAMES[0] in seen:
+            fail(f"{name}: the profiler saw {_seen(seen)} in the scorer's "
+                 f"replays, not kernel T alone")
+        b.rollback_one_iter()
+        if b.num_trees() != n - 1:
+            fail(f"{name}: {b.num_trees()} trees after a rollback of {n}")
+        rv, rt = _check_boosting_scores(b, X, Xh, f"{name} rolled back")
+        row = dict(seconds_per_iteration=statistics.median(iter_s),
+                   iteration_seconds=iter_s,
+                   unsampled_seconds_per_iteration=unsampled_s[path],
+                   holdout_auc=auc, holdout_score_diff=dv,
+                   train_score_diff=dt, after_rollback=[rv, rt],
+                   kernel_t_per_tree=counts["route"] / n,
+                   scorer_graph_launches=scorer.graph.kernel_launches(),
+                   scorer_seen_in_replay=seen, launches=counts)
+        if host["drop"]:
+            row.update(drop_host_ms=statistics.median(host["drop"]),
+                       normalize_host_ms=statistics.median(
+                           host["normalize"]),
+                       dropped=host["dropped"],
+                       kept_leaf_id_bytes=kept,
+                       kept_bytes_per_tree=kept / n)
+        out[name], counts_by[name] = row, counts
+        print(f"{name}: {row['seconds_per_iteration']:.4f} s an iteration "
+              f"(runs {[round(x, 4) for x in iter_s]}; unsampled {path} "
+              f"{unsampled_s[path]:.4f}), kernel T {counts['route'] / n:g} "
+              f"a tree, the scorer's graph {row['scorer_graph_launches']} "
+              f"launch (the profiler saw {_seen(seen)} a replay); holdout "
+              f"AUC {auc:.5f}; scores from the prediction "
+              f"{dv:.3g} / {dt:.3g}, after a rollback {rv:.3g} / {rt:.3g}; "
+              f"graphs and eager the same bits"
+              + (f"; drops {row['drop_host_ms']:.2f} ms and normalize "
+                 f"{row['normalize_host_ms']:.2f} ms of host time an "
+                 f"iteration, kept leaf ids {kept / 2 ** 20:.1f} MiB "
+                 f"({kept / n / 2 ** 20:.2f} a tree)" if host["drop"]
+                 else ""), flush=True)
+        del b, g, scorer
+        torch.cuda.empty_cache()
+    # rollback inside a fused block: the bias iteration, then 3 trees of a
+    # block of 5 served
+    p = dict(TRAIN_PARAMS, **WAVE_PARAMS, device_type=DEVICE,
+             fused_iters=FUSED_K, num_iterations=N_TREES)
+    b = ltt.Booster(p, ds)
+    for _ in range(4):
+        b.update()
+    b.rollback_one_iter()
+    dt = float(np.max(np.abs(b._gbdt.train_score()[:TRAIN_SLICE] - b.predict(
+        X[:TRAIN_SLICE], raw_score=True))))
+    if b.num_trees() != 3 or dt > 1e-4:
+        fail(f"gbdt rollback inside a fused block: {b.num_trees()} trees, "
+             f"training score {dt} from the prediction")
+    for _ in range(3):
+        b.update()
+    if b._gbdt.block_sizes != [1, FUSED_K, FUSED_K - 2]:
+        fail(f"gbdt after a rollback inside a fused block: blocks "
+             f"{b._gbdt.block_sizes}")
+    out["fused-rollback"] = dict(train_score_diff=dt,
+                                 block_sizes=b._gbdt.block_sizes)
+    print(f"gbdt rollback inside a fused_iters={FUSED_K} block: training "
+          f"score {dt:.3g} from the prediction, blocks after it "
+          f"{b._gbdt.block_sizes}", flush=True)
+    del b
+    torch.cuda.empty_cache()
+    return counts_by, out
 
 
 CV_ROUNDS = 4
@@ -2219,6 +2631,7 @@ def main():
                                stratified=b_stats["stratified"])
     stats["sample_goss"] = b_stats["goss"]
     stats["sample_mvs"] = b_stats["mvs"]
+    stats["route"] = phase_kernels_route(torch, dev)
     # ---- phase 3: the exact path end to end at full width ------------
     data, exact_counts, e2e = phase_full_width(torch, ltt)
     # ---- phase 4: wave255 without coarse-to-fine at full width -------
@@ -2246,6 +2659,10 @@ def main():
         valid_counts[path], e2e_valid[path] = phase_valid(
             torch, ltt, data, path, params, names,
             e["seconds_per_iteration"])
+    # ---- phase 10: DART, random forests, rollback_one_iter -----------
+    boosting_counts, e2e_boosting = phase_boosting(
+        torch, ltt, data, {"exact": e2e["seconds_per_iteration"],
+                           "wave": e2e_wave["seconds_per_iteration"]})
     del data
     # ---- phase 6: device vs cpu --------------------------------------
     phase_device_vs_cpu(ltt)
@@ -2293,6 +2710,10 @@ def main():
         "sample_mvs": ("lightgbm_tpu_torch/csrc/sample.cu",
                        "lightgbm_tpu/models/boosting.py:162",
                        sampled_counts["wave255-noc2f-mvs"]),
+        # kernel T replaces no Pallas kernel: the JAX package routes a
+        # validation set's rows in XLA
+        "route": ("lightgbm_tpu_torch/csrc/route.cu",
+                  "lightgbm_tpu/ops/grow.py:1833", valid_counts["c2f"]),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2312,14 +2733,19 @@ def main():
         if name == "leaf_lookup_f64":
             row["launches_by_path"] = {k: v[name]
                                        for k, v in valid_counts.items()}
-        if name.startswith("sample_"):
+        if name.startswith("sample_") or name == "route":
             row["replaces_pallas_kernel"] = False
+        if name == "route":
+            row["launches_by_path"] = {
+                **{k: v[name] for k, v in valid_counts.items()},
+                **{k: v[name] for k, v in boosting_counts.items()}}
         rows.append(row)
     print(json.dumps({"card": card, "e2e_exact": e2e, "e2e_wave": e2e_wave,
                       "e2e_c2f": e2e_c2f, "launches_exact": exact_counts,
                       "launches_wave": wave_counts,
                       "launches_c2f": c2f_counts,
                       "e2e_sampled": e2e_sampled, "e2e_valid": e2e_valid,
+                      "e2e_boosting": e2e_boosting,
                       "launches_valid": valid_counts, "cv": cv_result}),
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

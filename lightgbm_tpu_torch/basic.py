@@ -147,6 +147,7 @@ class Booster:
                                          self._objective, metrics,
                                          eager=_eager)
             self.models = self._gbdt.models
+            self.average_output = self._gbdt.average_output
             ds = train_set._constructed
             self._feature_names = ds.feature_names
             self._feature_infos = ds.feature_infos()
@@ -194,6 +195,7 @@ class Booster:
                                            self.config)
         self._gbdt = None
         self.models = info["models"]
+        self.average_output = info["average_output"]
         self._feature_names = info["feature_names"]
         self._feature_infos = info["feature_infos"]
         self._max_feature_idx = info["max_feature_idx"]
@@ -218,6 +220,13 @@ class Booster:
         if self._gbdt is None:
             Log.fatal("this booster holds no training data")
         return self._gbdt.train_one_iter()
+
+    def rollback_one_iter(self) -> "Booster":
+        """Undo the last boosting iteration (``GBDT.rollback_one_iter``)."""
+        if self._gbdt is None:
+            Log.fatal("this booster holds no training data")
+        self._gbdt.rollback_one_iter()
+        return self
 
     def eval_set(self) -> list:
         """(data name, metric name, value, higher_better) of every metric
@@ -252,6 +261,10 @@ class Booster:
             trees = trees[:ni]
         ff = flatten_forest(trees, self.device)
         raw = predict_raw(ff, _to_matrix(data), self.device).cpu().numpy()
+        if self.average_output and trees:
+            # a random forest's output is the mean of its trees
+            # (lightgbm_tpu/models/gbdt.py:2993-2994)
+            raw = raw / len(trees)
         return raw if raw_score else self._objective.convert_output(raw)
 
     def _objective_string(self) -> str:
@@ -267,7 +280,7 @@ class Booster:
             feature_names=self._feature_names,
             feature_infos=self._feature_infos,
             num_iteration=self._num_iteration(num_iteration),
-            parameters="")
+            parameters="", average_output=self.average_output)
 
     def save_model(self, filename: str,
                    num_iteration: Optional[int] = None) -> "Booster":

@@ -1158,9 +1158,6 @@ UNSUPPORTED: List[Tuple[str, Any, str]] = [
      "near-tie preference for armed leaves (speculative arming)"),
     ("tree_learner", lambda v: v not in ("serial", ""),
      "parallel tree learners"),
-    ("boosting", lambda v: v in ("dart", "rf", "random_forest"),
-     "DART and random-forest boosting (ROADMAP.md Queue 1 item 3b, with "
-     "rollback_one_iter)"),
 ]
 
 

@@ -1,27 +1,42 @@
-"""Boosting modes that sample rows, and the boosting factory.
+"""Boosting modes: row sampling, DART, random forests, and the factory.
 
-Counterpart of ``lightgbm_tpu/models/boosting.py`` for GOSS (:28-106)
-and MVS (:107-176), dispatched by ``config.boosting`` as
-``create_boosting`` (:442-458) dispatches them.  Each is the serial
-:class:`GBDT` with its own per-row weights, drawn in every tree's head on
-the device (``ops/sample.py``, kernel B on the card) from the PRNG fold
-of the tree's global iteration, so fused and sequential runs draw the
-same bits.  DART and random forests are not ported yet: asking for them
-raises ``NotImplementedError`` (``Config.check_supported``).
+Counterpart of ``lightgbm_tpu/models/boosting.py`` for GOSS (:28-106),
+MVS (:107-176), DART (:177-371) and RF (:374-439), dispatched by
+``config.boosting`` as ``create_boosting`` (:442-458) dispatches them.
+
+GOSS and MVS are the serial :class:`GBDT` with their own per-row weights,
+drawn in every tree's head on the device (``ops/sample.py``, kernel B on
+the card) from the PRNG fold of the tree's global iteration, so fused and
+sequential runs draw the same bits.
+
+DART and RF need the host tree every iteration, so they run blocks of one
+tree (no fused super-steps) and add each tree's host leaf values, cast to
+float32, to the training score with kernel L once it lands, as the JAX
+package's per-iteration path does.  DART keeps each tree's training leaf
+ids on the device (uint8 up to 256 leaves) and each validation set's
+(from kernel T) to drop and renormalize past trees; its drops draw from a
+numpy ``RandomState`` on the host before the tree is dispatched.  RF
+trains every tree on the gradients of the constant initial score and
+keeps the score the average of its trees.
 """
 from __future__ import annotations
 
+from typing import List
+
+import numpy as np
 import torch
 
 from ..config import Config
 from ..io.dataset import TorchDataset
 from ..objectives import Objective
 from ..ops import sample
+from ..ops.lookup import take_small_add
+from ..ops.predict import flatten_forest, predict_raw
 from ..utils import prng
 from ..utils.log import Log
-from .gbdt import GBDT
+from .gbdt import _KEPS, GBDT, ValidSet
 
-__all__ = ["GOSS", "MVS", "create_boosting"]
+__all__ = ["GOSS", "MVS", "DART", "RF", "create_boosting"]
 
 
 class GOSS(GBDT):
@@ -90,14 +105,298 @@ class MVS(GBDT):
         return sample.mvs_weights(words, s, mu)
 
 
-_BOOSTING_TYPES = {"gbdt": GBDT, "gbrt": GBDT, "goss": GOSS, "mvs": MVS}
+class DART(GBDT):
+    """Dropouts meet MART (``dart.hpp:17``): each iteration drops a random
+    subset of past trees from the training score, fits the new tree
+    against the reduced score at the rate ``lr / (1 + k)``, then
+    renormalizes the dropped trees by ``k / (k + 1)`` (xgboost mode:
+    ``lr / (lr + k)`` and ``k / (k + lr)``)."""
+
+    _per_tree_host = True       # drops and renormalization
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        # each tree's training leaf ids on the device (None: a stop tree)
+        self._train_leaf_idx: List = []
+        self._rng_drop = np.random.RandomState(
+            self.config.drop_seed & 0x7FFFFFFF)
+        self.tree_weight: List[float] = []
+        self.sum_weight = 0.0
+        self._drop_index: List[int] = []
+        self._dart_undo = None
+        Log.info("Using DART")
+
+    # ---- per-tree contributions from the kept leaf ids -----------------
+
+    def _add_contrib(self, i: int, sign: float) -> None:
+        """``score += sign * tree i``'s float32 leaf values at its kept
+        training leaf ids (``_train_contrib``, :222-235): kernel L, the
+        values negated to subtract."""
+        tree = self.models[i]
+        la = self._train_leaf_idx[i]
+        if la is None:
+            v = np.float32(tree.leaf_value[0]) * np.float32(sign)
+            self._score.add_(torch.tensor(v, device=self.device))
+            return
+        take_small_add(self._score, self._tree_values(tree) * sign, la)
+
+    def _valid_contrib(self, i: int, vs: ValidSet) -> torch.Tensor:
+        """Tree i's float64 values on a validation set, from its kept leaf
+        ids there, or its prediction where none are kept (a constant tree,
+        a set attached after it)."""
+        tree = self.models[i]
+        la = vs.leaf_idx_per_tree[i]
+        if la is None:
+            return predict_raw(flatten_forest([tree], self.device), vs.raw,
+                               self.device)
+        lv = torch.from_numpy(tree.leaf_value).to(self.device)
+        return lv[la.to(torch.int64)]
+
+    def _replay_valid(self, vs: ValidSet) -> None:
+        """A set attached after training began keeps no ids of the trees
+        before it: their contributions come from their prediction."""
+        vs.leaf_idx_per_tree.extend([None] * len(self.models))
+        super()._replay_valid(vs)
+
+    # ---- one iteration --------------------------------------------------
+
+    def _select_drops(self) -> None:
+        """The trees to drop this iteration and the new tree's rate
+        (``DroppingTrees``, :238-269), drawn from the host's stream."""
+        cfg = self.config
+        self._drop_index = []
+        if self._rng_drop.random_sample() < cfg.skip_drop or self.iter == 0:
+            pass
+        elif cfg.uniform_drop:
+            rate = cfg.drop_rate
+            if cfg.max_drop > 0:
+                rate = min(rate, cfg.max_drop / float(self.iter))
+            for i in range(self.iter):
+                if self._rng_drop.random_sample() < rate:
+                    self._drop_index.append(i)
+                    if len(self._drop_index) >= cfg.max_drop > 0:
+                        break
+        else:
+            inv_avg = len(self.tree_weight) / max(self.sum_weight, _KEPS)
+            rate = cfg.drop_rate
+            if cfg.max_drop > 0:
+                rate = min(rate, cfg.max_drop * inv_avg /
+                           max(self.sum_weight, _KEPS))
+            for i in range(self.iter):
+                if self._rng_drop.random_sample() < \
+                        rate * self.tree_weight[i] * inv_avg:
+                    self._drop_index.append(i)
+                    if len(self._drop_index) >= cfg.max_drop > 0:
+                        break
+        k = float(len(self._drop_index))
+        lr = cfg.learning_rate
+        if not cfg.xgboost_dart_mode:
+            self.shrinkage_rate = lr / (1.0 + k)
+        else:
+            self.shrinkage_rate = lr if not self._drop_index else \
+                lr / (lr + k)
+
+    def _drop(self) -> None:
+        """Select the drops and take them out of the training score, so
+        the new tree's gradients see the reduced ensemble."""
+        self._select_drops()
+        for i in self._drop_index:
+            self._add_contrib(i, -1.0)
+
+    def train_one_iter(self) -> bool:
+        # the snapshot is taken before the drops, so a rollback restores
+        # a consistent state (:272-301)
+        pre_score = self._score.clone()
+        pre_valid = [vs.score.clone() for vs in self.valid_sets]
+        pre_weights = (list(self.tree_weight), self.sum_weight)
+        self._drop()
+        stop = super().train_one_iter()
+        if stop:
+            # no tree was added: the dropped trees go back in
+            for i in self._drop_index:
+                self._add_contrib(i, 1.0)
+            self._drop_index = []
+            self._dart_undo = None
+            return stop
+        scale = self._normalize()
+        if not self.config.uniform_drop:
+            self.tree_weight.append(self.shrinkage_rate)
+            self.sum_weight += self.shrinkage_rate
+        self._dart_undo = (pre_score, pre_valid, pre_weights,
+                           list(self._drop_index), scale)
+        return False
+
+    def _landed(self, blk: dict) -> None:
+        """The new tree's host values into the training score and each
+        validation set's (float64 ``leaf_value[la]``, :2619-2626); its
+        leaf ids kept."""
+        if blk["stop_idx"] == 0:
+            self._train_leaf_idx.append(None)
+            for vs in self.valid_sets:
+                vs.leaf_idx_per_tree.append(None)
+            return
+        tree = blk["trees"][0]
+        li = self._landed_leaf_idx(blk)
+        take_small_add(self._score, self._tree_values(tree), li)
+        self._train_leaf_idx.append(li.clone())
+        lv = torch.from_numpy(tree.leaf_value).to(self.device)
+        for vs in self.valid_sets:
+            la = vs.scorer.li.clone()
+            vs.leaf_idx_per_tree.append(la)
+            vs.score += lv[la.to(torch.int64)]
+
+    def _normalize(self) -> float:
+        """Scale each dropped tree by ``k / (k + 1)`` and put it back in
+        the scores at its new weight (``Normalize``, :331-371)."""
+        k = float(len(self._drop_index))
+        if k == 0:
+            return 1.0
+        cfg = self.config
+        lr = cfg.learning_rate
+        scale = k / (k + 1.0) if not cfg.xgboost_dart_mode else \
+            k / (k + lr)
+        for i in self._drop_index:
+            self.models[i].apply_shrinkage(scale)
+            # train score: the net change is -(1 - scale) x the original
+            self._add_contrib(i, 1.0)
+            if self.valid_sets:
+                factor = (1.0 - scale) / scale
+                for vs in self.valid_sets:
+                    vs.score -= self._valid_contrib(i, vs) * factor
+            if not cfg.uniform_drop:
+                unit = (k + 1.0) if not cfg.xgboost_dart_mode else (k + lr)
+                self.sum_weight -= self.tree_weight[i] / unit
+                self.tree_weight[i] *= scale
+        return scale
+
+    def rollback_one_iter(self) -> None:
+        """Undo the last DART iteration: the scores from before its drops,
+        the dropped trees unscaled, the new tree popped (:304-329)."""
+        if self.iter <= 0 or self._dart_undo is None:
+            return
+        pre_score, pre_valid, (tw, sw), dropped, scale = self._dart_undo
+        for i in dropped:
+            self.models[i].apply_shrinkage(1.0 / scale)
+        self._score.copy_(pre_score)
+        for vs, snap in zip(self.valid_sets, pre_valid):
+            vs.score.copy_(snap)
+        self.tree_weight, self.sum_weight = tw, sw
+        self.models.pop()
+        if self._train_leaf_idx:
+            self._train_leaf_idx.pop()
+        for vs in self.valid_sets:
+            if vs.leaf_idx_per_tree:
+                vs.leaf_idx_per_tree.pop()
+        self.iter -= 1
+        self._dart_undo = None
+        self._fused_block = None
+
+    def leaf_idx_bytes(self) -> int:
+        """Device bytes of the kept leaf ids, training and validation."""
+        kept = self._train_leaf_idx + [la for vs in self.valid_sets
+                                       for la in vs.leaf_idx_per_tree]
+        return sum(la.numel() * la.element_size() for la in kept
+                   if la is not None)
+
+
+class RF(GBDT):
+    """Random forest (``rf.hpp:18``): unit shrinkage, bagging required,
+    gradients computed once from the constant initial score, and the
+    score kept as the average of the trees' outputs."""
+
+    _per_tree_host = True       # averaged-score updates
+
+    def __init__(self, config: Config, *args, **kwargs):
+        if not (config.bagging_freq > 0 and 0 < config.bagging_fraction < 1):
+            Log.fatal("random forest requires bagging "
+                      "(bagging_freq > 0, 0 < bagging_fraction < 1)")
+        super().__init__(config, *args, **kwargs)
+        self.average_output = True
+        self.shrinkage_rate = 1.0
+        Log.info("Using RF")
+        # (a Dataset refuses init_score, which RF refuses too, rf.hpp:38)
+        self._init_score = self.objective.boost_from_score() \
+            if self.config.boost_from_average else 0.0
+        # the fixed gradients at the constant initial score (RF::Boosting)
+        base = torch.full((self.num_data,), float(np.float32(
+            self._init_score)), dtype=torch.float32, device=self.device)
+        grad, hess = self.objective.get_gradients(base)
+        self._rf_grad, self._rf_hess = grad.clone(), hess.clone()
+        self._rf_undo = None
+        self._m = 0.0
+
+    def _gradients(self):
+        return self._rf_grad, self._rf_hess
+
+    def _boost_from_average(self) -> float:
+        """Every tree's bias is the initial score; it enters the score
+        after the tree lands (:422-430), not before the first tree."""
+        return self._init_score
+
+    def train_one_iter(self) -> bool:
+        # the scores before the iteration, for a rollback (:407-409)
+        self._rf_undo = (self._score.clone(),
+                         [vs.score.clone() for vs in self.valid_sets])
+        # score <- (score * m + tree + bias) / (m + 1), :411-436
+        self._m = float(self.iter)
+        self._score.mul_(torch.tensor(np.float32(self._m),
+                                      device=self.device))
+        for vs in self.valid_sets:
+            vs.score.mul_(self._m)
+        return super().train_one_iter()
+
+    def _landed(self, blk: dict) -> None:
+        """The tree's float32 values into the scores (float64 widened on
+        the validation sets), its bias, then the average: the training
+        score multiplied by ``1 / (m + 1)`` in float32, the validation
+        scores divided by ``m + 1`` in float64, as the JAX package does."""
+        stop = blk["stop_idx"] == 0
+        if not stop:
+            vals = self._tree_values(blk["trees"][0])
+            take_small_add(self._score, vals, self._landed_leaf_idx(blk))
+            for vs in self.valid_sets:
+                take_small_add(vs.score, vals, vs.scorer.li)
+        init = self._init_score
+        if abs(init) > _KEPS:
+            # a tree that could not split holds the bias alone, already
+            # added to the validation scores when it landed
+            self._score.add_(torch.tensor(np.float32(init),
+                                          device=self.device))
+            if not stop:
+                for vs in self.valid_sets:
+                    vs.score += init
+        m = self._m
+        self._score.mul_(torch.tensor(np.float32(1.0 / (m + 1.0)),
+                                      device=self.device))
+        for vs in self.valid_sets:
+            vs.score /= (m + 1.0)
+        # a forest goes on past a tree that could not split
+        blk["stop_idx"] = None
+
+    def rollback_one_iter(self) -> None:
+        """Restore the scores from before the last iteration and pop its
+        tree (``GBDT.rollback_one_iter`` with RF's snapshots)."""
+        if self.iter <= 0 or self._rf_undo is None:
+            return
+        score, valid = self._rf_undo
+        self._score.copy_(score)
+        for vs, snap in zip(self.valid_sets, valid):
+            vs.score.copy_(snap)
+        self.models.pop()
+        self.iter -= 1
+        self._rf_undo = None
+        self._fused_block = None
+
+
+_BOOSTING_TYPES = {"gbdt": GBDT, "gbrt": GBDT, "goss": GOSS, "mvs": MVS,
+                   "dart": DART, "rf": RF, "random_forest": RF}
 
 
 def create_boosting(config: Config, train_set: TorchDataset,
                     objective: Objective, metrics=(),
                     eager: bool = False) -> GBDT:
-    """The booster of ``config.boosting`` (``Boosting::CreateBoosting``).
-    DART and random forests raise ``NotImplementedError``."""
+    """The booster of ``config.boosting`` (``Boosting::CreateBoosting``):
+    gbdt, GOSS, MVS, DART or a random forest."""
     config.check_supported()
     cls = _BOOSTING_TYPES.get(config.boosting)
     if cls is None:

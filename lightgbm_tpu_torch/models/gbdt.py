@@ -37,10 +37,10 @@ to its served boundary before the next tree.
 A validation set holds its binned matrix on the booster's device and a
 float64 score.  After each tree its scorer (``ops/graphs.py``
 ``ValidScorer``) routes the valid rows through the tree's device records
-(``route_rows``) and adds the shrunken float32 leaf values into the score
-with kernel L's float64 mode; on the card it replays as one CUDA graph a
-valid set.  Validation sets and a training metric turn the fused
-super-step off (``_fused_ok``), as in the JAX package: each iteration's
+(``route_rows``, kernel T) and adds the shrunken float32 leaf values into
+the score with kernel L's float64 mode; on the card it replays as one
+CUDA graph a valid set.  Validation sets and a training metric turn the
+fused super-step off (``_fused_ok``), as in the JAX package: each iteration's
 metrics read the scores after its tree; a set attached mid-block rewinds
 the block.  Each tree runs through an ``ops/graphs.py``
 runner: on the card as replays of CUDA graphs from the second tree on,
@@ -57,7 +57,16 @@ cannot split (the stop tree) ends training, drops the blocks dispatched
 after it (their feature-fraction draws and tree ids are rewound) and
 replays the score of the trees before it.  ``update()`` serves one tree a
 call, as the per-iteration path does; trees, scores and predictions are
-the same bits at every K and depth.
+the same bits at every K and depth.  ``rollback_one_iter`` (:3299-3344,
+:1881-1899) pops the last served tree and restores the score from its
+block's start copy.
+
+DART and random forests (``models/boosting.py``) need the host tree every
+iteration (``_per_tree_host``; the JAX package's ``_superstep_enabled``
+and ``_pipeline_enabled``, :202-227): they run blocks of one tree, the
+tree's tail adds nothing to the score, and the booster adds the host
+tree's float32 leaf values once the tree lands (``_landed``), as the JAX
+package's per-iteration path does (:2590-2631).
 """
 from __future__ import annotations
 
@@ -218,6 +227,8 @@ class ValidSet:
         self.score = torch.zeros(data.num_data, dtype=torch.float64,
                                  device=device)
         self.scorer: ValidScorer = None
+        # DART: each tree's leaf ids on this set (None for a constant tree)
+        self.leaf_idx_per_tree: list = []
 
 
 class GBDT:
@@ -228,6 +239,12 @@ class GBDT:
     ``eager=True`` launches every tree's kernels from Python on the card
     too, as the port did before its trees ran on CUDA graphs (for
     profiling and for the tests that hold the graphs to it)."""
+
+    # DART and random forests need the host tree each iteration
+    # (lightgbm_tpu/models/gbdt.py:202-227): blocks of one tree, no fused
+    # super-step, and the tree's values added to the scores after it lands
+    # instead of in its tail graph
+    _per_tree_host = False
 
     def __init__(self, config: Config, train_set: TorchDataset,
                  objective: Objective, metrics=(), eager: bool = False):
@@ -242,6 +259,8 @@ class GBDT:
         self.iter = 0
         self.num_class = 1
         self.num_tree_per_iteration = 1
+        # random forests average their trees' outputs
+        self.average_output = False
         # the host's rate (callbacks change it) and the device's, which the
         # captured tail reads; written before a block whose rate differs
         self.shrinkage_rate = config.learning_rate
@@ -344,11 +363,15 @@ class GBDT:
 
     # ---- one tree on the device ---------------------------------------
 
+    def _gradients(self):
+        """The objective's gradients at the training score."""
+        return self.objective.get_gradients(self._score)
+
     def _tree_head(self) -> None:
         """The gradients, weighted by the tree's sample where it has one
         (its presence mask into the tree's static sample mask), then the
         tree's head (lightgbm_tpu/models/gbdt.py:2104-2126)."""
-        grad, hess = self.objective.get_gradients(self._score)
+        grad, hess = self._gradients()
         if self._sampled:
             w = self._sample_weights(self._bag_words, grad, hess)
             grad, hess = grad * w, hess * w
@@ -358,8 +381,9 @@ class GBDT:
     def _tree_tail(self) -> None:
         st = self._state
         tree_tail(st)
-        torch.mul(st.leaf_values_final, self._lr, out=self._vals)
-        take_small_add(self._score, self._vals, st.leaf_idx)
+        if not self._per_tree_host:
+            torch.mul(st.leaf_values_final, self._lr, out=self._vals)
+            take_small_add(self._score, self._vals, st.leaf_idx)
         pack_records(host_records(st), self._layout, self._row)
 
     def _feature_fraction_mask(self) -> np.ndarray:
@@ -432,12 +456,13 @@ class GBDT:
 
     def _fused_ok(self) -> bool:
         """Super-step eligibility (``lightgbm_tpu/models/gbdt.py:1195``):
-        validation sets and a training metric read the scores every
+        DART and random forests (``_per_tree_host``), validation sets and
+        a training metric need the host tree or the scores every
         iteration, so they run the per-iteration path.  (The JAX package
         also falls back for custom, leaf-renewal and multi-model
         objectives; the port has none of them yet.)"""
-        return (self.config.fused_iters > 1 and self.num_features > 0 and
-                not self.valid_sets and
+        return (not self._per_tree_host and self.config.fused_iters > 1 and
+                self.num_features > 0 and not self.valid_sets and
                 not self.config.is_provide_training_metric)
 
     def _fused_bias_pending(self) -> bool:
@@ -600,7 +625,8 @@ class GBDT:
             event.record()
         self._sq.append({"slot": slot, "i0": i0, "k": K, "fence": fence,
                          "init_score": init_score, "waves": waves,
-                         "event": event, "lr": self.shrinkage_rate})
+                         "event": event, "lr": self.shrinkage_rate,
+                         "fused": fused})
         return True
 
     def _discard_queue(self) -> None:
@@ -634,7 +660,9 @@ class GBDT:
 
     def _land_block(self) -> bool:
         """Fetch the oldest dispatched block's records (one copy, already
-        on its way), make its trees, and serve the first."""
+        on its way), make its trees, and serve the first.  The first tree
+        takes the bias of a boost_from_average iteration after
+        :meth:`_landed`, which sees the trees as the scores add them."""
         entry = self._sq.pop(0)
         slot, K = entry["slot"], entry["k"]
         if entry["event"] is not None:
@@ -657,13 +685,13 @@ class GBDT:
                                    counts_proxy=self._counts_proxy)
             # the rate the block's device score used
             tree.apply_shrinkage(entry["lr"])
-            if t == 0 and abs(init_score) > _KEPS:
-                tree.add_bias(init_score)
             trees.append(tree)
         self._fused_block = {"slot": slot, "trees": trees,
                              "stop_idx": stop_idx, "served": 0,
                              "waves": entry["waves"], "lr": entry["lr"],
-                             "fence": entry["fence"]}
+                             "fence": entry["fence"],
+                             "fused": entry["fused"],
+                             "init_score": init_score}
         if stop_idx is not None:
             # trees after the stop ran on the device: drop the blocks
             # dispatched after this one and replay the score up to it
@@ -674,7 +702,27 @@ class GBDT:
                 # (lightgbm_tpu/models/gbdt.py:2566-2570)
                 for vs in self.valid_sets:
                     vs.score.add_(init_score)
+        self._landed(self._fused_block)
+        if stop_idx != 0 and abs(init_score) > _KEPS:
+            trees[0].add_bias(init_score)
         return self._serve_fused()
+
+    def _landed(self, blk: dict) -> None:
+        """What a boosting mode does with a landed block before it is
+        served (DART's and random forests' score adds); nothing here."""
+
+    def _tree_values(self, tree: Tree) -> torch.Tensor:
+        """A host tree's leaf values as kernel L's float32 table on the
+        device, padded to ``max(num_leaves, tree.num_leaves)``
+        (``lightgbm_tpu/models/boosting.py:222-235``)."""
+        vals = np.zeros(max(self.config.num_leaves, tree.num_leaves),
+                        np.float32)
+        vals[:tree.num_leaves] = tree.leaf_value[:tree.num_leaves]
+        return torch.from_numpy(vals).to(self.device)
+
+    def _landed_leaf_idx(self, blk: dict) -> torch.Tensor:
+        """The training leaf ids of a landed block of one tree."""
+        return blk["slot"]["leaf_idx"][0, :self.num_data]
 
     def _serve_fused(self) -> bool:
         """Append the next tree of the landed block: one boosting
@@ -703,6 +751,43 @@ class GBDT:
                            slot["leaf_idx"][t, :self.num_data])
         return score
 
+    def rollback_one_iter(self) -> None:
+        """Undo the last served iteration (``GBDT::RollbackOneIter``,
+        ``lightgbm_tpu/models/gbdt.py:3299-3344``): pop its tree, restore
+        the training score from its block's start copy and the trees
+        served before it, and subtract the popped tree's prediction from
+        each validation set's score.  Inside a fused block the feature
+        fraction draws and tree ids are rewound as well (``_fused_rollback``,
+        :1881-1899); after a stop tree the iteration count steps back too,
+        as in the JAX package.  Nothing happens when no tree of the last
+        landed block is served."""
+        blk = self._fused_block
+        if blk is None or blk["served"] == 0 or (
+                self.iter <= 0 and not blk["fused"]):
+            return
+        self._discard_queue()
+        self._stop_flag = False
+        tree = self.models.pop()
+        pos = blk["served"] - 1
+        score = self._replay_score(pos)
+        if pos == 0 and abs(blk["init_score"]) > _KEPS:
+            # back before the boost_from_average bias the block's start
+            # copy holds
+            score.sub_(torch.tensor(np.float32(blk["init_score"]),
+                                    device=self.device))
+        self._score.copy_(score)
+        if blk["fused"]:
+            self._trees_dispatched = int(blk["fence"]["tid"]) + pos
+            self._rng_feature.set_state(blk["fence"]["rng_state"])
+            for _ in range(pos):
+                self._feature_fraction_mask()
+        if self.valid_sets:
+            ff = flatten_forest([tree], self.device)
+            for vs in self.valid_sets:
+                vs.score -= predict_raw(ff, vs.raw, self.device)
+        self.iter -= 1
+        self._fused_block = None
+
     def train_score_tensor(self) -> torch.Tensor:
         """(N,) float32 training score of the trees served so far, on the
         device: while a block is served, or blocks are in flight, the
@@ -728,10 +813,16 @@ class GBDT:
         (``lightgbm_tpu/models/gbdt.py:1020-1054``)."""
         vs = ValidSet(name, raw, data, self.device)
         if self.models:
-            vs.score += predict_raw(flatten_forest(self.models, self.device),
-                                    raw, self.device)
-        vs.scorer = ValidScorer(self._state, vs.xt, self._vals, vs.score)
+            self._replay_valid(vs)
+        vs.scorer = ValidScorer(self._state, vs.xt,
+                                None if self._per_tree_host else self._vals,
+                                vs.score)
         self.valid_sets.append(vs)
+
+    def _replay_valid(self, vs: ValidSet) -> None:
+        """Add the trees served so far to a new validation set's score."""
+        vs.score += predict_raw(flatten_forest(self.models, self.device),
+                                vs.raw, self.device)
 
     def _eval_one_set(self, name: str, score: torch.Tensor, label, weight
                       ) -> list:

@@ -19,10 +19,10 @@ once as a ``torch.cuda.CUDAGraph`` and replayed for every later tree:
 :class:`TreeRunner` runs a booster's first tree eagerly, the warm-up that
 builds the kernels and asks the card for their launch plans, and
 captures its graphs at the second, after :func:`prepare`.  A validation
-set's scorer (:class:`ValidScorer`: ``route_rows`` over the tree's
-records, then kernel L's float64 add) is one more graph, captured into
-the same pool the first time it runs after the tree's graphs exist.  On
-the CPU, or when asked, it launches every phase eagerly; the graphs
+set's scorer (:class:`ValidScorer`: kernel T routing its rows through the
+tree's records, then kernel L's float64 add) is one more graph, captured
+into the same pool the first time it runs after the tree's graphs exist.
+On the CPU, or when asked, it launches every phase eagerly; the graphs
 replay the same launches, so the trees are the same bits.  A failed capture or
 replay raises: nothing falls back to eager launches.
 
@@ -39,13 +39,14 @@ import time
 
 import torch
 
-from . import histogram, kernels, lookup, sample, split
-from .grow import GrowState, route_rows, serial_steps, wave_body, wave_loop
+from . import histogram, kernels, lookup, route, sample, split
+from .grow import GrowState, serial_steps, wave_body, wave_loop
+from .route import route_rows
 
 __all__ = ["Graph", "TreeRunner", "ValidScorer", "prepare", "REPLAYS"]
 
 LAUNCH_COUNTERS = (histogram.LAUNCHES, split.LAUNCHES, lookup.LAUNCHES,
-                   sample.LAUNCHES)
+                   sample.LAUNCHES, route.LAUNCHES)
 REPLAYS = {"graph_replays": 0}
 
 
@@ -199,17 +200,19 @@ class TreeRunner:
 
 class ValidScorer:
     """A validation set's score update after each tree: the rows of ``xt``
-    (F, N) routed through the split records in ``st`` (``route_rows``)
-    into the static leaf-id buffer ``li``, then ``score += vals[li]``
-    (``score`` (N,) float64, ``vals`` the booster's shrunken float32 leaf
-    values: kernel L's float64 mode on the card).  It reads only device
-    buffers, so it runs eagerly until ``runner`` holds its tree graphs
-    and from then on as replays of one graph of its own."""
+    (F, N) routed through the split records in ``st`` (``route_rows``:
+    kernel T on the card) into the static leaf-id buffer ``li`` (uint8 up
+    to 256 leaves, else int32), then ``score += vals[li]`` (``score`` (N,)
+    float64, ``vals`` the booster's shrunken float32 leaf values: kernel
+    L's float64 mode on the card).  With ``vals=None`` it only routes: the
+    booster adds the host tree's values once the tree lands (DART and
+    random forests).  It reads only device buffers, so it runs eagerly
+    until ``runner`` holds its tree graphs and from then on as replays of
+    one graph of its own."""
 
-    def __init__(self, st: GrowState, xt: torch.Tensor, vals: torch.Tensor,
-                 score: torch.Tensor):
+    def __init__(self, st: GrowState, xt: torch.Tensor, vals, score):
         self.st, self.xt, self.vals, self.score = st, xt, vals, score
-        self.li = torch.zeros(xt.shape[1], dtype=torch.int32,
+        self.li = torch.zeros(xt.shape[1], dtype=st.li_dtype,
                               device=xt.device)
         self.graph = None
 
@@ -217,7 +220,8 @@ class ValidScorer:
         rec = self.st.rec
         route_rows(self.xt, rec["leaf"], rec["feature"], rec["left_mask"],
                    rec["valid"], self.st.params.num_leaves, out=self.li)
-        lookup.take_small_add(self.score, self.vals, self.li)
+        if self.vals is not None:
+            lookup.take_small_add(self.score, self.vals, self.li)
 
     def run(self, runner: TreeRunner) -> None:
         if runner.graphs is None:

@@ -1,9 +1,10 @@
 """Leaf-wise (best-first) tree growth on the device.
 
 Counterpart of ``lightgbm_tpu/ops/grow.py``: the serial learner's
-``build_tree_impl`` (:326) and ``route_rows`` (:1833).  Two loops share
-the histogram pool (per-leaf histograms for the subtraction trick, where
-the larger child is parent minus smaller, :1120-1132):
+``build_tree_impl`` (:326; its ``route_rows``, :1833, is ``ops/route.py``).
+Two loops share the histogram pool (per-leaf histograms for the
+subtraction trick, where the larger child is parent minus smaller,
+:1120-1132):
 
 - the non-speculative loop (:1056-1211): each of the ``num_leaves - 1``
   steps splits the leaf with the best stored gain, moves its rows by the
@@ -69,8 +70,7 @@ from .split import (NEG_INF, SplitParams, choose_window, depth_limit,
 
 __all__ = ["GrowParams", "GrowState", "build_tree", "tree_head",
            "serial_steps", "wave_loop", "wave_body", "read_flags",
-           "tree_tail", "quantize_gradients", "key_words", "row_uniform",
-           "route_rows"]
+           "tree_tail", "quantize_gradients", "key_words", "row_uniform"]
 
 _M32 = 0xFFFFFFFF
 
@@ -677,25 +677,3 @@ def tree_tail(st: GrowState) -> None:
     st.leaf_values_final.copy_(torch.where(st.n_leaves > 1, final,
                                            torch.zeros_like(final)))
 
-
-def route_rows(xt: torch.Tensor, rec_leaf: torch.Tensor,
-               rec_feature: torch.Tensor, rec_left_mask: torch.Tensor,
-               rec_valid: torch.Tensor, num_leaves: int,
-               out: torch.Tensor = None) -> torch.Tensor:
-    """Replay a tree's split records over a binned matrix -> (N,) int32
-    leaf assignment (the device scorer for binned validation sets): split
-    ``t`` moves the rows of leaf ``rec_leaf[t]`` whose bin goes right to
-    leaf ``t + 1``.  ``out``: an (N,) int32 buffer to write into.  Reads
-    nothing back to the host, so a CUDA graph can hold it."""
-    N = xt.shape[1]
-    S = num_leaves - 1
-    li = torch.zeros(N, dtype=torch.int32, device=xt.device) \
-        if out is None else out.zero_()
-    feats = rec_feature[:S].to(torch.int64)
-    # (S, B): the bins a valid split sends right
-    right = ~rec_left_mask[:S] & rec_valid[:S, None]
-    for t in range(S):
-        col = xt.index_select(0, feats[t:t + 1]).squeeze(0)
-        moves = right[t].index_select(0, col.to(torch.int32))
-        li.masked_fill_(moves & (li == rec_leaf[t]), t + 1)
-    return li

@@ -28,7 +28,8 @@ __all__ = ["load", "build_info", "sm_count", "SOURCES", "HEADERS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("histogram.cu", "split.cu", "lookup.cu", "multi_hist.cu",
-           "routed_hist.cu", "leaf_stats.cu", "window_hist.cu", "sample.cu")
+           "routed_hist.cu", "leaf_stats.cu", "window_hist.cu", "sample.cu",
+           "route.cu")
 # included by the sources above; part of the library's hash
 HEADERS = ("group_hist.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -70,6 +71,7 @@ _SIGNATURES = {
                               _P, _P],
     "ltt_lanes_active_blocks": [_I, _I, _I, _I, _I],
     "ltt_sample": [_I, _P, _P, _P, _P, _F, _F, _P, _I64, _I, _P],
+    "ltt_route": [_P, _I, _I64, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P],
 }
 
 

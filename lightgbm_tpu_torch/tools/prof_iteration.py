@@ -65,7 +65,7 @@ ROOT = Path(__file__).resolve().parents[2]
 OWN_KERNELS = ("hist_masked_kernel", "hist_reduce_kernel", "best_split_kernel",
                "leaf_add_kernel", "route_kernel", "group_hist_kernel",
                "group_reduce_kernel", "exp_max_kernel", "leaf_bound_kernel",
-               "leaf_stats_kernel")
+               "leaf_stats_kernel", "tree_walk_kernel")
 # the shared body's launches, by the tag of their kernel (group_hist.cuh)
 GROUP_TAGS = (("RoutedTag", "R"), ("MultiTag", "M"), ("LanesTag", "V-lanes"),
               ("WindowTag", "V"), ("LeafTag", "Q"))

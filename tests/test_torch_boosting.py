@@ -27,8 +27,8 @@ The contract, and why:
   loop takes most of a file's time), the fused super-steps' in
   ``tests/test_torch_boosting_fused.py``.
 - The configurations the JAX package refuses are refused alike: GOSS with
-  bagging, ``top_rate + other_rate > 1``; DART and random forests raise
-  ``NotImplementedError`` naming what is missing.
+  bagging, ``top_rate + other_rate > 1``.  DART and random forests train
+  (their contracts: ``tests/test_torch_dart.py``, ``tests/test_torch_rf.py``).
 
 The test marked ``cuda`` holds sampled training on the card's CUDA graphs
 to its eager launches and to the CPU, and skips here.
@@ -203,12 +203,17 @@ def test_refused_as_the_jax_package_refuses(extra, match):
 
 
 @pytest.mark.parametrize("boosting", ["dart", "rf", "random_forest"])
-def test_dart_and_rf_are_not_ported_yet(boosting):
+def test_dart_and_rf_train(boosting):
+    """Each trains through ``ltt.train`` (their contracts against the JAX
+    package: ``tests/test_torch_dart.py``, ``tests/test_torch_rf.py``)."""
     X, y = _xy("exact")
     p = {"objective": "binary", "verbose": -1, "device_type": "cpu",
          "boosting": boosting, "bagging_fraction": 0.5, "bagging_freq": 1}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3b"):
-        ltt.train(p, ltt.Dataset(X, label=y, params=p), num_boost_round=1)
+    b = ltt.train(p, ltt.Dataset(X, label=y, params=p), num_boost_round=3)
+    assert b.num_trees() == 3
+    assert type(b._gbdt).__name__ == ("DART" if boosting == "dart" else "RF")
+    prob = b.predict(X)
+    assert np.all((prob > 0) & (prob < 1))
 
 
 # ---------------------------------------------------------------------

@@ -32,7 +32,7 @@ from lightgbm_tpu.ops.split import SplitParams as JSplitParams  # noqa: E402
 from lightgbm_tpu_torch.config import Config  # noqa: E402
 from lightgbm_tpu_torch.io.dataset import TorchDataset  # noqa: E402
 from lightgbm_tpu_torch.ops.grow import GrowParams, build_tree  # noqa: E402
-from lightgbm_tpu_torch.ops.grow import route_rows  # noqa: E402
+from lightgbm_tpu_torch.ops.route import route_rows  # noqa: E402
 from lightgbm_tpu_torch.ops.split import SplitParams  # noqa: E402
 
 RTOL = 1e-5

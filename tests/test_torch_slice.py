@@ -178,8 +178,7 @@ def test_cuda_default_raises_without_a_card():
 
 
 @pytest.mark.parametrize("params", [
-    {"boosting": "dart"},
-    {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
+    {"feature_contri": [0.5, 1, 1, 1, 1, 1]}, {"objective": "huber"},
     {"speculative_tolerance": 0.1}, {"forcedsplits_filename": "forced.json"},
     {"tree_learner": "data"}, {"monotone_constraints": [1, 0, 0, 0, 0, 0]},
     {"categorical_feature": "0"}, {"objective": "multiclass", "num_class": 3},
