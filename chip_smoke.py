@@ -43,15 +43,27 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    at both edges, each in 2 CUDA launches a call with its sector floor;
    int32 leaf ids at leaf bound 32768 and ragged lengths; float and
    wide-exponent values), all exact on integers; and kernel B, the
-   sampling draw, in each mode (bernoulli and stratified bagging, GOSS
-   with ties at its threshold, MVS), bit for bit against its plain
-   version at 1, 31, 1025 and 10.5M rows, with a repeat launch, one CUDA
-   launch a call; and kernel T, the validation scorer's route, exact
-   against its plain version with a repeat launch on random split records
-   (a tenth invalid, the missing bin to a random side) at 7, 31, 255 and
-   1500 leaves, uint8 and int16 bins, uint8 and int32 ids, ragged lengths,
-   and at 500k x 28 and 10.5M x 28 with 255 leaves, one CUDA launch a
-   call, with its bound from the sectors the rows' walks read;
+   sampling step, in each mode (bernoulli and stratified bagging's draw;
+   GOSS's radix select and draw, with ties at its threshold; MVS's
+   scores, scan and draw around PyTorch's sort), its outputs (the
+   weights; thr, n_gt, n_tie, p_tie; s, mu) bit for bit against its plain
+   version at 1, 15, 16, 17, 4095, 4097, 65537, 2^20 + 3 and 10.5M rows,
+   GOSS also with every row tied, all zero, NaN and inf rows and fewer
+   non-NaN rows than top_k, MVS with a target no i passes, with a repeat
+   launch; at 10.5M its named CUDA launches a call (1 draw; GOSS 3 select
+   passes and the draw; MVS scores, 2 scan launches and the draw), its
+   time and device time by part, the draw alone, the plain step's time,
+   and the draw's bound from its SASS (``tools/sass_ops.py``: the
+   bagging loop's integer instructions at 64 lanes an SM and the card's
+   maximum clock, beside the old count); and kernel T, the validation
+   scorer's route (one launch: one block packs the records into one
+   table, every block walks its rows), the table word for word and the
+   ids exactly against their plain versions with a repeat launch, on
+   random split records (a tenth invalid, the missing bin to a random
+   side) at 1, 7, 31, 255 and 1500 leaves, uint8 and int16 bins, uint8
+   and int32 ids, ragged lengths, and at 1024, 500k x 28 and 10.5M x 28
+   with 255 leaves, one launch a call, with its bound from the sectors
+   the rows' walks read;
 3. the exact path: trains the Higgs-shaped configuration at full width
    (10.5M x 28, num_leaves=255, max_bin=255, learning_rate=0.1,
    min_sum_hessian_in_leaf=100) in three modes, 6 trees each, the launch
@@ -90,8 +102,8 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    learning_rates=...)`` with ``metric=auc,binary_logloss`` (exact 3
    trees, waves 6), the launch counters set to 0 just before and read
    just after: the validation scorer (kernel T routing the holdout's rows
-   and kernel L's float64 add, 2 kernel launches) replays as a CUDA
-   graph, once a tree; the holdout score
+   (its pack and walk) and kernel L's float64 add, 3 kernel launches)
+   replays as a CUDA graph, once a tree; the holdout score
    within 1e-5 of the served trees' prediction on the raw holdout, and
    every recorded metric within 1e-9 of its numpy formula on the fetched
    score; the same rounds eagerly (the same trees, scores and metrics bit
@@ -109,20 +121,23 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    wave255 without coarse-to-fine with MVS (bagging_fraction=0.6), each
    on CUDA graphs and at fused_iters=5 (goss255 also eagerly), the launch
    counters set to 0 just before each run and read just after: the same
-   trees bit for bit and the same kernel launches, one kernel-B launch a
-   tree, holdout AUC above 0.6; seconds an iteration beside the unsampled
-   path's of phases 3-5, and the threshold step's time (GOSS's order
-   statistic, MVS's scores and mu) on the trained booster's gradients;
+   trees bit for bit and the same kernel launches, the sampling step's
+   named launches a tree (the draw once; GOSS's select 3, MVS's scores 1
+   and scan 2), holdout AUC above 0.6; seconds an iteration beside the
+   unsampled path's of phases 3-5, and the step's time and its parts'
+   device time (the sort, the scan or select, the draw) on the trained
+   booster's gradients;
 10. (run after phase 7, on phase 3's data) DART on wave255 without
    coarse-to-fine (drop_rate=0.3, skip_drop=0, 8 trees) and a random
    forest on exact255 (bagging_fraction=0.632, bagging_freq=1,
    feature_fraction=0.8, 6 trees), each with the 500k holdout as a
    validation set, on CUDA graphs and eagerly, the launch counters set to
    0 just before each run and read just after: the same trees, training
-   and holdout scores bit for bit, kernel T once a tree (the scorer's
-   graph holds it alone: the host tree's values are added after the tree
-   lands), the holdout score within 1e-5 and the training score within
-   1e-4 (first 500k rows) of the trees' prediction, before and after
+   and holdout scores bit for bit, kernel T's pack and walk once a tree
+   (the scorer's graph holds them alone: the host tree's values are
+   added after the tree lands), the holdout score within 1e-5 and the
+   training score within 1e-4 (first 500k rows) of the trees'
+   prediction, before and after
    ``rollback_one_iter``, holdout AUC above 0.6; then a gbdt rollback
    inside a fused_iters=5 block.  Seconds an iteration beside the
    unsampled path's, DART's drop and renormalization host ms an
@@ -159,11 +174,10 @@ LEAF_NAMES = ("leaf_bound_kernel", "leaf_stats_kernel", "LeafTag")
 SPLIT_NAMES = ("best_split_kernel",)
 LOOKUP_NAMES = ("leaf_add_kernel",)
 ROUTED_NAMES = ("route_kernel", "RoutedTag")
-# kernel B's launch (csrc/sample.cu), and the 32-bit integer and float
-# operations of one draw: the 20 Threefry rounds (an add, a funnel-shift
-# rotation and a xor each), the 5 key injections (3 adds each), the key
-# schedule, the output xor, the float conversion and the compare
-SAMPLE_NAMES = ("sample_kernel",)
+# the old count of a draw's 32-bit operations, priced at the float32 peak
+# (the 20 Threefry rounds, the key injections and schedule, the output
+# xor, the float conversion and the compare), printed beside the bound
+# from the SASS
 THREEFRY_OPS = 83
 N_ROWS = 10_500_000
 N_FEATURES = 28
@@ -1434,21 +1448,61 @@ def phase_kernels_c2f(torch, dev, th, bins, qv, g):
     return {f"c2f_{k}": v for k, v in out.items()}
 
 
-# ---- kernel B: the sampling draw ---------------------------------------
+# ---- kernel B: the sampling step --------------------------------------
 SAMPLE_MODES = ("bernoulli", "stratified", "goss", "mvs")
 # GOSS at bench.py's goss255 rates (the defaults), MVS at 0.6
 GOSS_TOP, GOSS_OTHER, MVS_FRACTION, MVS_VAR_WEIGHT = 0.2, 0.1, 0.6, 1e-6
+# the step's launches by kernel name (csrc/sample.cu), a call of each mode
+STEP_NAMES = {"bernoulli": {"sample_kernel": 1},
+              "stratified": {"sample_kernel": 1},
+              "goss": {"goss_select_kernel": 3, "sample_kernel": 1},
+              "mvs": {"mvs_scores_kernel": 1, "scan_up_kernel": 1,
+                      "scan_down_kernel": 1, "sample_kernel": 1}}
+STEP_SIZES = (1, 15, 16, 17, 4095, 4097, 65537, 2 ** 20 + 3)
+# every named kernel of the steps, launches a call
+STEP_WANT = {k: v for d in STEP_NAMES.values() for k, v in d.items()}
+# the launch counters' increase a call of each mode's step
+# (``sample.LAUNCHES``): the draw's by mode, GOSS's select, MVS's scores
+# and scan
+STEP_COUNTERS = {"bernoulli": {"sample_bag": 1},
+                 "stratified": {"sample_bag": 1},
+                 "goss": {"goss_select": 3, "sample_goss": 1},
+                 "mvs": {"mvs_scores": 1, "mvs_scan": 2, "sample_mvs": 1}}
+# GOSS's and MVS's edge inputs, checked at these sizes
+GOSS_CASES = ("every row tied", "all zero", "NaN and inf rows",
+              "fewer non-NaN rows than top_k")
+# MVS's edge: every score equal and a target of 1.25 n, which no est (at
+# most about n) passes
+EDGE_SIZES = (4097, 65537)
 
 
-def sample_calls(torch, ts, dev, n, mode, seed):
-    """(kernel call, plain call, inputs) of one mode of kernel B at ``n``
-    rows: random key words, |g * h| on 40 exact values (GOSS's threshold
-    inside a run of ties), label signs at a 0.4 rate; GOSS's and MVS's
-    device thresholds from ``ops/sample.py``."""
+def step_gh(torch, dev, n, g, case="ties"):
+    """|g * h| of a test case: 40 exact values / 64 (GOSS's threshold
+    inside a run of ties) or one of ``GOSS_CASES``."""
+    gh = torch.randint(0, 40, (n,), generator=g, device=dev).float() / 64
+    if case == "every row tied":
+        gh.fill_(0.125)
+    elif case == "all zero":
+        gh.zero_()
+    elif case == "NaN and inf rows":
+        u = torch.rand(n, generator=g, device=dev)
+        gh[u < 0.1] = float("nan")
+        gh[u > 0.95] = float("inf")
+    elif case == "fewer non-NaN rows than top_k":
+        gh[torch.rand(n, generator=g, device=dev) < 0.9] = float("nan")
+    return gh
+
+
+def step_calls(torch, ts, dev, n, mode, seed, case="ties", frac=None):
+    """(kernel call, plain call, inputs) of one mode of kernel B's step at
+    ``n`` rows: random key words, ``step_gh``'s |g * h|, label signs at a
+    0.4 rate.  Each call returns the step's outputs: the weights; GOSS's
+    thr, n_gt, n_tie and p_tie; MVS's s and mu.  The plain call is the
+    plain versions of ``ops/sample.py`` on the same CUDA tensors."""
     g = torch.Generator(device=dev).manual_seed(seed)
     words = torch.randint(0, 2 ** 32, (4,), generator=g, device=dev,
                           dtype=torch.int64)
-    gh = torch.randint(0, 40, (n,), generator=g, device=dev).float() / 64
+    gh = step_gh(torch, dev, n, g, case)
     inp = {"words": words, "gh": gh}
     if mode in ("bernoulli", "stratified"):
         pos = None
@@ -1457,92 +1511,328 @@ def sample_calls(torch, ts, dev, n, mode, seed):
                 torch.uint8)
         inp["label_pos"] = pos
         args = (words, n, 0.7 if pos is None else 1.0, 0.5, 0.9, pos)
-        return (lambda: ts.bag_weights(*args),
-                lambda: ts.bag_weights_plain(*args), inp)
+        return (lambda: (ts.bag_weights(*args),),
+                lambda: (ts.bag_weights_plain(*args),), inp)
     if mode == "goss":
         top_k = max(int(n * GOSS_TOP), 1)
         other_k = int(n * GOSS_OTHER)
-        thr, _, _, p_tie = ts.goss_threshold(gh, top_k)
-        inp.update(thr=thr)
-        args = (words, gh, thr, p_tie, other_k / max(n - top_k, 1),
-                (n - top_k) / float(max(other_k, 1)))
-        return (lambda: ts.goss_weights(*args),
-                lambda: ts.goss_weights_plain(*args), inp)
-    s = ts.mvs_scores(gh, MVS_VAR_WEIGHT)
-    mu = ts.mvs_threshold(s, MVS_FRACTION * n)
-    return (lambda: ts.mvs_weights(words, s, mu),
-            lambda: ts.mvs_weights_plain(words, s, mu), inp)
+        rr, amp = other_k / max(n - top_k, 1), \
+            (n - top_k) / float(max(other_k, 1))
+        inp.update(top_k=top_k, rest=(rr, amp))
+
+        def plain():
+            thr, n_gt, n_tie, p_tie = ts.goss_threshold(gh, top_k)
+            return (ts.goss_weights_plain(words, gh, thr, p_tie, rr, amp),
+                    thr, n_gt, n_tie, p_tie)
+        return (lambda: ts.goss_step(words, gh, top_k, rr, amp), plain, inp)
+    target = (MVS_FRACTION if frac is None else frac) * n
+    inp["target"] = target
+
+    def plain():
+        s = ts.mvs_scores(gh, MVS_VAR_WEIGHT)
+        mu = ts.mvs_threshold(s, target)
+        return ts.mvs_weights_plain(words, s, mu), s, mu
+    return (lambda: ts.mvs_step(words, gh, MVS_VAR_WEIGHT, target), plain,
+            inp)
 
 
-def check_sample(torch, kernel, plain, ctx):
-    """Kernel B against its plain version and a repeat launch, bit for
-    bit (the weights' int32 views); returns the kernel's weights."""
+def _as_bytes(torch, t):
+    return t.reshape(-1).contiguous().view(torch.uint8)
+
+
+# the step's thresholds, where a NaN may carry another payload in the
+# plain version: where ``-sort(-gh)`` meets a NaN, the plain version's
+# negations on the card give another NaN than the row's own, which the
+# kernel keeps (the first NaN row's), as the CPU and the JAX package do
+NAN_ANY_PAYLOAD = ("thr", "mu")
+
+
+def _step_same(torch, a, b, nan_any=False):
+    """The same bytes; with ``nan_any``, two NaNs of any payloads count as
+    equal."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if torch.equal(_as_bytes(torch, a), _as_bytes(torch, b)):
+        return True
+    if not nan_any or a.dtype != torch.float32:
+        return False
+    return bool(((a.view(torch.int32) == b.view(torch.int32)) |
+                 (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def check_step(torch, kernel, plain, ctx):
+    """Kernel B's step against a repeat launch bit for bit, and against
+    its plain version bit for bit but for the payload of a NaN threshold
+    (``NAN_ANY_PAYLOAD``); returns the kernel's outputs."""
     k = kernel()
     k2 = kernel()
     q = plain()
     torch.cuda.synchronize()
+    names = ("weights", "thr", "n_gt", "n_tie", "p_tie") if len(k) == 5 \
+        else ("weights", "s", "mu")
     for other, what in ((k2, "a repeat launch"), (q, "its plain version")):
-        if not torch.equal(k.view(torch.int32), other.view(torch.int32)):
-            fail(f"kernel B differs from {what} ({ctx})")
+        for name, a, b in zip(names, k, other):
+            if not _step_same(torch, a, b, nan_any=other is q and
+                              name in NAN_ANY_PAYLOAD):
+                fail(f"kernel B's step: {name} differs from {what} ({ctx}): "
+                     f"{a.flatten()[:4].tolist()} vs "
+                     f"{b.flatten()[:4].tolist()}")
     return k
 
 
-def sample_work(torch, mode, n, inp, w):
-    """(bytes, operations) the draw of this run's data needs: a row
-    writes its weight, reads its label byte (stratified) or its gh or s
-    (GOSS, MVS); a draw a row, GOSS a second one at each tie its first
-    draw left out and none above the threshold."""
-    draws = n
+def named_profile(torch, fn, reps, want, counters, what, tries=5):
+    """({kernel: [launches recorded a call, device ms a launch]},
+    {counter: its increase over one call}) for ``fn``.  The first from a
+    profiler window of ``reps`` calls (``kernels_seen``), in which every
+    kernel named in ``want`` ({name: launches a call}) was recorded: the
+    profiler drops a few of a window's first kernels, so a name may read
+    up to a fifth short, and a window that reads otherwise is taken again,
+    up to ``tries`` times.  The second from the launch counters over one
+    more call, which must be ``counters`` ({counter: launches a call}),
+    every other counter unmoved."""
+    for _ in range(tries):
+        seen = kernels_seen(fn, reps, tuple(want))
+        if all(0.8 * v <= seen.get(k, [0])[0] <= v + 1e-9
+               for k, v in want.items()):
+            break
+    else:
+        fail(f"{what}: the profiler saw {_seen(seen)} a call, not {want}")
+    before = read_counts()
+    fn()
+    launched = {k: v - before[k] for k, v in read_counts().items()
+                if v != before[k]}
+    if launched != counters:
+        fail(f"{what}: the launch counters rose by {launched} over a call, "
+             f"not {counters}")
+    return seen, launched
+
+
+def step_profile(torch, fn, reps, mode):
+    """``named_profile`` of a call of kernel B's step in ``mode`` (the
+    step's named kernels, and the sort's under their own names)."""
+    return named_profile(torch, fn, reps, STEP_NAMES[mode],
+                         STEP_COUNTERS[mode], f"kernel B's {mode} step")
+
+
+def clocks_line():
+    """(the SM clock now, the card's maximum SM clock) in MHz."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    now, top = (float(v) for v in smi.stdout.split(",")[:2])
+    return now, top
+
+
+def draw_ops(torch):
+    """A draw's instructions, by pipe: the body of the grid-stride loop of
+    kernel B's bagging draw at one row a thread (``tools/sass_ops.py``),
+    which is one draw, its compare and its row's store."""
+    from lightgbm_tpu_torch.tools import sass_ops
+    counts = sass_ops.kernel_counts("sample.cu")
+    bag = [c["loop"] for k, c in counts.items()
+           if "sample_kernel" in k and "ILi0ELi1E" in k]
+    if len(bag) != 1 or bag[0] is None or bag[0]["draws"] != 1:
+        fail(f"the SASS of kernel B's bagging draw: {bag}")
+    return bag[0]
+
+
+def ops_bound_ms(per_draw, draws, clock_mhz, sms):
+    """(ms, the limiting pipe): ``draws`` draws of ``per_draw``
+    instructions at the issue rate of each pipe a clock: every
+    instruction at 4 schedulers x 32 lanes an SM, the integer ALU's at 64
+    lanes an SM, IMAD's (the FMA pipe's heavy half) at 64."""
+    per_clock = {"issue": per_draw["total"] / 128.0,
+                 "alu": per_draw["alu"] / 64.0,
+                 "imad": per_draw["imad"] / 64.0}
+    pipe = max(per_clock, key=per_clock.get)
+    return draws * per_clock[pipe] / (sms * clock_mhz * 1e6) * 1e3, pipe
+
+
+def step_work(torch, mode, n, inp, out):
+    """(bytes, draws) this run's data needs: a row's weight written, its
+    label byte (stratified) or |g * h| read (GOSS, MVS); a draw a row,
+    GOSS a second one at each tie its first draw left out and none above
+    the threshold."""
     nbytes = 4 * n + 32
     if mode == "stratified":
         nbytes += n
     elif mode in ("goss", "mvs"):
         nbytes += 4 * n
+    draws = n
     if mode == "goss":
-        gh, thr = inp["gh"], inp["thr"]
+        w, thr = out[0], out[1]
+        gh = inp["gh"]
         n_gt = int((gh > thr).sum())
-        tie = gh == thr
-        left_out = int((tie & (w != 1)).sum())
+        left_out = int(((gh == thr) & (w != 1)).sum())
         draws = n - n_gt + left_out
-    return nbytes, draws * THREEFRY_OPS
+    return nbytes, draws
+
+
+def mvs_part_calls(torch, gh, s, target):
+    """(MVS's scores launch, its scan's two launches): each alone through
+    kernel B's entry points, on the step's inputs (its scores ``s``
+    sorted for the scan), to time them by events."""
+    from lightgbm_tpu_torch.ops import kernels
+    from lightgbm_tpu_torch.ops import sample as ts
+    lib = kernels.load()
+    n = gh.shape[0]
+    out = torch.empty_like(gh)
+    x = ts.sort_scores(s)
+    words = ts.scan_words(n)
+    scratch = torch.empty(words, dtype=torch.float32, device=gh.device)
+    blocks = ts.sample_plan(n, kernels.sm_count(gh.device))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def scores():
+        kernels.check(lib.ltt_mvs_scores(
+            gh.data_ptr(), ts._f32(MVS_VAR_WEIGHT), out.data_ptr(), n,
+            blocks, stream), "kernel B's scores")
+
+    def scan():
+        kernels.check(lib.ltt_mvs_scan(
+            x.data_ptr(), n, ts._f32(target), scratch.data_ptr(), words,
+            stream), "kernel B's scan")
+    return scores, scan
 
 
 def phase_kernels_sample(torch, dev):
-    """Kernel B in each mode against its plain version, bit for bit, with
-    a repeat launch: at ragged lengths and at the full width (10.5M rows),
-    where one call is one CUDA launch (the profiler counts them) and its
-    time, device time, bound and the plain version's time are taken."""
+    """Kernel B's sampling step in each mode against its plain version,
+    bit for bit (the weights; GOSS's thr, n_gt, n_tie and p_tie; MVS's s
+    and mu), with a repeat launch: at ``STEP_SIZES`` and 10.5M rows, and
+    GOSS on ``GOSS_CASES`` and MVS where no i passes the target at
+    ``EDGE_SIZES``.  At 10.5M rows: the step's named CUDA launches a call
+    (the profiler), its time, device time by part, the draw alone, the
+    plain version's time, and bounds (the draw's from its SASS at the
+    card's maximum clock)."""
+    from lightgbm_tpu_torch.ops import kernels
     from lightgbm_tpu_torch.ops import sample as ts
+    sms = kernels.sm_count(dev)
+    clock_now, clock_max = clocks_line()
+    per_draw = draw_ops(torch)
+    print(f"kernel B's draw from its SASS: {per_draw['total']} "
+          f"instructions a draw and its row ({per_draw['alu']} integer "
+          f"ALU, {per_draw['imad']} IMAD, {per_draw['fma'] - per_draw['imad']}"
+          f" float); SM clock {clock_now:g} MHz now, {clock_max:g} max",
+          flush=True)
     out = {}
     for mode in SAMPLE_MODES:
-        for seed, n_ in enumerate((1, 31, 1025), start=90):
-            kernel, plain, _ = sample_calls(torch, ts, dev, n_, mode, seed)
-            check_sample(torch, kernel, plain, f"{mode}, N={n_}")
-        kernel, plain, inp = sample_calls(torch, ts, dev, N_ROWS, mode, 99)
-        w = check_sample(torch, kernel, plain, f"{mode}, N={N_ROWS}")
-        ms = cuda_ms(kernel, reps=50)
-        dev_ms, n_launch = profile_calls(kernel, 20, SAMPLE_NAMES)
-        if n_launch != 1:
-            fail(f"kernel B ({mode}) made {n_launch} CUDA launches a call, "
-                 f"not 1")
+        for seed, n_ in enumerate(STEP_SIZES, start=90):
+            kernel, plain, _ = step_calls(torch, ts, dev, n_, mode, seed)
+            check_step(torch, kernel, plain, f"{mode}, N={n_}")
+        if mode in ("goss", "mvs"):
+            for seed, n_ in enumerate(EDGE_SIZES, start=120):
+                cases = GOSS_CASES if mode == "goss" else \
+                    ("every row tied",)
+                for case in cases:
+                    kernel, plain, _ = step_calls(
+                        torch, ts, dev, n_, mode, seed, case,
+                        frac=1.25 if mode == "mvs" else None)
+                    k = check_step(torch, kernel, plain,
+                                   f"{mode}, {case}, N={n_}")
+                    if mode == "mvs" and not torch.equal(k[2], k[1][:1]):
+                        fail("MVS with a target above n: mu is not the "
+                             "smallest score")
+        kernel, plain, inp = step_calls(torch, ts, dev, N_ROWS, mode, 99)
+        k = check_step(torch, kernel, plain, f"{mode}, N={N_ROWS}")
+        ms = cuda_ms(kernel, reps=20)
+        seen, launched = step_profile(torch, kernel, 10, mode)
+        draw_counter = next(c for c in launched if c.startswith("sample_"))
+        parts = {name: c * seen[name][1]
+                 for name, c in STEP_NAMES[mode].items()}
+        other = {name: c * t for name, (c, t) in seen.items()
+                 if name not in STEP_NAMES[mode]}
+        # the draw alone and its plain version, from the step's thresholds
+        if mode == "goss":
+            args = (inp["words"], inp["gh"], k[1], k[4], *inp["rest"])
+            draw = lambda: ts.goss_weights(*args)  # noqa: E731
+            draw_plain = lambda: ts.goss_weights_plain(*args)  # noqa: E731
+        elif mode == "mvs":
+            draw = lambda: ts.mvs_weights(inp["words"], k[1], k[2])  # noqa
+            draw_plain = lambda: ts.mvs_weights_plain(  # noqa: E731
+                inp["words"], k[1], k[2])
+        else:
+            draw, draw_plain = kernel, plain
+        draw_ms = cuda_ms(draw, reps=20)
         plain_ms = cuda_ms(plain, reps=3)
-        nbytes, ops = sample_work(torch, mode, N_ROWS, inp, w)
-        b_ms, b_by = bound(nbytes, ops)
-        out[mode] = dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms,
-                         launches_per_call=n_launch, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                         bytes=nbytes, operations=ops,
-                         kept_share=float((w > 0).float().mean()))
-        print(f"kernel B {mode}: bit for bit (N = 1, 31, 1025, {N_ROWS}, "
-              f"repeat launches); {ms:.4f} ms, device {dev_ms:.4f} ms, "
-              f"{n_launch} CUDA launch a call (plain {plain_ms:.3f}, bound "
-              f"{b_ms:.4f} by {b_by}) at N={N_ROWS}", flush=True)
-        del kernel, plain, inp, w
+        draw_plain_ms = plain_ms if draw is kernel else cuda_ms(draw_plain,
+                                                                 reps=3)
+        nbytes, draws = step_work(torch, mode, N_ROWS, inp, k)
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops, pipe = ops_bound_ms(per_draw, draws, clock_max, sms)
+        old_ops = draws * THREEFRY_OPS / FP32_FLOPS_PER_S * 1e3
+        b_ms, b_by = (by_ops, "operations") if by_ops > by_bytes else \
+            (by_bytes, "bytes")
+        row = dict(max_abs_err=0.0, ms=draw_ms, device_ms=parts[
+            "sample_kernel"], launches_per_call=launched[draw_counter],
+            plain_ms=draw_plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, bytes=nbytes,
+            draws=draws, bound_bytes_ms=by_bytes, bound_ops_ms=by_ops,
+            bound_ops_pipe=pipe, bound_ops_old_ms=old_ops,
+            sm_clock_mhz=clock_max, step_ms=ms,
+            step_device_ms=sum(parts.values()) + sum(other.values()),
+            step_parts_device_ms={**parts, **other},
+            step_plain_ms=plain_ms, kept_share=float((k[0] > 0).float()
+                                                     .mean()))
+        out[mode] = row
+        if mode == "goss":
+            sel = lambda: ts.goss_select(inp["gh"], inp["top_k"])  # noqa
+            out["goss_select"] = dict(
+                max_abs_err=0.0, ms=cuda_ms(sel, reps=20),
+                device_ms=parts["goss_select_kernel"],
+                launches_per_call=launched["goss_select"],
+                plain_ms=cuda_ms(lambda: ts.goss_threshold(
+                    inp["gh"], inp["top_k"]), reps=3),
+                bound_ms=4 * N_ROWS / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes", library_ms=cuda_ms(lambda: torch.kthvalue(
+                    inp["gh"], N_ROWS - inp["top_k"] + 1), reps=3))
+        if mode == "mvs":
+            s = k[1]
+            scores, scan = mvs_part_calls(torch, inp["gh"], s,
+                                          inp["target"])
+            out["mvs_scores"] = dict(
+                max_abs_err=0.0, ms=cuda_ms(scores, reps=20),
+                device_ms=parts["mvs_scores_kernel"],
+                launches_per_call=launched["mvs_scores"],
+                plain_ms=cuda_ms(lambda: ts.mvs_scores(inp["gh"],
+                                                       MVS_VAR_WEIGHT),
+                                 reps=3),
+                bound_ms=8 * N_ROWS / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes", library_ms=None)
+            out["mvs_scan"] = dict(
+                max_abs_err=0.0, ms=cuda_ms(scan, reps=20),
+                device_ms=parts["scan_up_kernel"] + parts["scan_down_kernel"],
+                launches_per_call=launched["mvs_scan"],
+                plain_ms=cuda_ms(lambda: ts.mvs_threshold(s, inp["target"]),
+                                 reps=3),
+                bound_ms=4 * N_ROWS / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes", library_ms=cuda_ms(
+                    lambda: torch.cumsum(s, 0), reps=3),
+                sort_ms=cuda_ms(lambda: ts.sort_scores(s), reps=5),
+                sort_device_ms=sum(other.values()))
+        print(f"kernel B {mode}: the step bit for bit (N = "
+              f"{', '.join(map(str, STEP_SIZES))}, {N_ROWS}"
+              + (f"; {', '.join(GOSS_CASES)} at {EDGE_SIZES}" if mode ==
+                 "goss" else "") + (f"; no i passing at {EDGE_SIZES}" if
+                                    mode == "mvs" else "")
+              + f"; repeat launches); at N={N_ROWS} the step {ms:.4f} ms "
+              f"(device {row['step_device_ms']:.4f}: "
+              + ", ".join(f"{k_} {v:.4f}" for k_, v in
+                          row["step_parts_device_ms"].items())
+              + f"), {STEP_NAMES[mode]} a call, counted {launched}; the "
+              f"draw alone "
+              f"{draw_ms:.4f} ms; plain step {plain_ms:.3f} ms; the draw's "
+              f"bound {b_ms:.4f} ms by {b_by} ({draws} draws: "
+              f"{by_ops:.4f} by the {pipe} pipe, {by_bytes:.4f} by bytes; "
+              f"old count {old_ops:.4f})", flush=True)
+        del kernel, plain, inp, k
     torch.cuda.empty_cache()
     return out
 
 
 # ---- kernel T: the validation scorer's route ---------------------------
+# its one launch: the pack of the records by one block, the walk of the
+# rows by all
 ROUTE_NAMES = ("tree_walk_kernel",)
 
 
@@ -1573,14 +1863,26 @@ def route_bins(torch, dev, F, N, n_bins, seed, dtype=None):
 
 
 def check_route(torch, tr, xt, rec, L, out_dtype, ctx):
-    """Kernel T against its plain version and a repeat launch, exactly."""
+    """Kernel T against its plain version and a repeat launch, exactly:
+    the table its launch packs word for word against ``route_pack_plain``
+    (the padding aside), the ids against ``route_rows_plain``."""
     n = xt.shape[1]
+    B = rec[2].shape[1]
+    S = L - 1
+    table = torch.full((tr.route_table_words(S, B),), -7, dtype=torch.int32,
+                       device=xt.device)
+    want = tr.route_pack_plain(*rec, L)
+    used = 4 * S + 4 + S * (-(-B // 32))
     k = tr.route_rows(xt, *rec, L, out=torch.empty(n, dtype=out_dtype,
-                                                    device=xt.device))
+                                                    device=xt.device),
+                      table=table)
     k2 = tr.route_rows(xt, *rec, L, out=torch.full_like(k, 7))
     q = tr.route_rows_plain(xt, *rec, L,
                             out=torch.empty_like(k))
     torch.cuda.synchronize()
+    if not torch.equal(table[:used], want[:used]):
+        fail(f"kernel T's pack differs from its plain version ({ctx}): "
+             f"{int((table[:used] != want[:used]).sum())} words")
     if not torch.equal(k, k2):
         fail(f"kernel T gave other ids on a repeat launch ({ctx})")
     if not torch.equal(k, q):
@@ -1614,42 +1916,54 @@ def route_sectors(torch, xt, rec, L):
     return sectors, float(steps) / N
 
 
+def route_profile(torch, call, reps=10):
+    """``named_profile`` of a call of kernel T: one launch."""
+    return named_profile(torch, call, reps, {k: 1 for k in ROUTE_NAMES},
+                         {"route": 1}, "kernel T")
+
+
 def phase_kernels_route(torch, dev):
     """Kernel T against its plain version, exactly, with a repeat launch:
-    7, 31, 255 and 1500 leaves (1500: the staged tree needs more than 48 KB
-    of shared memory), uint8 and int16 bins, uint8 and int32 ids, ragged
-    lengths; at 500k x 28 (the holdout) and 10.5M x 28 with 255 leaves,
-    its time, device time, one CUDA launch a call, bound (the sectors the
-    rows' walks touch, the ids written, the records) and the plain
-    version's time."""
+    the table its launch packs word for word, the ids at 1, 7, 31, 255 and
+    1500 leaves (1500: the staged table needs more than 48 KB of shared
+    memory), uint8 and int16 bins, uint8 and int32 ids, ragged lengths; at
+    1024 rows (one block: the pack, its copy, 1024 walks), 500k x 28 (the
+    holdout) and 10.5M x 28 with 255 leaves, its time, device time, CUDA
+    launches a call, bound (the sectors the rows' walks touch, the ids
+    written, the records) and the plain version's time."""
     from lightgbm_tpu_torch.ops import route as tr
     F = N_FEATURES
     seed = 200
-    for L, B, bdt in ((7, 64, torch.uint8), (31, 256, torch.uint8),
-                      (255, 256, torch.uint8), (255, 512, torch.int16),
-                      (1500, 256, torch.uint8)):
+    for L, B, bdt in ((1, 64, torch.uint8), (7, 64, torch.uint8),
+                      (31, 256, torch.uint8), (255, 256, torch.uint8),
+                      (255, 512, torch.int16), (1500, 256, torch.uint8)):
         for n_ in (1, 31, 1025, 100_003):
             for odt in (torch.uint8, torch.int32):
                 if odt == torch.uint8 and L > 256:
                     continue
                 seed += 1
-                rec = route_records(torch, dev, L, B, F, seed,
-                                    n_bins=B - 3)
+                if L == 1:
+                    rec = (torch.zeros(1, dtype=torch.int32, device=dev),
+                           torch.zeros(1, dtype=torch.int32, device=dev),
+                           torch.zeros((1, B), dtype=torch.bool, device=dev),
+                           torch.zeros(1, dtype=torch.bool, device=dev))
+                else:
+                    rec = route_records(torch, dev, L, B, F, seed,
+                                        n_bins=B - 3)
                 xt = route_bins(torch, dev, F, n_, B - 3, seed, bdt)
                 check_route(torch, tr, xt, rec, L, odt,
                             f"L={L} B={B} {bdt} bins, N={n_}, {odt} ids")
     out = {}
-    for n_ in (N_HOLDOUT, N_ROWS):
+    for n_ in (1024, N_HOLDOUT, N_ROWS):
         rec = route_records(torch, dev, 255, 256, F, 300, n_bins=255)
         xt = route_bins(torch, dev, F, n_, 255, 301)
         for odt in (torch.int32, torch.uint8):
             k = check_route(torch, tr, xt, rec, 255, odt,
                             f"L=255, N={n_}, {odt} ids")
-        call = lambda: tr.route_rows(xt, *rec, 255, out=k)
+        call = lambda: tr.route_rows(xt, *rec, 255, out=k)  # noqa: E731
         ms = cuda_ms(call, reps=20)
-        dev_ms, n_launch = profile_calls(call, 10, ROUTE_NAMES)
-        if n_launch != 1:
-            fail(f"kernel T made {n_launch} CUDA launches a call, not 1")
+        seen, launched = route_profile(torch, call)
+        dev_ms = seen[ROUTE_NAMES[0]][1]
         plain_ms = cuda_ms(lambda: tr.route_rows_plain(xt, *rec, 255,
                                                        out=k), reps=2)
         sectors, depth = route_sectors(torch, xt, rec, 255)
@@ -1657,20 +1971,21 @@ def phase_kernels_route(torch, dev):
         b_ms, b_by = bound(sectors * 32 + n_ + rec_bytes, 0)
         whole_ms = bound(xt.numel() + n_ + rec_bytes, 0)[0]
         out[n_] = dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms,
-                       launches_per_call=n_launch, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                       sectors=sectors, mean_walk=depth,
+                       launches_per_call=launched["route"],
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None, sectors=sectors, mean_walk=depth,
                        whole_matrix_bound_ms=whole_ms, rows=n_)
-        print(f"kernel T, N={n_}: exact (and at 7-1500 leaves, ragged "
-              f"lengths, int16 bins, repeat launches); {ms:.4f} ms, device "
-              f"{dev_ms:.4f} ms, {n_launch} CUDA launch a call (plain "
-              f"{plain_ms:.3f} ms; bound {b_ms:.4f} ms: {sectors} sectors "
-              f"of the walks, {depth:.2f} splits a row; the whole matrix "
-              f"{whole_ms:.4f})", flush=True)
+        print(f"kernel T, N={n_}: exact, the table word for word (and at "
+              f"1-1500 leaves, ragged lengths, int16 bins, repeat launches);"
+              f" {ms:.4f} ms, device {dev_ms:.4f} ms, counted {launched} a "
+              f"call (plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms: "
+              f"{sectors} sectors of the walks, {depth:.2f} splits a row, "
+              f"the records read once; the whole matrix {whole_ms:.4f})",
+              flush=True)
         del xt, k
     torch.cuda.empty_cache()
     # the kernels line: the holdout's shape, as the scorer runs it
-    return dict(out[N_HOLDOUT], at_10_5m=out[N_ROWS])
+    return dict(out[N_HOLDOUT], at_10_5m=out[N_ROWS], at_1024=out[1024])
 
 
 def reset_counts():
@@ -1942,58 +2257,69 @@ def phase_c2f(torch, ltt, data, exact_auc):
     return counts, e2e
 
 
+def out_step_device(seen):
+    """Device ms a call of a step's ``named_profile`` record: its named
+    kernels at their launches a call, the others as recorded."""
+    return sum(t * STEP_WANT.get(k, c) for k, (c, t) in seen.items())
+
+
 # phase 9: the sampled configurations at full width on phase 3's data:
 # (params, the unsampled path whose seconds an iteration they stand
-# beside, the modes of run_path, kernel B's counter)
+# beside, the modes of run_path, kernel B's mode: ``STEP_COUNTERS``)
 SAMPLED = {
     # bench.py's goss255 (bench.py:2088-2100): wave255 as it ships, GOSS
     "goss255": (dict(TRAIN_PARAMS, **WAVE255_PARAMS, boosting="goss"),
-                "c2f", ("graphs", "eager", "fused"), "sample_goss"),
+                "c2f", ("graphs", "eager", "fused"), "goss"),
     # tests/test_pipeline.py:100's bernoulli row on exact255
     "exact255-bagging": (dict(TRAIN_PARAMS, bagging_fraction=0.7,
                               bagging_freq=2),
-                         "exact", ("graphs", "fused"), "sample_bag"),
+                         "exact", ("graphs", "fused"), "bernoulli"),
     # that file's MVS row on wave255 without c2f
     "wave255-noc2f-mvs": (dict(TRAIN_PARAMS, **WAVE_PARAMS, boosting="mvs",
                                bagging_fraction=MVS_FRACTION),
-                          "wave", ("graphs", "fused"), "sample_mvs"),
+                          "wave", ("graphs", "fused"), "mvs"),
 }
 
 
-def threshold_step(torch, booster):
-    """The sampled booster's threshold step on its current gradients
-    (GOSS's top-set order statistic, MVS's scores and mu), or None for
-    bagging: (ms back to back, device ms and CUDA kernels a call)."""
+def sampling_step(torch, booster):
+    """The sampled booster's sampling step on its current gradients, or
+    None for bagging: (ms back to back, {kernel: [launches a call, device
+    ms a launch]}: GOSS's select and draw, MVS's scores, sort, scan and
+    draw)."""
     from lightgbm_tpu_torch.ops import sample as ts
     g = booster._gbdt
     cfg, n = g.config, g.num_data
     grad, hess = g.objective.get_gradients(g._score)
     gh = (grad * hess).abs()
+    words = g._bag_words
     if cfg.boosting == "goss":
         top_k = max(int(n * cfg.top_rate), 1)
+        other_k = int(n * cfg.other_rate)
 
         def fn():
-            return ts.goss_threshold(gh, top_k)
+            return ts.goss_step(words, gh, top_k, other_k / max(n - top_k, 1),
+                                (n - top_k) / float(max(other_k, 1)))
+        mode = "goss"
     elif cfg.boosting == "mvs":
         def fn():
-            return ts.mvs_threshold(ts.mvs_scores(gh, cfg.var_weight),
-                                    cfg.bagging_fraction * n)
+            return ts.mvs_step(words, gh, cfg.var_weight,
+                               cfg.bagging_fraction * n)
+        mode = "mvs"
     else:
         return None
-    ms = cuda_ms(fn, reps=10)
-    dev_ms, kernels = profile_calls(fn, 5, ("",), whole=False)
-    return ms, dev_ms, kernels
+    return cuda_ms(fn, reps=10), step_profile(torch, fn, 5, mode)[0]
 
 
 def phase_sampled(torch, ltt, data, unsampled_s):
     """Phase 9: each configuration of ``SAMPLED`` at full width, on CUDA
     graphs (the main path), at fused_iters=5 and (goss255) eagerly: the
-    same trees bit for bit and the same kernel launches, one kernel-B
-    launch a tree, holdout AUC above 0.6; seconds an iteration beside the
-    unsampled path's from phases 3-5, the threshold step's time."""
+    same trees bit for bit and the same kernel launches, kernel B's step's
+    launches a tree by counter (``STEP_COUNTERS``), holdout AUC above 0.6;
+    seconds an iteration beside the unsampled path's from phases 3-5, the
+    step's time by part."""
     ds, Xh, yh = data
     out, counts_by = {}, {}
-    for name, (params, path, modes, counter) in SAMPLED.items():
+    for name, (params, path, modes, mode) in SAMPLED.items():
         p = dict(params, device_type=DEVICE)
         runs = {m: run_path(torch, ltt, ds, p, m) for m in modes}
         main = runs["graphs"]
@@ -2005,9 +2331,11 @@ def phase_sampled(torch, ltt, data, unsampled_s):
                      f"graphs {main['counts']} and {m} {runs[m]['counts']}")
             del runs[m]["booster"]
         counts = main["counts"]
-        if counts[counter] != N_TREES:
-            fail(f"{name}: kernel B ran {counts[counter]} times in {N_TREES} "
-                 f"trees, not once a tree")
+        step = STEP_COUNTERS[mode]
+        for k, v in step.items():
+            if counts[k] != v * N_TREES:
+                fail(f"{name}: kernel B's {k} ran {counts[k]} times in "
+                     f"{N_TREES} trees, not {v} a tree")
         if main["replays"] <= 0:
             fail(f"{name}: no graph replays on the main path")
         prob = b.predict(Xh)
@@ -2017,24 +2345,27 @@ def phase_sampled(torch, ltt, data, unsampled_s):
         auc = np_auc(yh, prob)
         if not 0.6 < auc <= 1.0:
             fail(f"{name}: holdout AUC {auc} is not that of a trained model")
-        thr = threshold_step(torch, b)
+        thr = sampling_step(torch, b)
         e2e = {m: statistics.median(r["iter_s"]) for m, r in runs.items()}
         out[name] = dict(
             seconds_per_iteration=e2e["graphs"], modes=_summary(runs),
             unsampled_seconds_per_iteration=unsampled_s[path],
-            kernel_b_launches_per_tree=counts[counter] / N_TREES,
-            threshold_ms=None if thr is None else thr[0],
-            threshold_device_ms=None if thr is None else thr[1],
-            threshold_cuda_kernels=None if thr is None else thr[2],
+            kernel_b_launches_per_tree={k: counts[k] / N_TREES
+                                        for k in step},
+            step_ms=None if thr is None else thr[0],
+            step_device_ms=None if thr is None else out_step_device(
+                thr[1]),
+            step_kernels=None if thr is None else thr[1],
             holdout_auc=auc, launches=counts)
         counts_by[name] = counts
-        thr_text = "no threshold step" if thr is None else (
-            f"threshold step {thr[0]:.3f} ms (device {thr[1]:.3f} ms, "
-            f"{thr[2]:g} CUDA kernels)")
+        thr_text = "the draw alone" if thr is None else (
+            f"the step {thr[0]:.3f} ms (device "
+            f"{out_step_device(thr[1]):.4f} ms: {_seen(thr[1])})")
         print(f"{name}: seconds per iteration "
               f"{ {m: round(v, 4) for m, v in e2e.items()} } (unsampled "
               f"{path} {unsampled_s[path]:.4f}), kernel B "
-              f"{counts[counter] / N_TREES:g} a tree, {thr_text}, holdout "
+              f"{ {k: counts[k] / N_TREES for k in step} } a tree, "
+              f"{thr_text}, holdout "
               f"AUC {auc:.5f}; {', '.join(modes)} trees identical, the "
               f"same kernel launches executed", flush=True)
         del b, main["booster"]
@@ -2294,20 +2625,21 @@ def phase_valid(torch, ltt, data, path, params, names, no_valid_s):
     p = dict(params, device_type=DEVICE)
     b, res, counts, replays, iter_s, total_s = run_valid(
         torch, ltt, ds, Xh, yh, p, n, path)
-    _check_launches(counts, names + ("leaf_lookup_f64", "route"),
-                    f"{path} valid")
+    scorer_names = ("route", "leaf_lookup_f64")
+    _check_launches(counts, names + scorer_names, f"{path} valid")
     if replays <= 0:
         fail(f"{path} with a validation set made no graph replays")
     scorer = b._gbdt.valid_sets[0].scorer
     if scorer.graph is None:
         fail(f"{path}: the validation scorer was not captured")
-    for name in ("leaf_lookup_f64", "route"):
+    for name in scorer_names:
         if counts[name] != n:
             fail(f"{path}: kernel {name} ran {counts[name]} times in {n} "
                  f"trees, not once a tree")
     if scorer.graph.kernel_launches() != 2:
         fail(f"{path}: the scorer's graph holds "
-             f"{scorer.graph.launches} kernel launches, not kernels T and L")
+             f"{scorer.graph.launches} kernel launches, not kernels T and "
+             f"L")
     _check_valid_score(b, Xh, yh, res, f"{path} (graphs)")
     b_score = b._gbdt.valid_sets[0].score.cpu().numpy().copy()
     # eval's host time, and the scorer's replay on the card (which adds
@@ -2494,7 +2826,8 @@ def phase_boosting(torch, ltt, data, unsampled_s):
             fail(f"{name}: holdout AUC {auc} is not that of a trained model")
         kept = g.leaf_idx_bytes() if hasattr(g, "leaf_idx_bytes") else 0
         seen = kernels_seen(scorer.graph.replay, 20, ROUTE_NAMES)
-        if ROUTE_NAMES[0] not in seen or LOOKUP_NAMES[0] in seen:
+        if not all(k in seen for k in ROUTE_NAMES) or \
+                LOOKUP_NAMES[0] in seen:
             fail(f"{name}: the profiler saw {_seen(seen)} in the scorer's "
                  f"replays, not kernel T alone")
         b.rollback_one_iter()
@@ -2629,8 +2962,10 @@ def main():
     b_stats = phase_kernels_sample(torch, dev)
     stats["sample_bag"] = dict(b_stats["bernoulli"],
                                stratified=b_stats["stratified"])
-    stats["sample_goss"] = b_stats["goss"]
-    stats["sample_mvs"] = b_stats["mvs"]
+    for k in ("goss", "mvs"):
+        stats[f"sample_{k}"] = b_stats[k]
+    for k in ("goss_select", "mvs_scores", "mvs_scan"):
+        stats[k] = b_stats[k]
     stats["route"] = phase_kernels_route(torch, dev)
     # ---- phase 3: the exact path end to end at full width ------------
     data, exact_counts, e2e = phase_full_width(torch, ltt)
@@ -2710,6 +3045,17 @@ def main():
         "sample_mvs": ("lightgbm_tpu_torch/csrc/sample.cu",
                        "lightgbm_tpu/models/boosting.py:162",
                        sampled_counts["wave255-noc2f-mvs"]),
+        # the step's thresholds: GOSS's top-set order statistic (:86),
+        # MVS's scores (:168) and mu (`_threshold_device`, :119)
+        "goss_select": ("lightgbm_tpu_torch/csrc/sample.cu",
+                        "lightgbm_tpu/models/boosting.py:86",
+                        sampled_counts["goss255"]),
+        "mvs_scores": ("lightgbm_tpu_torch/csrc/sample.cu",
+                       "lightgbm_tpu/models/boosting.py:168",
+                       sampled_counts["wave255-noc2f-mvs"]),
+        "mvs_scan": ("lightgbm_tpu_torch/csrc/sample.cu",
+                     "lightgbm_tpu/models/boosting.py:119",
+                     sampled_counts["wave255-noc2f-mvs"]),
         # kernel T replaces no Pallas kernel: the JAX package routes a
         # validation set's rows in XLA
         "route": ("lightgbm_tpu_torch/csrc/route.cu",
@@ -2733,9 +3079,9 @@ def main():
         if name == "leaf_lookup_f64":
             row["launches_by_path"] = {k: v[name]
                                        for k, v in valid_counts.items()}
-        if name.startswith("sample_") or name == "route":
+        if meta[name][0].endswith(("sample.cu", "route.cu")):
             row["replaces_pallas_kernel"] = False
-        if name == "route":
+        if name.startswith("route"):
             row["launches_by_path"] = {
                 **{k: v[name] for k, v in valid_counts.items()},
                 **{k: v[name] for k, v in boosting_counts.items()}}

@@ -5,9 +5,10 @@ MVS (:107-176), DART (:177-371) and RF (:374-439), dispatched by
 ``config.boosting`` as ``create_boosting`` (:442-458) dispatches them.
 
 GOSS and MVS are the serial :class:`GBDT` with their own per-row weights,
-drawn in every tree's head on the device (``ops/sample.py``, kernel B on
-the card) from the PRNG fold of the tree's global iteration, so fused and
-sequential runs draw the same bits.
+drawn in every tree's head on the device (``ops/sample.py``: kernel B's
+sampling step on the card, threshold and draw) from the PRNG fold of the
+tree's global iteration, so fused and sequential runs draw the same
+bits.
 
 DART and RF need the host tree every iteration, so they run blocks of one
 tree (no fused super-steps) and add each tree's host leaf values, cast to
@@ -72,10 +73,9 @@ class GOSS(GBDT):
         gh = (grad * hess).abs()
         top_k = max(int(n * cfg.top_rate), 1)
         other_k = int(n * cfg.other_rate)
-        thr, _, _, p_tie = sample.goss_threshold(gh, top_k)
-        return sample.goss_weights(words, gh, thr, p_tie,
-                                   other_k / max(n - top_k, 1),
-                                   (n - top_k) / float(max(other_k, 1)))
+        return sample.goss_step(words, gh, top_k,
+                                other_k / max(n - top_k, 1),
+                                (n - top_k) / float(max(other_k, 1)))[0]
 
 
 class MVS(GBDT):
@@ -100,9 +100,8 @@ class MVS(GBDT):
     def _sample_weights(self, words: torch.Tensor, grad: torch.Tensor,
                         hess: torch.Tensor) -> torch.Tensor:
         cfg = self.config
-        s = sample.mvs_scores((grad * hess).abs(), cfg.var_weight)
-        mu = sample.mvs_threshold(s, cfg.bagging_fraction * self.num_data)
-        return sample.mvs_weights(words, s, mu)
+        return sample.mvs_step(words, (grad * hess).abs(), cfg.var_weight,
+                               cfg.bagging_fraction * self.num_data)[0]
 
 
 class DART(GBDT):

@@ -9,15 +9,20 @@ Each gives a float32 weight a row, bit for bit the JAX package's for the
 same gradients, labels and keys: 0 leaves the row out of the tree, 1
 keeps it, a larger value keeps it upweighted.
 
-The thresholds (:func:`goss_threshold`, :func:`mvs_threshold`) are
-PyTorch sorts and scans, as they are XLA sorts and scans in the JAX
-package; they read nothing back to the host, so a CUDA graph of a tree's
-head holds them.  The per-row draw is kernel B (``csrc/sample.cu``),
-called through :func:`bag_weights`, :func:`goss_weights` and
-:func:`mvs_weights`: a CUDA tensor launches the kernel (or raises), a
-CPU tensor takes the plain version beside it (``*_plain``, on
-``prng.uniform_rows``).  The key words are a (4,) int64 tensor on the
-device: words 0-1 the draw's key, 2-3 GOSS's tie key.
+Kernel B (``csrc/sample.cu``) is the whole sampling step on the card:
+:func:`bag_weights` draws, :func:`goss_step` runs GOSS's radix select
+(:func:`goss_select`, 3 launches) and the draw, :func:`mvs_step` MVS's
+scores, PyTorch's sort, its scan (2 launches) and the draw, which
+computes ``mu``.  They
+read nothing back to the host, so a CUDA graph of a tree's head holds
+them.  A CUDA tensor launches the kernels (or raises); a CPU tensor takes
+the plain versions: the thresholds :func:`goss_threshold`,
+:func:`mvs_scores` and :func:`mvs_threshold` (PyTorch sorts and scans,
+as they are XLA sorts and scans in the JAX package) and the draws
+``*_plain`` (on ``prng.uniform_rows``).  :func:`goss_weights` and
+:func:`mvs_weights` launch the draw alone, from given thresholds.  The
+key words are a (4,) int64 tensor on the device: words 0-1 the draw's
+key, 2-3 GOSS's tie key.
 """
 from __future__ import annotations
 
@@ -30,19 +35,35 @@ from ..utils.prng import uniform_rows
 from . import kernels
 from .split import fma32, prefix_sum
 
-__all__ = ["bag_weights", "bag_weights_plain", "goss_threshold",
-           "goss_weights", "goss_weights_plain", "mvs_scores",
-           "mvs_threshold", "mvs_weights", "mvs_weights_plain",
-           "sample_plan", "LAUNCHES"]
+__all__ = ["bag_weights", "bag_weights_plain", "goss_select", "goss_step",
+           "goss_threshold", "goss_weights", "goss_weights_plain",
+           "mvs_scores", "mvs_step", "mvs_threshold", "mvs_weights",
+           "mvs_weights_plain", "sample_plan", "scan_levels", "scan_words",
+           "sort_scores", "select_plan", "LAUNCHES", "STEP_LAUNCHES"]
 
-# kernel B's launch constants (csrc/sample.cu)
+# kernel B's launch constants (csrc/sample.cu): the draw and MVS's scores
 SAMPLE_THREADS = 256
 SAMPLE_BLOCKS_PER_SM = 8
+# GOSS's radix select: 512 threads a block, at most 4 blocks an SM, 4 rows
+# a thread in each step of the grid-stride loop; its digits, high to low,
+# and its state words (three histograms, counters)
+SELECT_THREADS = 512
+SELECT_BLOCKS_PER_SM = 4
+SELECT_DIGITS = (11, 11, 10)
+SELECT_WORDS = 5128
+# MVS's scan: a block a tile of 4096 values (256 chunks of 16), the
+# chunk of XLA's CPU cumsum (``split.prefix_sum``)
+SCAN_THREADS = 256
+SCAN_CHUNK = 16
+SCAN_TILE = SCAN_THREADS * SCAN_CHUNK
 # the C entry point's modes
-_BAG, _STRATIFIED, _GOSS, _MVS = 0, 1, 2, 3
+_BAG, _STRATIFIED, _GOSS, _MVS, _MVS_STEP = 0, 1, 2, 3, 4
 
-# launches of kernel B, one a call, by mode
+# launches of kernel B's draw, one a call, by mode (one a sampled tree)
 LAUNCHES = {"sample_bag": 0, "sample_goss": 0, "sample_mvs": 0}
+# the step's other launches, by kernel: GOSS's select passes (3 a call),
+# MVS's scores (1) and scan (2)
+STEP_LAUNCHES = {"goss_select": 0, "mvs_scores": 0, "mvs_scan": 0}
 
 
 def _f32(x: float) -> float:
@@ -52,37 +73,68 @@ def _f32(x: float) -> float:
 
 
 def sample_plan(n: int, sms: int) -> int:
-    """Kernel B's blocks: a thread a row, at most 8 blocks of 256 an SM
-    (the rest in the grid-stride loop)."""
+    """Kernel B's blocks for the draw and MVS's scores: a thread a row, at
+    most 8 blocks of 256 an SM (the rest in the grid-stride loop)."""
     return max(1, min(SAMPLE_BLOCKS_PER_SM * sms,
                       -(-n // SAMPLE_THREADS)))
 
 
+def select_plan(n: int, sms: int) -> int:
+    """GOSS's select passes: 4 rows a thread a step, at most 4 blocks of
+    512 an SM."""
+    return max(1, min(SELECT_BLOCKS_PER_SM * sms,
+                      -(-n // (4 * SELECT_THREADS))))
+
+
+def scan_levels(n: int) -> list:
+    """The lengths of MVS's scan hierarchy: ``n``, then ``ceil(len /
+    16)`` until a level of at most 16 values (``prefix_sum``'s
+    recursion)."""
+    lens = [n]
+    while lens[-1] > SCAN_CHUNK:
+        lens.append(-(-lens[-1] // SCAN_CHUNK))
+    return lens
+
+
+def scan_words(n: int) -> int:
+    """float32 words of the scan's scratch (``scan_layout`` in
+    csrc/sample.cu): 4 header words (the packed first ``i``, the
+    completion counter), every level's totals above level 0, and the
+    prefixes of levels 3 and up."""
+    lens = scan_levels(n)
+    return 4 + sum(lens[1:]) + sum(lens[3:])
+
+
 def _launch(mode: int, words: torch.Tensor, inp, sc0, sc1, c0: float,
-            c1: float, n: int, counter: str) -> torch.Tensor:
-    """One kernel-B launch writing a new (n,) float32 weight vector."""
+            c1: float, n: int, counter: str, aux=None) -> torch.Tensor:
+    """One launch of kernel B's draw writing a new (n,) float32 weight
+    vector."""
     dev = words.device
     if words.dtype != torch.int64 or words.shape != (4,) or \
             not words.is_contiguous():
         raise ValueError("words must be a contiguous (4,) int64 tensor")
-    for t in (inp, sc0, sc1):
+    for t in (inp, sc0, sc1, aux):
         if t is not None and t.device != dev:
             raise ValueError("all inputs must be on one device")
     if not 0 < n < 2 ** 32:
         raise ValueError("kernel B draws 1 to 2^32 - 1 rows")
     lib = kernels.load()
     w = torch.empty(n, dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     rc = lib.ltt_sample(mode, words.data_ptr(), ptr(inp), ptr(sc0),
                         ptr(sc1), c0, c1, w.data_ptr(), n,
-                        sample_plan(n, kernels.sm_count(dev)), stream)
+                        sample_plan(n, kernels.sm_count(dev)), ptr(aux),
+                        _stream(dev))
     kernels.check(rc, "kernel B (ltt_sample)")
     LAUNCHES[counter] += 1
     return w
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _rows(t: torch.Tensor, dtype, n: int, what: str) -> None:
@@ -174,6 +226,45 @@ def goss_weights(words: torch.Tensor, gh: torch.Tensor, thr: torch.Tensor,
                    _f32(rest_rate), _f32(amp), n, "sample_goss")
 
 
+def goss_select(gh: torch.Tensor, top_k: int) -> tuple:
+    """GOSS's threshold: :func:`goss_threshold`'s (thr, n_gt, n_tie,
+    p_tie), on the card from kernel B's radix select (3 launches), on the
+    CPU from :func:`goss_threshold`.  ``gh`` is ``|g * h|``: non-negative
+    or NaN."""
+    n = gh.shape[0]
+    if not 1 <= top_k <= n:
+        raise ValueError(f"top_k must be in [1, {n}]")
+    if gh.device.type == "cpu":
+        return goss_threshold(gh, top_k)
+    _rows(gh, torch.float32, n, "gh")
+    if n >= 2 ** 32:
+        raise ValueError("kernel B selects from at most 2^32 - 1 rows")
+    dev = gh.device
+    lib = kernels.load()
+    state = torch.empty(SELECT_WORDS, dtype=torch.int32, device=dev)
+    thr = torch.empty(1, dtype=torch.float32, device=dev)
+    p_tie = torch.empty(1, dtype=torch.float32, device=dev)
+    counts = torch.empty(2, dtype=torch.int64, device=dev)
+    rc = lib.ltt_goss_select(gh.data_ptr(), n, top_k, state.data_ptr(),
+                             SELECT_WORDS, thr.data_ptr(), p_tie.data_ptr(),
+                             counts.data_ptr(),
+                             select_plan(n, kernels.sm_count(dev)),
+                             _stream(dev))
+    kernels.check(rc, "kernel B (ltt_goss_select)")
+    STEP_LAUNCHES["goss_select"] += len(SELECT_DIGITS)
+    return thr, counts[0], counts[1], p_tie
+
+
+def goss_step(words: torch.Tensor, gh: torch.Tensor, top_k: int,
+              rest_rate: float, amp: float) -> tuple:
+    """GOSS's sampling step on ``gh`` (N,) float32 -> (weights, thr, n_gt,
+    n_tie, p_tie): :func:`goss_select`, then :func:`goss_weights` (on the
+    card kernel B's select and draw, on the CPU the plain versions)."""
+    thr, n_gt, n_tie, p_tie = goss_select(gh, top_k)
+    return (goss_weights(words, gh, thr, p_tie, rest_rate, amp), thr, n_gt,
+            n_tie, p_tie)
+
+
 # ---- MVS ---------------------------------------------------------------
 
 def mvs_scores(gh: torch.Tensor, var_weight: float) -> torch.Tensor:
@@ -228,3 +319,51 @@ def mvs_weights(words: torch.Tensor, s: torch.Tensor,
     _scalar(mu, "mu")
     return _launch(_MVS, words, s, mu.contiguous(), None, 0.0, 0.0, n,
                    "sample_mvs")
+
+
+def sort_scores(s: torch.Tensor) -> torch.Tensor:
+    """The scores in ascending order: the plain version's descending order
+    ``-sort(-s)`` reversed (the same values; NaN, which that order puts
+    last, comes last here too, and the scan then gives ``mu = NaN`` as the
+    plain version does).  A score is a square root, non-negative or a NaN
+    of positive sign, so its int32 bits order it as its value does: the
+    int32 sort gives the float sort's values and was the fastest sort on
+    the card (``PERF.md``)."""
+    return torch.sort(s.view(torch.int32)).values.view(torch.float32)
+
+
+def mvs_step(words: torch.Tensor, gh: torch.Tensor, var_weight: float,
+             target: float) -> tuple:
+    """MVS's sampling step on ``gh`` (N,) float32 -> (weights, s, mu), as
+    :func:`mvs_scores`, :func:`mvs_threshold` and
+    :func:`mvs_weights_plain` give them: on the card kernel B's scores,
+    PyTorch's sort (:func:`sort_scores`), kernel B's scan (2 launches) and
+    its draw, whose blocks compute ``mu`` from the scan; on the CPU the
+    plain versions."""
+    n = gh.shape[0]
+    if gh.device.type == "cpu":
+        s = mvs_scores(gh, var_weight)
+        mu = mvs_threshold(s, target)
+        return mvs_weights_plain(words, s, mu), s, mu
+    _rows(gh, torch.float32, n, "gh")
+    if n >= 2 ** 31:
+        raise ValueError("kernel B's scan takes at most 2^31 - 1 rows")
+    dev = gh.device
+    lib = kernels.load()
+    s = torch.empty(n, dtype=torch.float32, device=dev)
+    rc = lib.ltt_mvs_scores(gh.data_ptr(), _f32(var_weight), s.data_ptr(),
+                            n, sample_plan(n, kernels.sm_count(dev)),
+                            _stream(dev))
+    kernels.check(rc, "kernel B (ltt_mvs_scores)")
+    STEP_LAUNCHES["mvs_scores"] += 1
+    x = sort_scores(s)
+    words_n = scan_words(n)
+    scratch = torch.empty(words_n, dtype=torch.float32, device=dev)
+    rc = lib.ltt_mvs_scan(x.data_ptr(), n, _f32(target), scratch.data_ptr(),
+                          words_n, _stream(dev))
+    kernels.check(rc, "kernel B (ltt_mvs_scan)")
+    STEP_LAUNCHES["mvs_scan"] += 2
+    mu = torch.empty(1, dtype=torch.float32, device=dev)
+    w = _launch(_MVS_STEP, words, s, scratch, x, _f32(target), 0.0, n,
+                "sample_mvs", aux=mu)
+    return w, s, mu
