@@ -148,6 +148,8 @@ class Booster:
                                          eager=_eager)
             self.models = self._gbdt.models
             self.average_output = self._gbdt.average_output
+            self.num_class = self._gbdt.num_class
+            self.num_tree_per_iteration = self._gbdt.num_tree_per_iteration
             ds = train_set._constructed
             self._feature_names = ds.feature_names
             self._feature_infos = ds.feature_infos()
@@ -196,6 +198,8 @@ class Booster:
         self._gbdt = None
         self.models = info["models"]
         self.average_output = info["average_output"]
+        self.num_class = info["num_class"]
+        self.num_tree_per_iteration = info["num_tree_per_iteration"]
         self._feature_names = info["feature_names"]
         self._feature_infos = info["feature_infos"]
         self._max_feature_idx = info["max_feature_idx"]
@@ -255,26 +259,36 @@ class Booster:
 
     def predict(self, data, num_iteration: Optional[int] = None,
                 raw_score: bool = False) -> np.ndarray:
+        """(rows,) predictions, or (rows, K) for K classes (class k sums
+        trees k, k + K, ...); ``num_iteration`` counts iterations of K
+        trees (``lightgbm_tpu/models/gbdt.py:2975-2996``)."""
         trees = self.models
+        k = self.num_tree_per_iteration
         ni = self._num_iteration(num_iteration)
         if ni > 0:
-            trees = trees[:ni]
+            trees = trees[:ni * k]
         ff = flatten_forest(trees, self.device)
-        raw = predict_raw(ff, _to_matrix(data), self.device).cpu().numpy()
+        raw = predict_raw(ff, _to_matrix(data), self.device, k).cpu().numpy()
+        if k > 1:
+            raw = raw.T
         if self.average_output and trees:
             # a random forest's output is the mean of its trees
             # (lightgbm_tpu/models/gbdt.py:2993-2994)
-            raw = raw / len(trees)
+            raw = raw / max(len(trees) // k, 1)
         return raw if raw_score else self._objective.convert_output(raw)
 
     def _objective_string(self) -> str:
-        if self.config.objective == "binary":
+        obj = self.config.objective
+        if obj == "binary":
             return f"binary sigmoid:{self.config.sigmoid:g}"
-        return self.config.objective
+        if obj in ("multiclass", "multiclassova"):
+            return f"{obj} num_class:{self.config.num_class}"
+        return obj
 
     def model_to_string(self, num_iteration: Optional[int] = None) -> str:
         return model_io.save_model_to_string(
-            self.models, num_class=1, num_tree_per_iteration=1,
+            self.models, num_class=self.num_class,
+            num_tree_per_iteration=self.num_tree_per_iteration,
             label_index=0, max_feature_idx=self._max_feature_idx,
             objective_str=self._objective_string(),
             feature_names=self._feature_names,

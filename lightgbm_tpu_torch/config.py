@@ -12,7 +12,9 @@ registry, of which this is a copy; only the ``device_type`` default
 differs (``cuda``).  :data:`UNSUPPORTED` names, in one place, the
 parameters whose non-default values ask for a part of the system this
 package does not implement yet; :meth:`Config.check_supported` raises
-``NotImplementedError`` for them.
+``NotImplementedError`` for them, and for a multiclass objective under a
+boosting mode that trains one tree an iteration (GOSS, MVS, DART, random
+forests).
 """
 from __future__ import annotations
 
@@ -1161,6 +1163,13 @@ UNSUPPORTED: List[Tuple[str, Any, str]] = [
 ]
 
 
+# objectives that train one tree a class an iteration, and the boosting
+# modes that train one tree an iteration only (Config.check_supported)
+MULTICLASS_OBJECTIVES = ("multiclass", "softmax", "multiclassova",
+                         "multiclass_ova", "ova", "ovr")
+SINGLE_TREE_BOOSTING = ("goss", "mvs", "dart", "rf", "random_forest")
+
+
 def param_docs() -> str:
     """Render parameter docs (the reference generates Parameters.rst)."""
     lines = []
@@ -1303,6 +1312,13 @@ class Config:
                 raise NotImplementedError(
                     f"{name}={value!r}: {what} are not implemented by "
                     f"lightgbm_tpu_torch yet")
+        if self.objective in MULTICLASS_OBJECTIVES and \
+                self.boosting in SINGLE_TREE_BOOSTING:
+            raise NotImplementedError(
+                f"boosting={self.boosting!r} with objective="
+                f"{self.objective!r}: more than one tree an iteration under "
+                f"GOSS, MVS, DART or random forests is not implemented by "
+                f"lightgbm_tpu_torch yet")
 
     def _warn_inert(self) -> None:
         for name in sorted(self._user_set & set(self._INERT)):

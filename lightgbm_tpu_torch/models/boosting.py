@@ -327,10 +327,10 @@ class RF(GBDT):
     def _gradients(self):
         return self._rf_grad, self._rf_hess
 
-    def _boost_from_average(self) -> float:
+    def _boost_from_average(self) -> list:
         """Every tree's bias is the initial score; it enters the score
         after the tree lands (:422-430), not before the first tree."""
-        return self._init_score
+        return [self._init_score]
 
     def train_one_iter(self) -> bool:
         # the scores before the iteration, for a rollback (:407-409)

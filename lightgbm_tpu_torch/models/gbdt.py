@@ -61,12 +61,28 @@ the same bits at every K and depth.  ``rollback_one_iter`` (:3299-3344,
 :1881-1899) pops the last served tree and restores the score from its
 block's start copy.
 
-DART and random forests (``models/boosting.py``) need the host tree every
-iteration (``_per_tree_host``; the JAX package's ``_superstep_enabled``
-and ``_pipeline_enabled``, :202-227): they run blocks of one tree, the
-tree's tail adds nothing to the score, and the booster adds the host
-tree's float32 leaf values once the tree lands (``_landed``), as the JAX
-package's per-iteration path does (:2590-2631).
+DART, random forests (``models/boosting.py``) and the objectives that
+refit their leaves (L1, quantile, MAPE) need the host tree every
+iteration (``_per_tree_host``; the JAX package's ``_superstep_enabled``,
+``_pipeline_enabled`` and the renewal exclusion of ``_fused_ok``,
+:202-227, :1163-1216): they run blocks of one tree, the tree's tail adds
+nothing to the score, and the booster adds the host tree's float32 leaf
+values once the tree lands (``_landed``), after the objective's renewal
+(``renew_tree_output`` on the score before the tree, its leaf ids and its
+sample mask, :2589-2593), as the JAX package's per-iteration path does
+(:2590-2631).
+
+A multiclass objective trains K = ``num_tree_per_iteration`` trees an
+iteration (:213-217, :2485-2534), one a class, without fusion: the
+training score is (K, N) and a validation set's (K, n), each row padded
+to 16 bytes for kernel L.  Class 0's head computes the (K, N) gradients
+of the iteration's starting score into static buffers, and class k's
+head reads row k, so each class's tree is one CUDA graph (a head and a
+tail a class on the wave loop) and trains on the gradients the JAX
+package gives it; its tail adds into row k.  Each class tree draws its
+own feature-fraction mask and quantization tree id, in tree order; a
+bagging draw is the iteration's, shared by its K trees.  An iteration
+stops training only when all its K trees have one leaf.
 """
 from __future__ import annotations
 
@@ -98,6 +114,22 @@ _KEPS = 1e-15
 # count and, under quantization, the renewal sums
 _HOST_RECORDS = ("leaf", "feature", "threshold", "default_left", "gain",
                  "left_stats", "right_stats", "valid")
+
+
+def class_rows(num_class: int, n: int, dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+    """A zero score: (n,) for one class, else a (num_class, n) view of
+    rows padded to 16 bytes (kernel L adds into a row's aligned words)."""
+    if num_class == 1:
+        return torch.zeros(n, dtype=dtype, device=device)
+    n16 = -(-n * dtype.itemsize // 16) * 16 // dtype.itemsize
+    return torch.zeros((num_class, n16), dtype=dtype,
+                       device=device)[:, :n]
+
+
+def _class_row(score: torch.Tensor, k: int) -> torch.Tensor:
+    """Class k's row of a score ((n,) for one class)."""
+    return score if score.dim() == 1 else score[k]
 
 
 def _pad_bins(max_bin: int) -> int:
@@ -212,11 +244,11 @@ def fetch_records(rows: torch.Tensor, layout: list) -> dict:
 
 class ValidSet:
     """A validation set: its raw rows (host), labels and weights, its
-    binned matrix ``xt`` (F, N) and float64 score (N,) on the booster's
-    device, and its scorer."""
+    binned matrix ``xt`` (F, N) and float64 score (N,) ((K, N) for K
+    classes) on the booster's device, and its scorer."""
 
     def __init__(self, name: str, raw: np.ndarray, data: TorchDataset,
-                 device: torch.device):
+                 device: torch.device, num_class: int = 1):
         self.name = name
         self.raw = raw
         self.metadata = data.metadata
@@ -224,8 +256,8 @@ class ValidSet:
         self.label = data.label.to(device=device, dtype=torch.float64)
         self.weight = None if data.weight is None else \
             data.weight.to(device=device, dtype=torch.float64)
-        self.score = torch.zeros(data.num_data, dtype=torch.float64,
-                                 device=device)
+        self.score = class_rows(num_class, data.num_data, torch.float64,
+                                device)
         self.scorer: ValidScorer = None
         # DART: each tree's leaf ids on this set (None for a constant tree)
         self.leaf_idx_per_tree: list = []
@@ -243,7 +275,8 @@ class GBDT:
     # DART and random forests need the host tree each iteration
     # (lightgbm_tpu/models/gbdt.py:202-227): blocks of one tree, no fused
     # super-step, and the tree's values added to the scores after it lands
-    # instead of in its tail graph
+    # instead of in its tail graph.  An instance also needs it when its
+    # objective refits leaves (set in __init__)
     _per_tree_host = False
 
     def __init__(self, config: Config, train_set: TorchDataset,
@@ -257,8 +290,10 @@ class GBDT:
         self.device = train_set.device
         self.models: List[Tree] = []
         self.iter = 0
-        self.num_class = 1
-        self.num_tree_per_iteration = 1
+        self.num_class = max(int(config.num_class), 1)
+        self.num_tree_per_iteration = C = int(
+            objective.num_model_per_iteration)
+        self._per_tree_host = type(self)._per_tree_host or objective.renews
         # random forests average their trees' outputs
         self.average_output = False
         # the host's rate (callbacks change it) and the device's, which the
@@ -321,8 +356,12 @@ class GBDT:
         self._xt = train_set.binned
         self._mask = torch.ones(self.num_data, dtype=torch.float32,
                                 device=dev)
-        self._score = torch.zeros(self.num_data, dtype=torch.float32,
-                                  device=dev)
+        self._score = class_rows(C, self.num_data, torch.float32, dev)
+        # a multiclass iteration's gradients, written by class 0's head
+        self._grad_all = torch.zeros((C, self.num_data), device=dev) \
+            if C > 1 else None
+        self._hess_all = torch.zeros_like(self._grad_all) \
+            if C > 1 else None
         self._rng_feature = np.random.RandomState(
             config.feature_fraction_seed & 0x7FFFFFFF)
         objective.init(train_set.metadata, self.num_data, dev)
@@ -349,7 +388,8 @@ class GBDT:
                                     for _, s, _ in self._layout),
                                 dtype=torch.float64, device=dev)
         self.runner = TreeRunner(st, self._tree_head, self._tree_tail,
-                                 graphs=not eager and dev.type == "cuda")
+                                 graphs=not eager and dev.type == "cuda",
+                                 classes=C)
         # blocks: dispatched and not landed (oldest first), the one being
         # served, and the ring of their buffers
         self._sq: list = []
@@ -367,23 +407,32 @@ class GBDT:
         """The objective's gradients at the training score."""
         return self.objective.get_gradients(self._score)
 
-    def _tree_head(self) -> None:
+    def _tree_head(self, k: int = 0) -> None:
         """The gradients, weighted by the tree's sample where it has one
         (its presence mask into the tree's static sample mask), then the
-        tree's head (lightgbm_tpu/models/gbdt.py:2104-2126)."""
-        grad, hess = self._gradients()
+        tree's head (lightgbm_tpu/models/gbdt.py:2104-2126).  Class k of a
+        multiclass iteration reads row k of the iteration's gradients,
+        which class 0's head computes from the starting score."""
+        if self.num_tree_per_iteration == 1:
+            grad, hess = self._gradients()
+        else:
+            if k == 0:
+                g, h = self._gradients()
+                self._grad_all.copy_(g)
+                self._hess_all.copy_(h)
+            grad, hess = self._grad_all[k], self._hess_all[k]
         if self._sampled:
             w = self._sample_weights(self._bag_words, grad, hess)
             grad, hess = grad * w, hess * w
             self._mask.copy_(w > 0)
         tree_head(self._state, grad, hess)
 
-    def _tree_tail(self) -> None:
+    def _tree_tail(self, k: int = 0) -> None:
         st = self._state
         tree_tail(st)
         if not self._per_tree_host:
             torch.mul(st.leaf_values_final, self._lr, out=self._vals)
-            take_small_add(self._score, self._vals, st.leaf_idx)
+            take_small_add(_class_row(self._score, k), self._vals, st.leaf_idx)
         pack_records(host_records(st), self._layout, self._row)
 
     def _feature_fraction_mask(self) -> np.ndarray:
@@ -458,10 +507,12 @@ class GBDT:
         """Super-step eligibility (``lightgbm_tpu/models/gbdt.py:1195``):
         DART and random forests (``_per_tree_host``), validation sets and
         a training metric need the host tree or the scores every
-        iteration, so they run the per-iteration path.  (The JAX package
-        also falls back for custom, leaf-renewal and multi-model
-        objectives; the port has none of them yet.)"""
+        iteration, so they run the per-iteration path, as do leaf-renewal
+        objectives (``_per_tree_host``) and multiclass ones.  (The JAX
+        package also falls back for custom objectives; the port has none
+        yet.)"""
         return (not self._per_tree_host and self.config.fused_iters > 1 and
+                self.num_tree_per_iteration == 1 and
                 self.num_features > 0 and not self.valid_sets and
                 not self.config.is_provide_training_metric)
 
@@ -483,7 +534,7 @@ class GBDT:
         fused = self._fused_ok()
         blk = self._fused_block
         if blk is not None:
-            in_flight = blk["served"] < len(blk["trees"])
+            in_flight = blk["served"] < self._block_iters(blk)
             # a learning_rates schedule changed the shrinkage since
             # dispatch: the unserved trees were built at the old rate
             lr_drift = blk["lr"] != self.shrinkage_rate
@@ -513,7 +564,10 @@ class GBDT:
         if not self._slots:
             dev = self.device
             N, L = self.num_data, self.config.num_leaves
-            K = max(int(self.config.fused_iters), 1)
+            C = self.num_tree_per_iteration
+            # a block's trees: fused_iters of one class, or one iteration
+            # of C classes
+            K = max(int(self.config.fused_iters), 1) if C == 1 else C
             cuda = dev.type == "cuda"
             for _ in range(1 + self._pipeline_depth()):
                 rows = torch.zeros((K, self._row.shape[0]),
@@ -521,7 +575,7 @@ class GBDT:
                 # rows padded to 16 bytes: kernel L reads aligned ids
                 n16 = -(-N // 16) * 16
                 self._slots.append({
-                    "start": torch.zeros_like(self._score),
+                    "start": class_rows(C, N, torch.float32, dev),
                     "masks": torch.zeros((K, self.num_features),
                                          dtype=torch.bool, device=dev),
                     "words": torch.zeros((K, 2), dtype=torch.int64,
@@ -552,19 +606,25 @@ class GBDT:
         self._next_slot += 1
         return slot
 
-    def _boost_from_average(self) -> float:
-        """Iteration 0's initial score, added to the training score and to
-        every validation set's."""
+    def _boost_from_average(self) -> list:
+        """Iteration 0's initial score of each class, added to its row of
+        the training score and of every validation set's."""
+        inits = [0.0] * self.num_tree_per_iteration
         if self.iter == 0 and self.config.boost_from_average and \
                 not self.models:
-            init = self.objective.boost_from_score()
-            if abs(init) > _KEPS:
-                self._score.add_(init)
-                for vs in self.valid_sets:
-                    vs.score.add_(init)
-                Log.info("Start training from score %f", init)
-                return init
-        return 0.0
+            for k in range(len(inits)):
+                init = self.objective.boost_from_score(k)
+                if abs(init) > _KEPS:
+                    inits[k] = init
+                    _class_row(self._score, k).add_(init)
+                    for vs in self.valid_sets:
+                        _class_row(vs.score, k).add_(init)
+                    Log.info("Start training from score %f", init)
+        return inits
+
+    def _block_iters(self, blk: dict) -> int:
+        """The iterations a landed block holds (up to its stop)."""
+        return len(blk["trees"]) // self.num_tree_per_iteration
 
     def _dispatch_block(self, fused: bool, required: bool) -> bool:
         """Dispatch one block at the queue's frontier: its trees' inputs
@@ -575,7 +635,8 @@ class GBDT:
         cfg = self.config
         i0 = self._sq[-1]["i0"] + self._sq[-1]["k"] if self._sq \
             else self.iter
-        K, init_score = 1, 0.0
+        C = self.num_tree_per_iteration
+        K, init_score = 1, [0.0] * C
         if fused:
             K = int(cfg.fused_iters)
             remaining = cfg.num_iterations - i0
@@ -593,34 +654,38 @@ class GBDT:
         if self.shrinkage_rate != self._lr_host:
             self._lr.fill_(self.shrinkage_rate)
             self._lr_host = self.shrinkage_rate
-        self._trees_dispatched += K
+        T = K * C                       # trees, in tree order
+        self._trees_dispatched += T
         slot = self._slot()
-        slot["host_masks"][:K] = torch.from_numpy(np.stack(
-            [self._feature_fraction_mask() for _ in range(K)]))
-        slot["host_words"][:K] = torch.tensor(
-            [self._quant_words(tid + k) for k in range(K)])
-        slot["host_bag_words"][:K] = torch.tensor(
-            [self._sample_words(i0 + k) for k in range(K)])
+        slot["host_masks"][:T] = torch.from_numpy(np.stack(
+            [self._feature_fraction_mask() for _ in range(T)]))
+        slot["host_words"][:T] = torch.tensor(
+            [self._quant_words(tid + t) for t in range(T)])
+        # a bagging draw is the iteration's, shared by its class trees
+        slot["host_bag_words"][:T] = torch.tensor(
+            [self._sample_words(i0 + t // C) for t in range(T)])
         for name in ("masks", "words", "bag_words"):
-            slot[name][:K].copy_(slot["host_" + name][:K], non_blocking=True)
+            slot[name][:T].copy_(slot["host_" + name][:T], non_blocking=True)
         slot["start"].copy_(self._score)
         st = self._state
         waves = []
-        for k in range(K):
-            st.feature_mask.copy_(slot["masks"][k])
-            st.key_words.copy_(slot["words"][k])
+        for t in range(T):
+            st.feature_mask.copy_(slot["masks"][t])
+            st.key_words.copy_(slot["words"][t])
             if self._sampled:
-                self._bag_words.copy_(slot["bag_words"][k])
-            waves.append(self.runner.run())
-            # valid sets run the per-iteration path: blocks of one tree
+                self._bag_words.copy_(slot["bag_words"][t])
+            waves.append(self.runner.run() if C == 1
+                         else self.runner.run(t % C))
+            # valid sets run the per-iteration path: blocks of one
+            # iteration
             for vs in self.valid_sets:
-                vs.scorer.run(self.runner)
-            slot["rows"][k].copy_(self._row)
-            slot["leaf_idx"][k, :self.num_data].copy_(st.leaf_idx)
-            slot["vals"][k].copy_(self._vals)
+                vs.scorer.run(self.runner, t % C)
+            slot["rows"][t].copy_(self._row)
+            slot["leaf_idx"][t, :self.num_data].copy_(st.leaf_idx)
+            slot["vals"][t].copy_(self._vals)
         event = None
         if slot["host"] is not slot["rows"]:
-            slot["host"][:K].copy_(slot["rows"][:K], non_blocking=True)
+            slot["host"][:T].copy_(slot["rows"][:T], non_blocking=True)
             event = torch.cuda.Event()
             event.record()
         self._sq.append({"slot": slot, "i0": i0, "k": K, "fence": fence,
@@ -660,56 +725,86 @@ class GBDT:
 
     def _land_block(self) -> bool:
         """Fetch the oldest dispatched block's records (one copy, already
-        on its way), make its trees, and serve the first.  The first tree
-        takes the bias of a boost_from_average iteration after
-        :meth:`_landed`, which sees the trees as the scores add them."""
+        on its way), make its trees, and serve the first iteration.  The
+        first iteration's trees take the bias of a boost_from_average
+        iteration after :meth:`_landed`, which sees the trees as the
+        scores add them.  A refitting objective renews each tree's leaves
+        before its shrinkage (blocks of one tree)."""
         entry = self._sq.pop(0)
         slot, K = entry["slot"], entry["k"]
+        C = self.num_tree_per_iteration
         if entry["event"] is not None:
             entry["event"].synchronize()
-        host = fetch_records(slot["host"][:K], self._layout)
+        host = fetch_records(slot["host"][:K * C], self._layout)
         self.records_fetches += 1
         self.block_sizes.append(K)
-        init_score = entry["init_score"]
+        inits = entry["init_score"]
+        const = host["n_leaves"][:K * C] <= 1
         trees, stop_idx = [], None
-        for t in range(K):
-            if int(host["n_leaves"][t]) <= 1:
-                # the stop tree: constant, its score contribution was 0
+        for t in range(K * C):
+            k = t % C
+            if const[t]:
+                # a tree that could not split: constant, its score
+                # contribution was 0
                 tree = Tree(2)
-                tree.leaf_value[0] = init_score
-                trees.append(tree)
-                stop_idx = t
-                break
-            tree = records_to_tree({k: v[t] for k, v in host.items()},
-                                   self.config, self.train_set,
-                                   counts_proxy=self._counts_proxy)
-            # the rate the block's device score used
-            tree.apply_shrinkage(entry["lr"])
+                tree.leaf_value[0] = inits[k]
+            else:
+                tree = records_to_tree({n: v[t] for n, v in host.items()},
+                                       self.config, self.train_set,
+                                       counts_proxy=self._counts_proxy)
+                if self.objective.renews:
+                    self.objective.renew_tree_output(
+                        tree, slot["start"],
+                        slot["leaf_idx"][t, :self.num_data], self._mask)
+                # the rate the block's device score used
+                tree.apply_shrinkage(entry["lr"])
             trees.append(tree)
+            if k == C - 1 and const[t + 1 - C:t + 1].all():
+                # the stop iteration: every class tree constant
+                stop_idx = t // C
+                break
         self._fused_block = {"slot": slot, "trees": trees,
                              "stop_idx": stop_idx, "served": 0,
                              "waves": entry["waves"], "lr": entry["lr"],
                              "fence": entry["fence"],
                              "fused": entry["fused"],
-                             "init_score": init_score}
+                             "init_score": inits}
         if stop_idx is not None:
             # trees after the stop ran on the device: drop the blocks
             # dispatched after this one and replay the score up to it
             self._discard_queue()
             self._score.copy_(self._replay_score(stop_idx))
-            if abs(init_score) > _KEPS:
-                # the constant stop tree holds the initial score
-                # (lightgbm_tpu/models/gbdt.py:2566-2570)
+        for k, init in enumerate(inits):
+            if abs(init) > _KEPS and const[k] and (
+                    stop_idx is not None or C > 1):
+                # a constant tree of the bias iteration holds the initial
+                # score and adds it once more, as the JAX package's does
+                # (lightgbm_tpu/models/gbdt.py:2566-2570); the stop
+                # iteration's training score is replayed instead
+                if stop_idx is None:
+                    _class_row(self._score, k).add_(
+                        torch.tensor(np.float32(init), device=self.device))
                 for vs in self.valid_sets:
-                    vs.score.add_(init_score)
+                    _class_row(vs.score, k).add_(init)
         self._landed(self._fused_block)
-        if stop_idx != 0 and abs(init_score) > _KEPS:
-            trees[0].add_bias(init_score)
+        for k, init in enumerate(inits):
+            if not const[k] and abs(init) > _KEPS:
+                trees[k].add_bias(init)
         return self._serve_fused()
 
     def _landed(self, blk: dict) -> None:
         """What a boosting mode does with a landed block before it is
-        served (DART's and random forests' score adds); nothing here."""
+        served: under a refitting objective (blocks of one tree) the
+        renewed tree's float32 values into the training score and each
+        validation set's, as the JAX package's per-iteration path adds
+        them (lightgbm_tpu/models/gbdt.py:2594-2631); nothing else here
+        (DART and random forests override it)."""
+        if not self._per_tree_host or blk["stop_idx"] == 0:
+            return
+        vals = self._tree_values(blk["trees"][0])
+        take_small_add(self._score, vals, self._landed_leaf_idx(blk))
+        for vs in self.valid_sets:
+            take_small_add(vs.score, vals, vs.scorer.li)
 
     def _tree_values(self, tree: Tree) -> torch.Tensor:
         """A host tree's leaf values as kernel L's float32 table on the
@@ -725,13 +820,14 @@ class GBDT:
         return blk["slot"]["leaf_idx"][0, :self.num_data]
 
     def _serve_fused(self) -> bool:
-        """Append the next tree of the landed block: one boosting
-        iteration from the caller's point of view."""
+        """Append the next iteration's trees of the landed block: one
+        boosting iteration from the caller's point of view."""
         blk = self._fused_block
+        C = self.num_tree_per_iteration
         t = blk["served"]
         blk["served"] = t + 1
-        self.models.append(blk["trees"][t])
-        self.last_waves = blk["waves"][t]
+        self.models.extend(blk["trees"][t * C:(t + 1) * C])
+        self.last_waves = blk["waves"][(t + 1) * C - 1]
         if t == blk["stop_idx"]:
             self._stop_flag = True
             Log.warning("Stopped training because there are no more leaves "
@@ -741,19 +837,21 @@ class GBDT:
         return False
 
     def _replay_score(self, pos: int) -> torch.Tensor:
-        """The landed block's start score plus its first ``pos`` trees'
-        score adds: the same kernel-L adds on the same operands as on the
-        block's run, so the same bits."""
+        """The landed block's start score plus its first ``pos``
+        iterations' score adds: the same kernel-L adds on the same
+        operands as on the block's run, so the same bits."""
         slot = self._fused_block["slot"]
-        score = slot["start"].clone()
-        for t in range(pos):
-            take_small_add(score, slot["vals"][t],
+        C = self.num_tree_per_iteration
+        score = class_rows(C, self.num_data, torch.float32, self.device)
+        score.copy_(slot["start"])
+        for t in range(pos * C):
+            take_small_add(_class_row(score, t % C), slot["vals"][t],
                            slot["leaf_idx"][t, :self.num_data])
         return score
 
     def rollback_one_iter(self) -> None:
         """Undo the last served iteration (``GBDT::RollbackOneIter``,
-        ``lightgbm_tpu/models/gbdt.py:3299-3344``): pop its tree, restore
+        ``lightgbm_tpu/models/gbdt.py:3299-3344``): pop its trees, restore
         the training score from its block's start copy and the trees
         served before it, and subtract the popped tree's prediction from
         each validation set's score.  Inside a fused block the feature
@@ -767,14 +865,17 @@ class GBDT:
             return
         self._discard_queue()
         self._stop_flag = False
-        tree = self.models.pop()
+        C = self.num_tree_per_iteration
+        popped = self.models[-C:]
+        del self.models[-C:]
         pos = blk["served"] - 1
         score = self._replay_score(pos)
-        if pos == 0 and abs(blk["init_score"]) > _KEPS:
-            # back before the boost_from_average bias the block's start
-            # copy holds
-            score.sub_(torch.tensor(np.float32(blk["init_score"]),
-                                    device=self.device))
+        for k, init in enumerate(blk["init_score"]):
+            if pos == 0 and abs(init) > _KEPS:
+                # back before the boost_from_average bias the block's
+                # start copy holds
+                _class_row(score, k).sub_(torch.tensor(np.float32(init),
+                                                       device=self.device))
         self._score.copy_(score)
         if blk["fused"]:
             self._trees_dispatched = int(blk["fence"]["tid"]) + pos
@@ -782,18 +883,18 @@ class GBDT:
             for _ in range(pos):
                 self._feature_fraction_mask()
         if self.valid_sets:
-            ff = flatten_forest([tree], self.device)
+            ff = flatten_forest(popped, self.device)
             for vs in self.valid_sets:
-                vs.score -= predict_raw(ff, vs.raw, self.device)
+                vs.score -= predict_raw(ff, vs.raw, self.device, C)
         self.iter -= 1
         self._fused_block = None
 
     def train_score_tensor(self) -> torch.Tensor:
-        """(N,) float32 training score of the trees served so far, on the
-        device: while a block is served, or blocks are in flight, the
-        device score is ahead."""
+        """(N,) float32 training score of the trees served so far ((K, N)
+        for K classes), on the device: while a block is served, or blocks
+        are in flight, the device score is ahead."""
         blk = self._fused_block
-        if blk is not None and blk["served"] < len(blk["trees"]):
+        if blk is not None and blk["served"] < self._block_iters(blk):
             return self._replay_score(blk["served"])
         if self._sq:
             return self._sq[0]["slot"]["start"]
@@ -811,7 +912,8 @@ class GBDT:
         with the train set's bin mappers, and ``raw`` its rows.  The trees
         served so far are added to its score from ``raw``
         (``lightgbm_tpu/models/gbdt.py:1020-1054``)."""
-        vs = ValidSet(name, raw, data, self.device)
+        vs = ValidSet(name, raw, data, self.device,
+                      self.num_tree_per_iteration)
         if self.models:
             self._replay_valid(vs)
         vs.scorer = ValidScorer(self._state, vs.xt,
@@ -822,13 +924,17 @@ class GBDT:
     def _replay_valid(self, vs: ValidSet) -> None:
         """Add the trees served so far to a new validation set's score."""
         vs.score += predict_raw(flatten_forest(self.models, self.device),
-                                vs.raw, self.device)
+                                vs.raw, self.device,
+                                self.num_tree_per_iteration)
 
     def _eval_one_set(self, name: str, score: torch.Tensor, label, weight
                       ) -> list:
         """Every metric on one dataset's raw float64 score, after the
-        objective's output transform; rank metrics give one entry a
-        position (``lightgbm_tpu/models/gbdt.py:2866-2889``)."""
+        objective's output transform; multiclass metrics get the (rows, K)
+        probabilities; rank metrics give one entry a position
+        (``lightgbm_tpu/models/gbdt.py:2866-2889``)."""
+        if score.dim() == 2:
+            score = score.T
         score = self.objective.convert_output(score)
         out = []
         for m in self.metrics:

@@ -121,31 +121,43 @@ def prepare(st: GrowState, stream: torch.cuda.Stream) -> None:
 class TreeRunner:
     """Runs a booster's trees over its :class:`GrowState`.
 
-    ``head()`` computes the gradients and runs ``grow.tree_head``;
-    ``tail()`` runs ``grow.tree_tail`` and whatever the booster does with
-    the tree on the device (the score add, the packed records).  With
-    ``graphs`` (CUDA tensors only) the first tree runs eagerly and the
-    second captures the phases, which every later tree replays.
+    ``head(k)`` computes class k's gradients and runs ``grow.tree_head``;
+    ``tail(k)`` runs ``grow.tree_tail`` and whatever the booster does with
+    the tree on the device (the score add into class k's row, the packed
+    records).  With ``graphs`` (CUDA tensors only) the first tree runs
+    eagerly and the second captures the phases of every class, which
+    every later tree replays.
     ``flag_reads`` counts the wave loop's host reads, ``info`` describes
     the capture (graphs, their kernel launches, host seconds, the pool's
     memory)."""
 
-    def __init__(self, st: GrowState, head, tail, graphs: bool):
+    def __init__(self, st: GrowState, head, tail, graphs: bool,
+                 classes: int = 1):
         if graphs and st.xt.device.type != "cuda":
             raise ValueError("CUDA graphs need CUDA tensors")
         self.st = st
         self.use_graphs = graphs
+        # one head and tail (the whole tree on the exact loop) a class of
+        # a multiclass booster, each reading its class's row: the phases
+        # of class k carry the suffix k, a single class none
+        self.suffix = [""] if classes == 1 else \
+            [str(k) for k in range(classes)]
+        self.phases = {}
+        for k, sfx in enumerate(self.suffix):
+            if st.wave:
+                self.phases["head" + sfx] = lambda k=k: head(k)
+            else:
+                def tree(k=k):
+                    head(k)
+                    serial_steps(st)
+                    tail(k)
+                self.phases["tree" + sfx] = tree
         if st.wave:
-            self.phases = {"head": head, "tail": tail,
-                           "body": lambda: wave_body(st, False)}
+            self.phases["body"] = lambda: wave_body(st, False)
             if st.params.refine_shift:
                 self.phases["body_wide"] = lambda: wave_body(st, True)
-        else:
-            def tree():
-                head()
-                serial_steps(st)
-                tail()
-            self.phases = {"tree": tree}
+            for k, sfx in enumerate(self.suffix):
+                self.phases["tail" + sfx] = lambda k=k: tail(k)
         self.graphs = None
         self.stream = self.pool = None
         self.trees = 0
@@ -158,18 +170,20 @@ class TreeRunner:
         else:
             self.graphs[name].replay()
 
-    def run(self) -> int:
-        """One tree -> its number of waves (0 on the exact loop)."""
+    def run(self, k: int = 0) -> int:
+        """One tree (class ``k``'s) -> its number of waves (0 on the
+        exact loop)."""
         if self.use_graphs and self.graphs is None and self.trees:
             self.capture()
         self.trees += 1
+        sfx = self.suffix[k]
         if not self.st.wave:
-            self._run("tree")
+            self._run("tree" + sfx)
             return 0
-        self._run("head")
+        self._run("head" + sfx)
         waves = wave_loop(self.st, lambda wide: self._run(
             "body_wide" if wide else "body"))
-        self._run("tail")
+        self._run("tail" + sfx)
         self.flag_reads += waves + 1
         return waves
 
@@ -204,30 +218,38 @@ class ValidScorer:
     (F, N) routed through the split records in ``st`` (``route_rows``:
     kernel T on the card) into the static leaf-id buffer ``li`` (uint8 up
     to 256 leaves, else int32), then ``score += vals[li]`` (``score`` (N,)
-    float64, ``vals`` the booster's shrunken float32 leaf values: kernel
-    L's float64 mode on the card).  With ``vals=None`` it only routes: the
-    booster adds the host tree's values once the tree lands (DART and
-    random forests).  It reads only device buffers, so it runs eagerly
-    until ``runner`` holds its tree graphs and from then on as replays of
-    one graph of its own."""
+    float64, or (K, N) with class k's tree added into row k; ``vals`` the
+    booster's shrunken float32 leaf values: kernel L's float64 mode on
+    the card).  With ``vals=None`` it only routes: the booster adds the
+    host tree's values once the tree lands (DART, random forests, leaf
+    renewal).  It reads only device buffers, so it runs eagerly until
+    ``runner`` holds its tree graphs and from then on as replays of one
+    graph a class."""
 
     def __init__(self, st: GrowState, xt: torch.Tensor, vals, score):
         self.st, self.xt, self.vals, self.score = st, xt, vals, score
         self.li = torch.zeros(xt.shape[1], dtype=st.li_dtype,
                               device=xt.device)
-        self.graph = None
+        self.graphs = {}
 
-    def _score(self) -> None:
+    @property
+    def graph(self):
+        """Class 0's graph (the only one of a single-class booster)."""
+        return self.graphs.get(0)
+
+    def _score(self, k: int = 0) -> None:
         rec = self.st.rec
         route_rows(self.xt, rec["leaf"], rec["feature"], rec["left_mask"],
                    rec["valid"], self.st.params.num_leaves, out=self.li)
         if self.vals is not None:
-            lookup.take_small_add(self.score, self.vals, self.li)
+            row = self.score if self.score.dim() == 1 else self.score[k]
+            lookup.take_small_add(row, self.vals, self.li)
 
-    def run(self, runner: TreeRunner) -> None:
+    def run(self, runner: TreeRunner, k: int = 0) -> None:
         if runner.graphs is None:
-            self._score()
+            self._score(k)
             return
-        if self.graph is None:
-            self.graph = Graph(self._score, runner.stream, runner.pool)
-        self.graph.replay()
+        if k not in self.graphs:
+            self.graphs[k] = Graph(lambda: self._score(k), runner.stream,
+                                   runner.pool)
+        self.graphs[k].replay()

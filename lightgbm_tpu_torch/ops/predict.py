@@ -4,7 +4,8 @@ Counterpart of ``lightgbm_tpu/ops/predict.py`` for numerical trees: the
 forest is flattened into padded per-tree node tables, every row walks
 all trees of a chunk at once (one gather per level, a fixed number of
 levels: the deepest leaf's depth, known on the host), and leaf values
-are summed in float64.  Decisions follow the JAX package's
+are summed in float64, per class for a multiclass forest (tree t is
+class t mod K).  Decisions follow the JAX package's
 ``Tree._decide`` (``lightgbm_tpu/models/tree.py``): missing type None or
 Zero treats NaN as 0, a
 missing value takes the node's default direction, else ``value <=
@@ -98,13 +99,22 @@ def _leaves(ff: FlatForest, lo: int, hi: int, Xt: torch.Tensor
     return ~node
 
 
-def predict_raw(ff: FlatForest, X, device: torch.device) -> torch.Tensor:
-    """(N,) float64 raw scores: the sum of every tree's leaf value."""
+def predict_raw(ff: FlatForest, X, device: torch.device,
+                num_class: int = 1) -> torch.Tensor:
+    """(N,) float64 raw scores: the sum of every tree's leaf value; with
+    ``num_class`` K > 1, (K, N): class k sums trees k, k + K, ..."""
     Xt = torch.as_tensor(np.asarray(X), device=device).to(
         torch.float64).T.contiguous()
-    out = torch.zeros(Xt.shape[1], dtype=torch.float64, device=device)
+    N = Xt.shape[1]
+    out = torch.zeros((num_class, N), dtype=torch.float64, device=device)
     for lo in range(0, ff.num_trees, _TREES_PER_CHUNK):
         hi = min(lo + _TREES_PER_CHUNK, ff.num_trees)
         leaf = _leaves(ff, lo, hi, Xt)
-        out += torch.gather(ff.leaf_value[lo:hi], 1, leaf).sum(dim=0)
-    return out
+        vals = torch.gather(ff.leaf_value[lo:hi], 1, leaf)
+        if num_class == 1:
+            out[0] += vals.sum(dim=0)
+            continue
+        cls = torch.arange(lo, hi, device=device) % num_class
+        for k in range(num_class):
+            out[k] += vals[cls == k].sum(dim=0)
+    return out[0] if num_class == 1 else out
