@@ -63,7 +63,20 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    side) at 1, 7, 31, 255 and 1500 leaves, uint8 and int16 bins, uint8
    and int32 ids, ragged lengths, and at 1024, 500k x 28 and 10.5M x 28
    with 255 leaves, one launch a call, with its bound from the sectors
-   the rows' walks read;
+   the rows' walks read; and kernel U, LambdaRank's lambdas (run after
+   phase 11, on phase 13's data): against its plain version at the
+   MS-LTR shape (9,999 queries of 227 documents, bench.py's labels) on
+   the all-equal first iteration and a trained-like score, on its first
+   500 queries, and on a skewed set (a 20,000-document query that walks
+   device memory, queries of 1 document, sizes around a block's and
+   shared memory's; with weights, without ``lambdamart_norm``), a repeat
+   launch bit for bit and every document within one float32 ulp of the
+   plain version, each one-ulp document explained by its float64 sum's
+   order (the count printed); at the MS-LTR shape its time, device time,
+   CUDA launches a call, the plain version's time, and its bound from its
+   SASS (the pair loop's float64 instructions, ``tools/sass_ops.py``,
+   times the pairs of documents with different labels, at 64 float64
+   lanes an SM and the card's maximum clock);
 3. the exact path: trains the Higgs-shaped configuration at full width
    (10.5M x 28, num_leaves=255, max_bin=255, learning_rate=0.1,
    min_sum_hessian_in_leaf=100) in three modes, 6 trees each, the launch
@@ -101,7 +114,11 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    and with GOSS, softmax and one-vs-all on the exact loop, float waves
    and two-column coarse-to-fine waves, identical trees card against CPU,
    and the objectives that do not refit leaves at fused_iters=4 the same
-   bits as at 1 on the card;
+   bits as at 1 on the card; then lambdarank on the MS-LTR generator's
+   first 88 queries (19,976 x 136) on the exact loop at 31 leaves and
+   two-column waves at 127 without and with coarse-to-fine (fused_iters=4
+   the bits of 1 on the card), and a numpy log-loss ``fobj`` on the exact
+   loop at 31 leaves (50k rows), identical trees card against CPU;
 7. (run before phase 6, on phase 3's data) each of the three paths at
    full width with the 500k-row holdout as a validation set, through
    ``train(valid_sets=..., evals_result=..., early_stopping_rounds=...,
@@ -171,7 +188,25 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    trees each, graphed and eager the same bits and launches, the
    training score within 1e-4 of the trees' prediction on the first 500k
    rows, the renewal's ms a tree (synchronised), one renewal profiled
-   (device ms and share) and the rows whose weights went to the host.
+   (device ms and share) and the rows whose weights went to the host;
+13. (run after phase 12, on phase 3's data) ``higgs-wave255-noc2f-fobj``:
+   a numpy binary log loss through ``Booster.update(fobj=)`` on wave255
+   without coarse-to-fine, 6 iterations on the graphs (kernels M, R, Q, S
+   and L launched, graph replays), seconds an iteration beside the
+   built-in binary's of phase 4, the host's fobj ms, the training score's
+   fetch and the gradients' copy; then (run after phase 11) bench.py's
+   MS-LTR row, ``msltr-lambdarank`` (2,269,773 x 136, 9,999 queries of
+   227, lambdarank with ``metric=ndcg``, ``eval_at=[1, 3, 5, 10]``, 255
+   leaves, wave255's parameters with coarse-to-fine as it ships): the
+   Dataset's construction seconds, 6 iterations graphed, eagerly and at
+   fused_iters=5 (the same trees and launches), kernel U once a tree,
+   its share of a profiled iteration's device time, the replays a tree,
+   NDCG@10 of a 200-query training subset above a constant score's; and
+   ``msltr-lambdarank-valid``: ``train`` with a 1,000-query holdout from
+   the same generator as a grouped validation set, ndcg@1, 3, 5 and 10
+   within 1e-9 of a numpy NDCG of the fetched score, the score within
+   1e-5 of the trees' prediction, kernels U, T and L's float64 mode once
+   a tree.  Each phase prints its seconds.
 
 Every phase passes or the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
@@ -2428,18 +2463,20 @@ def _same_trees(a, b, what, n_trees):
 
 
 def _train_reduced(job):
-    """One reduced training: ``(X, y, params, rounds)`` -> its trees, raw
+    """One reduced training: ``(X, y, params, rounds, {"group": query
+    counts or None, "fobj": a custom objective or None})`` -> its trees, raw
     and converted predictions on ``X``, model text, training score, the
     trees of each landed block and the coarse-to-fine shift.  The CPU's
     runs of phase 6 run it in a pool of spawned processes, one thread
     each, while the card trains."""
-    X, y, params, rounds = job
+    X, y, params, rounds, extra = job
     import torch
     if params["device_type"] == "cpu":
         torch.set_num_threads(1)
     import lightgbm_tpu_torch as ltt
-    b = ltt.train(params, ltt.Dataset(X, label=y, params=params),
-                  num_boost_round=rounds)
+    b = ltt.train(params, ltt.Dataset(X, label=y, group=extra.get("group"),
+                                      params=params),
+                  num_boost_round=rounds, fobj=extra.get("fobj"))
     g = b._gbdt
     return {"models": list(b.models), "raw": b.predict(X, raw_score=True),
             "pred": b.predict(X), "text": b.model_to_string(),
@@ -2451,7 +2488,7 @@ def _train_reduced(job):
 def reduced_cells():
     """Phase 6's cells: {what: (X, y, params, rounds, the card's
     fused_iters, the CPU's, refine_shift wanted or None, blocks at
-    fused_iters=4 or None)}."""
+    fused_iters=4 or None, {"group": ..., "fobj": ...} or {})}."""
     X, y = make_higgs_shaped(50_000, N_FEATURES, seed=1)
     rng = np.random.RandomState(2)
     X[rng.rand(len(X)) < 0.05, 5] = np.nan      # exercise missing values
@@ -2485,8 +2522,12 @@ def reduced_cells():
             bagging_freq=1, feature_fraction=0.8), (1,), (1,)),
     }
     cells = {what: (X, y, dict(TRAIN_PARAMS, **extra), 10, card, cpu,
-                    4 if "c2f" in what else 0, [1, 4, 4, 1])
+                    4 if "c2f" in what else 0, [1, 4, 4, 1], {})
              for what, (extra, card, cpu) in base.items()}
+    # a custom objective (a numpy log loss) on the exact loop
+    cells["exact, fobj"] = (X, y, dict(TRAIN_PARAMS, num_leaves=31,
+                                       objective="none"), 10, (1,), (1,),
+                            None, None, {"fobj": logloss_fobj})
     # the objective zoo: 20k rows, 5% NaN, 5 iterations
     Xz, _ = make_higgs_shaped(ZOO_ROWS, N_FEATURES, seed=1)
     z = regression_label(Xz)
@@ -2500,14 +2541,14 @@ def reduced_cells():
         fuse = name not in ZOO_RENEW
         cells[name] = (Xz, labels[name], dict(exact, objective=name),
                        ZOO_ITERS, (1, 4) if fuse else (1,), (1,), None,
-                       [1, 4] if fuse else None)
+                       [1, 4] if fuse else None, {})
     for name in ("regression_l1", "mape"):
         for what, extra in (("bagging", {"bagging_fraction": 0.7,
                                          "bagging_freq": 1}),
                             ("GOSS", {"boosting": "goss"})):
             cells[f"{name}, {what}"] = (Xz, labels[name], dict(
                 exact, objective=name, **extra), ZOO_ITERS, (1,), (1,),
-                None, None)
+                None, None, {})
     for obj in ("multiclass", "multiclassova"):
         for loop, extra in (("exact", {"num_leaves": 31}),
                             ("float waves", {"num_leaves": 31,
@@ -2518,7 +2559,20 @@ def reduced_cells():
             cells[f"{obj}, {loop}"] = (Xm, ym, dict(
                 TRAIN_PARAMS, **extra, objective=obj,
                 num_class=MC_CLASSES), ZOO_ITERS, (1,), (1,),
-                4 if "c2f" in loop else None, None)
+                4 if "c2f" in loop else None, None, {})
+    # lambdarank: the MS-LTR generator's first 88 queries (19,976 rows x
+    # 136 features), on three loops, K=4 the bits of K=1 on the card
+    Xr, yr, cr, _, _, _ = make_msltr(ZOO_ROWS // RANK_DOCS, RANK_DOCS,
+                                     RANK_FEATURES)
+    for loop, extra in (("exact", {"num_leaves": 31}),
+                        ("two-column waves", dict(WAVE_PARAMS,
+                                                  num_leaves=127)),
+                        ("two-column c2f waves", dict(WAVE255_PARAMS,
+                                                      num_leaves=127))):
+        cells[f"lambdarank, {loop}"] = (Xr, yr, dict(
+            TRAIN_PARAMS, **extra, objective="lambdarank", metric="None"),
+            ZOO_ITERS, (1, 4), (1,), 4 if "c2f" in loop else None, [1, 4],
+            {"group": cr})
     return cells
 
 
@@ -2543,14 +2597,15 @@ def phase_device_vs_cpu(ltt):
     t_start = time.perf_counter()
     with ctx.Pool(workers) as pool:
         jobs = {(what, f): pool.apply_async(_train_reduced, ((
-            X, y, dict(p, device_type="cpu", fused_iters=f), rounds),))
-            for what, (X, y, p, rounds, _, cpu_fused, _, _) in cells.items()
-            for f in cpu_fused}
+            X, y, dict(p, device_type="cpu", fused_iters=f), rounds, ex),))
+            for what, (X, y, p, rounds, _, cpu_fused, _, _, ex)
+            in cells.items() for f in cpu_fused}
         for what, (X, y, p, rounds, fused, cpu_fused, shift,
-                   blocks4) in cells.items():
+                   blocks4, ex) in cells.items():
             t0 = time.perf_counter()
             card = {f: _train_reduced((X, y, dict(p, device_type=DEVICE,
-                                                  fused_iters=f), rounds))
+                                                  fused_iters=f), rounds,
+                                       ex))
                     for f in fused}
             card_s = time.perf_counter() - t0
             cpu = {f: jobs[what, f].get() for f in cpu_fused}
@@ -3363,6 +3418,524 @@ def phase_regression(torch, ltt, data):
     return counts_by, out
 
 
+# phase 2's kernel U and phase 13: bench.py's MS-LTR row (bench.py:2231-2279:
+# RandomState(11), 9,999 queries of 227 documents, 136 features; relevance
+# X0 + 0.5 X1 + 0.8 noise cut at its 60/80/92/98th percentiles into labels
+# 0-4), wave255's parameters as bench.py runs the row; a 1,000-query holdout
+# drawn next from the same generator (the training set's cut points)
+RANK_QUERIES, RANK_DOCS, RANK_FEATURES = 9_999, 227, 136
+RANK_HOLDOUT_QUERIES = 1_000
+RANK_EVAL_AT = [1, 3, 5, 10]
+RANK_PARAMS = {"objective": "lambdarank", "num_leaves": 255, "max_bin": 255,
+               "learning_rate": 0.1, "min_sum_hessian_in_leaf": 100.0,
+               "min_data_in_leaf": 0, "verbose": -1, "metric": "ndcg",
+               "eval_at": RANK_EVAL_AT, "wave_splits": True,
+               "use_quantized_grad": True}
+RANK_NAMES = ("lambdarank", "multi_histogram", "window_histogram",
+              "routed_histogram", "lanes_window_histogram", "leaf_stats",
+              "leaf_lookup")
+# the subset whose NDCG shows that ranking was learned (bench.py:2264)
+RANK_SUBSET_QUERIES = 200
+# the skewed set of kernel U's checks: a query past shared memory (it walks
+# device memory), queries of one document, and sizes around a block's
+SKEWED_COUNTS = (1, 20_000, 1, 2, 255, 256, 257, 1, 3000, 1, 11_520, 17)
+# the card's float64 rate outside the tensor cores: 64 FMA lanes an SM a
+# clock, 2 operations each (33.4 TFLOP/s at 132 SMs and 1980 MHz)
+FP64_LANES = 64
+# the float64 operations one unordered pair of documents with different
+# labels needs (ops/rank.py's formula): the score, gain and discount
+# differences (3), delta's two products, the clip's two bounds, the scale
+# by 2 sigmoid, exp, 1 + exp, 2 / that, delta p, 2 - p and eta's two
+# products (12 together), and each document's g and h sums (4); an exp and
+# a division count as one operation each
+PAIR_FP64_OPS = 19
+# lambdamart_norm's 0.01 + |ds| and its division, when a query's scores
+# are not all equal
+NORM_FP64_OPS = 2
+
+
+def make_msltr(n_queries, docs, n_features, n_holdout_queries=0):
+    """bench.py's MS-LTR generator (bench.py:2239-2246), copied, then a
+    holdout of ``n_holdout_queries`` from the same stream cut at the
+    training set's percentiles -> (X, y, counts, Xh, yh, counts_h)."""
+    rng = np.random.RandomState(11)
+    n = n_queries * docs
+    X = rng.randn(n, n_features).astype(np.float32)
+    rel = X[:, 0] + 0.5 * X[:, 1] + 0.8 * rng.randn(n)
+    cuts = np.percentile(rel, [60, 80, 92, 98])
+    y = np.clip(np.digitize(rel, cuts), 0, 4).astype(np.float32)
+    nh = n_holdout_queries * docs
+    Xh = rng.randn(nh, n_features).astype(np.float32)
+    relh = Xh[:, 0] + 0.5 * Xh[:, 1] + 0.8 * rng.randn(nh)
+    yh = np.clip(np.digitize(relh, cuts), 0, 4).astype(np.float32)
+    return (X, y, np.full(n_queries, docs, np.int64), Xh, yh,
+            np.full(n_holdout_queries, docs, np.int64))
+
+
+def np_ndcg(label, score, counts, k, gains):
+    """Mean NDCG@k over queries of ``counts`` rows, in numpy: a stable
+    descending order of the score, gains ``gains[label]``, a query with
+    no relevant row counting 1 (the reference's convention)."""
+    out = []
+    lo = 0
+    for m in counts:
+        g = gains[label[lo:lo + m].astype(np.int64)]
+        s = score[lo:lo + m]
+        lo += m
+        if g.sum() <= 0:
+            out.append(1.0)
+            continue
+        top = g[np.argsort(-s, kind="stable")[:k]]
+        ideal = np.sort(g)[::-1][:k]
+        disc = 1.0 / np.log2(np.arange(2, k + 2, dtype=np.float64))
+        out.append(np.sum(top * disc[:len(top)]) /
+                   np.sum(ideal * disc[:len(ideal)]))
+    return float(np.mean(out))
+
+
+def _ulps(torch, a, b):
+    """|a - b| in float32 ulps (by the integer order of the bits)."""
+    def key(t):
+        i = t.view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (key(a) - key(b)).abs()
+
+
+def _explain_ulp(torch, tr, lay, score, weight, doc, which, k_val, norm):
+    """True when document ``doc``'s one-ulp difference in its gradient
+    (``which`` 0) or hessian (1) is the order of its float64 sum: its
+    terms summed in index order (the kernel's) round to the kernel's
+    float32 value, and their exact sum (``math.fsum``) lies within 1e-12
+    of a float32 rounding boundary, where another float64 order (the
+    plain version's ``torch.sum``) may round to the other side."""
+    import math
+    qb = lay.qb.cpu().numpy()
+    q = int(np.searchsorted(qb, doc, side="right") - 1)
+    lo, m = int(qb[q]), int(qb[q + 1] - qb[q])
+    s = score[lo:lo + m].to(torch.float64)[None]
+    lab = lay.label[lo:lo + m][None]
+    gn = lay.gain[lo:lo + m].to(torch.float64)[None]
+    j = torch.arange(m, device=s.device)
+    rk = ((s[0][None, :] > s[0][:, None]) |
+          ((s[0][None, :] == s[0][:, None]) & (j[None, :] < j[:, None]))
+          ).sum(1)
+    disc = lay.disc[rk][None]
+    valid = torch.ones((1, m), dtype=torch.bool, device=s.device)
+    inv = lay.inv_max[q:q + 1].to(torch.float64)
+    scaled = torch.tensor([bool(s.max() != s.min())], device=s.device)
+    i = doc - lo
+    row = tr.pair_terms(s, lab, gn, disc, valid, inv, scaled,
+                        slice(i, i + 1), 2.0, norm)[which][0, 0].cpu()
+    seq = torch.cumsum(row, 0)[-1].to(torch.float32)
+    w = torch.ones(()) if weight is None else weight[doc].cpu()
+    exact = math.fsum(row.tolist())
+    f = np.float32(exact)
+    nb = np.nextafter(f, np.float32(np.inf if exact > f else -np.inf))
+    mid = (float(f) + float(nb)) / 2
+    return bool(seq * w == k_val.cpu()) and \
+        abs(exact - mid) <= 1e-12 * abs(mid)
+
+
+def check_rank(torch, tr, lay, score, ctx, weight=None, norm=True):
+    """Kernel U against its plain version on the same CUDA tensors and a
+    repeat launch: the repeat bit for bit; each document within one
+    float32 ulp of the plain version, and every one-ulp document explained
+    by its float64 sum's order (``_explain_ulp``).  Returns (the count of
+    one-ulp documents, the largest |U - plain| over grad and hess)."""
+    g, h = (t.clone() for t in tr.lambda_gradients(score, lay, weight, 1.0,
+                                                    norm))
+    g2, h2 = (t.clone() for t in tr.lambda_gradients(score, lay, weight,
+                                                      1.0, norm))
+    gp, hp = tr.lambdarank_plain(score, lay, weight, 1.0, norm)
+    torch.cuda.synchronize()
+    if not (torch.equal(g.view(torch.int32), g2.view(torch.int32)) and
+            torch.equal(h.view(torch.int32), h2.view(torch.int32))):
+        fail(f"kernel U gave other bits on a repeat launch ({ctx})")
+    ulp1, err = 0, 0.0
+    for which, (k, p, what) in enumerate(((g, gp, "grad"),
+                                          (h, hp, "hess"))):
+        if not bool(torch.isfinite(k).all()):
+            fail(f"kernel U's {what} is not finite ({ctx})")
+        err = max(err, float((k.double() - p.double()).abs().max()))
+        d = _ulps(torch, k, p)
+        if int(d.max()) > 1:
+            fail(f"kernel U's {what} is {int(d.max())} ulp from its plain "
+                 f"version ({ctx})")
+        docs = torch.nonzero(d == 1).flatten().tolist()
+        ulp1 += len(docs)
+        for doc in docs[:20]:
+            if not _explain_ulp(torch, tr, lay, score, weight, doc, which,
+                                k[doc], norm):
+                fail(f"kernel U's {what} of document {doc} is one ulp from "
+                     f"its plain version and not by its sum's order ({ctx})")
+    return ulp1, err
+
+
+def event_ms(fn, reps):
+    """Device milliseconds of one call of ``fn``, each call alone between
+    its own CUDA event pair after a synchronise (no queue to hide the
+    host's launch), the mean over ``reps`` after one warm-up call."""
+    import torch
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / reps
+
+
+def rank_launches(call):
+    """The launch counters' rise over one call of ``call``: kernel U once,
+    and no other kernel."""
+    before = read_counts()
+    call()
+    launched = {k: v - before[k] for k, v in read_counts().items()
+                if v != before[k]}
+    if launched != {"lambdarank": 1}:
+        fail(f"kernel U: the launch counters rose by {launched} over a "
+             f"call, not one launch")
+    return launched
+
+
+def rank_pairs(lay):
+    """Unordered pairs of documents with different labels, summed over
+    queries: the pairs the lambdas need (each adds to both documents)."""
+    lab = lay.label.cpu().numpy().astype(np.int64)
+    qb = np.concatenate([[0], np.cumsum(lay.counts)])
+    q = np.repeat(np.arange(len(lay.counts)), lay.counts)
+    per = np.zeros((len(lay.counts), int(lab.max()) + 1), np.int64)
+    np.add.at(per, (q, lab), 1)
+    same = (per * (per - 1) // 2).sum()
+    m = np.diff(qb)
+    return int((m * (m - 1) // 2).sum() - same)
+
+
+def pair_ops():
+    """The kernel's own instructions a step of its pair loop, by pipe
+    (``tools/sass_ops.py``'s ``fp64_loop``: a step is one pair of one
+    document's walk, so an unordered pair takes two): a reading of the
+    kernel's overhead beside the bound, not the bound."""
+    from lightgbm_tpu_torch.tools import sass_ops
+    counts = sass_ops.kernel_counts("rank.cu")
+    loops = [c["fp64_loop"] for k, c in counts.items()
+             if "lambda_kernel" in k]
+    if len(loops) != 1 or loops[0] is None or loops[0]["mufu"] < 1:
+        fail(f"the SASS of kernel U's pair loop: {counts}")
+    return loops[0]
+
+
+def rank_bound_ms(pairs, ops_per_pair, clock_mhz, sms):
+    """The float64 pipe's least time for ``pairs`` unordered pairs of
+    ``ops_per_pair`` float64 operations each: 2 operations a lane a clock
+    (an FMA), ``FP64_LANES`` lanes an SM."""
+    peak = 2 * FP64_LANES * sms * clock_mhz * 1e6
+    return pairs * ops_per_pair / peak * 1e3
+
+
+def phase_kernels_rank(torch, dev, X, y, counts):
+    """Phase 2's kernel U: against its plain version (``check_rank``) at
+    the MS-LTR shape (the all-equal first iteration and a trained-like
+    score), its first 500 queries, and the skewed set (a 20,000-document
+    query through device memory, queries of one document), with weights
+    and without ``lambdamart_norm`` too; at the MS-LTR shape its time,
+    device time and CUDA launches a call, its bound from its SASS and the
+    plain version's time."""
+    from lightgbm_tpu_torch.objectives import default_label_gain
+    from lightgbm_tpu_torch.ops import kernels
+    from lightgbm_tpu_torch.ops import rank as tr
+    gains = default_label_gain()
+    n = len(y)
+    qb = np.concatenate([[0], np.cumsum(counts)])
+    lay = tr.rank_layout(qb, y, gains, 20, dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    trained = (torch.from_numpy(0.3 * X[:, 0] + 0.15 * X[:, 1]).to(dev) +
+               0.05 * torch.randn(n, generator=g, device=dev)).float()
+    equal = torch.zeros(n, dtype=torch.float32, device=dev)
+    ulp1, errs = {}, {}
+    for name, score in (("all equal", equal), ("trained", trained)):
+        ctx = f"msltr, {name}"
+        ulp1[ctx], errs[ctx] = check_rank(torch, tr, lay, score,
+                                          f"MS-LTR shape, {name}")
+    n500 = 500 * RANK_DOCS
+    lay500 = tr.rank_layout(qb[:501], y[:n500], gains, 20, dev)
+    ulp1["500 queries"], errs["500 queries"] = check_rank(
+        torch, tr, lay500, trained[:n500], "500 queries")
+    sk = np.asarray(SKEWED_COUNTS, np.int64)
+    ns = int(sk.sum())
+    ys = y[:ns] if ns <= n else np.resize(y, ns)
+    lays = tr.rank_layout(np.concatenate([[0], np.cumsum(sk)]), ys, gains,
+                          20, dev)
+    if lays.scratch is None or lays.smem_docs != tr.SMEM_DOCS:
+        fail("the skewed set does not take kernel U's device-memory path")
+    ss = trained[:ns] if ns <= n else trained.repeat(-(-ns // n))[:ns]
+    w = (torch.rand(ns, generator=g, device=dev) + 0.5).float()
+    for ctx, kw in (("skewed", {}), ("skewed, weights", {"weight": w}),
+                    ("skewed, no norm", {"norm": False}),
+                    ("skewed, all equal", {})):
+        score = torch.zeros_like(ss) if "equal" in ctx else ss
+        ulp1[ctx], errs[ctx] = check_rank(torch, tr, lays, score, ctx, **kw)
+    err = max(errs.values())
+    print(f"kernel U: bit for bit on repeat launches; documents one ulp from "
+          f"the plain version (each explained by its float64 sum's order): "
+          f"{ulp1}; largest |U - plain| {errs}", flush=True)
+    # readings at the MS-LTR shape, on the trained-like score
+    call = lambda: tr.lambda_gradients(trained, lay, None, 1.0, True)  # noqa
+    ms = cuda_ms(call, reps=10)
+    dev_ms = event_ms(call, reps=10)
+    launched = rank_launches(call)
+    plain_ms = cuda_ms(lambda: tr.lambdarank_plain(trained, lay, None, 1.0,
+                                                   True), reps=2)
+    ms500 = cuda_ms(lambda: tr.lambda_gradients(trained[:n500], lay500, None,
+                                                1.0, True), reps=10)
+    ms_sk = cuda_ms(lambda: tr.lambda_gradients(ss, lays, None, 1.0, True),
+                    reps=2)
+    per_pair = pair_ops()
+    pairs = rank_pairs(lay)
+    _, clock_top = clocks_line()
+    sms = kernels.sm_count(dev)
+    # every query of the trained-like score has scores that differ, so
+    # lambdamart_norm divides each pair
+    ops = PAIR_FP64_OPS + NORM_FP64_OPS
+    ops_ms = rank_bound_ms(pairs, ops, clock_top, sms)
+    # bytes: score, label, gain read; grad, hess written; the query table
+    nbytes = 4 * n * 5 + 12 * len(counts)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ms, b_by = (ops_ms, "operations") if ops_ms >= bytes_ms else \
+        (bytes_ms, "bytes")
+    print(f"kernel U at the MS-LTR shape ({len(counts)} queries of "
+          f"{RANK_DOCS}): {ms:.4f} ms, device {dev_ms:.4f} ms a launch alone "
+          f"(events), counted {launched} a call (plain {plain_ms:.3f} ms); "
+          f"bound {b_ms:.4f} ms by {b_by} ({pairs} unordered pairs with "
+          f"different labels x {ops} float64 operations at 2 x "
+          f"{FP64_LANES} an SM a clock, {clock_top:.0f} MHz x {sms} SMs; "
+          f"bytes {bytes_ms:.4f} ms); the kernel's own pair step "
+          f"{per_pair['total']} instructions ({per_pair['fp64']} float64, "
+          f"{per_pair['mufu']} MUFU), two steps a pair; 500 queries "
+          f"{ms500:.4f} ms; skewed set {ms_sk:.3f} ms", flush=True)
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
+                launches_per_call=launched["lambdarank"], plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                pairs=pairs, pair_fp64_ops=ops,
+                pair_step_instructions=per_pair["total"],
+                pair_step_fp64=per_pair["fp64"],
+                pair_step_mufu=per_pair["mufu"], bytes_bound_ms=bytes_ms,
+                ulp1_documents=ulp1, max_abs_err_by_shape=errs,
+                ms_500_queries=ms500, ms_skewed=ms_sk, queries=len(counts),
+                docs=RANK_DOCS)
+
+
+def rank_share(torch, booster, iters=3):
+    """Kernel U's device ms and its share of an iteration's time on the
+    card, both by CUDA events: ``iters`` graphed iterations between one
+    event pair (idle gaps, where the card waits on the host, included),
+    and U launched alone ``iters`` times on the booster's own score and
+    layout (``event_ms``)."""
+    gbdt = booster._gbdt
+    obj = gbdt.objective
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(iters):
+        booster.update()
+    b.record()
+    b.synchronize()
+    iter_ms = a.elapsed_time(b) / iters
+    u_ms = event_ms(lambda: obj.get_gradients(gbdt._score), iters)
+    return {"iteration_ms": iter_ms, "kernel_u_ms": u_ms,
+            "kernel_u_share": u_ms / iter_ms}
+
+
+def _subset_ndcg(b, X, y, counts):
+    """NDCG@{1,3,5,10} of the first ``RANK_SUBSET_QUERIES`` queries, the
+    model's against a constant score's (the rows in their order)."""
+    from lightgbm_tpu_torch.objectives import default_label_gain
+    gains = default_label_gain()
+    nq = RANK_SUBSET_QUERIES
+    n = int(np.sum(counts[:nq]))
+    pred = b.predict(X[:n], raw_score=True)
+    model = {k: np_ndcg(y[:n], pred, counts[:nq], k, gains)
+             for k in RANK_EVAL_AT}
+    const = {k: np_ndcg(y[:n], np.zeros(n), counts[:nq], k, gains)
+             for k in RANK_EVAL_AT}
+    return model, const
+
+
+def phase_ranking(torch, ltt, X, y, counts, Xh, yh, ch):
+    """Phase 13: bench.py's MS-LTR row at full width (``msltr-lambdarank``:
+    the Dataset's construction seconds; 6 iterations graphed, eager and at
+    fused_iters=5, the same bits and launches; kernel U once a tree; its
+    share of an iteration's device time; NDCG@10 of a 200-query training
+    subset above a constant score's), then ``msltr-lambdarank-valid``
+    (``train`` with the 1,000-query holdout as a grouped validation set:
+    ndcg@1,3,5,10 within 1e-9 of a numpy NDCG of the fetched score, the
+    score within 1e-5 of the trees' prediction)."""
+    from lightgbm_tpu_torch.objectives import default_label_gain
+    p = dict(RANK_PARAMS, device_type=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = ltt.Dataset(X, label=y, group=counts, params=p).construct()
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    print(f"msltr-lambdarank: Dataset construction {construct_s:.1f} s "
+          f"({len(y)} x {X.shape[1]}, {len(counts)} queries)", flush=True)
+    runs = run_paths(torch, ltt, ds, p, "msltr-lambdarank")
+    main = runs["graphs"]
+    _check_launches(main["counts"], RANK_NAMES, "msltr-lambdarank")
+    if main["counts"]["lambdarank"] != N_TREES:
+        fail(f"msltr-lambdarank: kernel U ran {main['counts']['lambdarank']}"
+             f" times in {N_TREES} trees")
+    b = main["booster"]
+    share = rank_share(torch, b)
+    model, const = _subset_ndcg(b, X, y, counts)
+    if not model[10] > const[10]:
+        fail(f"msltr-lambdarank: NDCG@10 {model[10]} of the subset is not "
+             f"above a constant score's {const[10]}")
+    it_s = statistics.median(main["iter_s"])
+    out = {"msltr-lambdarank": dict(
+        _summary(runs), construct_s=construct_s,
+        kernel_u_per_tree=main["counts"]["lambdarank"] / N_TREES,
+        replays_per_tree=main["replays"] / N_TREES, kernel_u=share,
+        subset_ndcg=model, constant_ndcg=const)}
+    counts_by = {"msltr-lambdarank": main["counts"]}
+    print(f"msltr-lambdarank: s/iteration {it_s:.4f}, kernel U "
+          f"{main['counts']['lambdarank'] / N_TREES:.0f} a tree, "
+          f"{share['kernel_u_ms']:.4f} ms a launch of an iteration's "
+          f"{share['iteration_ms']:.3f} ms on the card (share "
+          f"{share['kernel_u_share']:.4f}; CUDA events), replays a tree "
+          f"{main['replays'] / N_TREES:.1f}; subset NDCG {model} against a "
+          f"constant score's {const}", flush=True)
+    del b, runs, main
+    torch.cuda.empty_cache()
+    # with the holdout as a grouped validation set
+    valid = ds.create_valid(Xh, label=yh, group=ch).construct()
+    res, clock = {}, _Clock(torch)
+    reset_counts()
+    torch.cuda.synchronize()
+    b = ltt.train(p, ds, num_boost_round=N_TREES, valid_sets=[valid],
+                  valid_names=["holdout"], evals_result=res,
+                  callbacks=[clock], verbose_eval=False)
+    torch.cuda.synchronize()
+    stamps = clock.t + [time.perf_counter()]
+    valid_iter_s = list(np.diff(stamps)[1:])
+    counts_v = read_counts()
+    score = b._gbdt.valid_sets[0].score.cpu().numpy()
+    pred = b.predict(Xh, raw_score=True)
+    sdiff = float(np.max(np.abs(score - pred)))
+    if not sdiff <= 1e-5:
+        fail(f"msltr holdout score is {sdiff} from the trees' prediction")
+    gains = default_label_gain()
+    got = {}
+    for k in RANK_EVAL_AT:
+        want = np_ndcg(yh, score, ch, k, gains)
+        got[k] = res["holdout"][f"ndcg@{k}"][-1]
+        if not abs(got[k] - want) <= 1e-9:
+            fail(f"msltr holdout ndcg@{k} {got[k]} vs numpy {want}")
+    if counts_v.get("route", 0) != N_TREES or \
+            counts_v.get("leaf_lookup_f64", 0) != N_TREES or \
+            counts_v.get("lambdarank", 0) != N_TREES:
+        fail(f"msltr holdout: {counts_v} (kernel U, T and L's float64 mode "
+             f"once a tree)")
+    valid_s = statistics.median(valid_iter_s)
+    out["msltr-lambdarank-valid"] = {
+        "seconds_per_iteration": valid_s, "iteration_seconds": valid_iter_s,
+        "holdout_ndcg": got, "score_vs_prediction": sdiff,
+        "launches_per_tree": {k: v / N_TREES for k, v in counts_v.items()
+                              if v}}
+    counts_by["msltr-lambdarank-valid"] = counts_v
+    print(f"msltr-lambdarank-valid: s/iteration {valid_s:.4f}, holdout "
+          f"ndcg {got} (numpy within 1e-9), score vs prediction "
+          f"{sdiff:.3g}", flush=True)
+    del b, ds, valid
+    torch.cuda.empty_cache()
+    return counts_by, out
+
+
+def logloss_fobj(score, dataset):
+    """A numpy binary log loss: the custom objective of the fobj cells."""
+    y = dataset.get_label()
+    p = 1.0 / (1.0 + np.exp(-score))
+    return p - y, p * (1.0 - p)
+
+
+FOBJ_NAMES = ("multi_histogram", "routed_histogram", "leaf_stats",
+              "best_split", "leaf_lookup")
+
+
+def phase_fobj(torch, ltt, data, builtin_s):
+    """Phase 13's ``higgs-wave255-noc2f-fobj``: wave255 without c2f on
+    phase 3's data with ``logloss_fobj`` through ``Booster.update(fobj=)``,
+    6 iterations on the graphs: seconds an iteration beside the built-in
+    ``binary``'s (phase 4), the host's fobj ms, the training score's
+    fetch and the gradients' copy to the card (each synchronised), the
+    kernels of the path launched, holdout AUC above 0.6."""
+    ds, Xh, yh = data
+    p = dict(TRAIN_PARAMS, **WAVE_PARAMS, device_type=DEVICE, metric="None")
+    p.pop("objective")
+    b = ltt.Booster(params=dict(p, objective="none"), train_set=ds)
+    g = b._gbdt
+    times = {"fobj": [], "fetch": [], "copy": []}
+
+    def timed(key, fn):
+        def inner(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a)
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t0) * 1e3)
+            return r
+        return inner
+    g.train_score = timed("fetch", g.train_score)
+    g._load_gradients = timed("copy", g._load_gradients)
+    fobj = timed("fobj", logloss_fobj)
+    reset_counts()
+    torch.cuda.synchronize()
+    stamps = [time.perf_counter()]
+    for _ in range(N_TREES):
+        if b.update(fobj=fobj):
+            fail("higgs-wave255-noc2f-fobj: training stopped early")
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    counts = read_counts()
+    _check_launches(counts, FOBJ_NAMES, "higgs-wave255-noc2f-fobj")
+    from lightgbm_tpu_torch.ops import graphs
+    if g.runner.use_graphs and graphs.REPLAYS["graph_replays"] == 0:
+        fail("higgs-wave255-noc2f-fobj: no graph replays")
+    auc = np_auc(yh, b.predict(Xh, raw_score=True))
+    if not auc > 0.6:
+        fail(f"higgs-wave255-noc2f-fobj: holdout AUC {auc}")
+    iter_s = list(np.diff(stamps)[1:])
+    it_s = statistics.median(iter_s)
+    med = {k: statistics.median(v[1:]) for k, v in times.items()}
+    out = {"seconds_per_iteration": it_s, "iteration_seconds": iter_s,
+           "builtin_binary_seconds_per_iteration": builtin_s,
+           "fobj_ms": med["fobj"], "score_fetch_ms": med["fetch"],
+           "gradient_copy_ms": med["copy"], "holdout_auc": auc,
+           "launches_per_tree": {k: v / N_TREES for k, v in counts.items()
+                                 if v},
+           "graph_replays_per_tree": graphs.REPLAYS["graph_replays"] /
+           N_TREES}
+    print(f"higgs-wave255-noc2f-fobj: s/iteration {it_s:.4f} (built-in "
+          f"binary {builtin_s:.4f}); fobj {med['fobj']:.2f} ms, score fetch "
+          f"{med['fetch']:.2f} ms, gradient copy {med['copy']:.2f} ms an "
+          f"iteration; holdout AUC {auc:.4f}", flush=True)
+    del b, g
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def _phase_done(name, t0):
+    """Print a phase's seconds; the clock for the next."""
+    print(f"{name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return time.perf_counter()
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -3395,6 +3968,7 @@ def main():
             print("  " + line.strip(), flush=True)
 
     # ---- phase 2: kernels vs plain -----------------------------------
+    t_phase = time.perf_counter()
     stats = phase_kernels(torch, dev)
     b_stats = phase_kernels_sample(torch, dev)
     stats["sample_bag"] = dict(b_stats["bernoulli"],
@@ -3404,18 +3978,23 @@ def main():
     for k in ("goss_select", "mvs_scores", "mvs_scan"):
         stats[k] = b_stats[k]
     stats["route"] = phase_kernels_route(torch, dev)
+    t_phase = _phase_done("phase 2 (kernels H-T)", t_phase)
     # ---- phase 3: the exact path end to end at full width ------------
     data, exact_counts, e2e = phase_full_width(torch, ltt)
+    t_phase = _phase_done("phase 3", t_phase)
     # ---- phase 4: wave255 without coarse-to-fine at full width -------
     wave_counts, e2e_wave = phase_wave(torch, ltt, data,
                                        e2e["holdout_auc"])
+    t_phase = _phase_done("phase 4", t_phase)
     # ---- phase 5: wave255 as it ships, with coarse-to-fine -----------
     c2f_counts, e2e_c2f = phase_c2f(torch, ltt, data, e2e["holdout_auc"])
+    t_phase = _phase_done("phase 5", t_phase)
     # ---- phase 9: bagging, GOSS and MVS at full width -----------------
     sampled_counts, e2e_sampled = phase_sampled(
         torch, ltt, data, {"exact": e2e["seconds_per_iteration"],
                            "wave": e2e_wave["seconds_per_iteration"],
                            "c2f": e2e_c2f["seconds_per_iteration"]})
+    t_phase = _phase_done("phase 9", t_phase)
     # ---- phase 7: each path with the holdout as a validation set -----
     valid_counts, e2e_valid = {}, {}
     for path, params, names, e in (
@@ -3431,20 +4010,40 @@ def main():
         valid_counts[path], e2e_valid[path] = phase_valid(
             torch, ltt, data, path, params, names,
             e["seconds_per_iteration"])
+    t_phase = _phase_done("phase 7", t_phase)
     # ---- phase 10: DART, random forests, rollback_one_iter -----------
     boosting_counts, e2e_boosting = phase_boosting(
         torch, ltt, data, {"exact": e2e["seconds_per_iteration"],
                            "wave": e2e_wave["seconds_per_iteration"]})
+    t_phase = _phase_done("phase 10", t_phase)
     # ---- phase 12: the regression zoo at full width ------------------
     reg_counts, e2e_regression = phase_regression(torch, ltt, data)
+    t_phase = _phase_done("phase 12", t_phase)
+    # ---- phase 13: a custom objective at the Higgs shape -------------
+    fobj_counts, e2e_fobj = phase_fobj(torch, ltt, data,
+                                       e2e_wave["seconds_per_iteration"])
+    t_phase = _phase_done("phase 13 (higgs-wave255-noc2f-fobj)", t_phase)
     del data
     torch.cuda.empty_cache()
     # ---- phase 11: multiclass at bench.py's shape --------------------
     mc_counts, e2e_multiclass = phase_multiclass(torch, ltt)
+    t_phase = _phase_done("phase 11", t_phase)
+    # ---- phase 2's kernel U, phase 13: MS-LTR lambdarank -------------
+    Xr, yr, cr, Xrh, yrh, crh = make_msltr(
+        RANK_QUERIES, RANK_DOCS, RANK_FEATURES, RANK_HOLDOUT_QUERIES)
+    t_phase = _phase_done("MS-LTR data generation", t_phase)
+    stats["lambdarank"] = phase_kernels_rank(torch, dev, Xr, yr, cr)
+    t_phase = _phase_done("phase 2 (kernel U)", t_phase)
+    rank_counts, e2e_ranking = phase_ranking(torch, ltt, Xr, yr, cr, Xrh,
+                                             yrh, crh)
+    del Xr, yr, Xrh, yrh
+    t_phase = _phase_done("phase 13 (msltr-lambdarank, -valid)", t_phase)
     # ---- phase 6: device vs cpu --------------------------------------
     phase_device_vs_cpu(ltt)
+    t_phase = _phase_done("phase 6", t_phase)
     # ---- phase 8: cv on the card -------------------------------------
     cv_result = phase_cv(torch, ltt)
+    t_phase = _phase_done("phase 8", t_phase)
 
     # (route, source, the TPU kernel it replaces, the path whose run
     # gives its launches and whose shapes its numbers are taken at:
@@ -3502,6 +4101,11 @@ def main():
         # validation set's rows in XLA
         "route": ("lightgbm_tpu_torch/csrc/route.cu",
                   "lightgbm_tpu/ops/grow.py:1833", valid_counts["c2f"]),
+        # kernel U replaces no Pallas kernel: the JAX package computes
+        # LambdaRank's lambdas in XLA (LambdaRank._grads_impl)
+        "lambdarank": ("lightgbm_tpu_torch/csrc/rank.cu",
+                       "lightgbm_tpu/objectives.py:714",
+                       rank_counts["msltr-lambdarank"]),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3521,7 +4125,7 @@ def main():
         if name == "leaf_lookup_f64":
             row["launches_by_path"] = {k: v[name]
                                        for k, v in valid_counts.items()}
-        if meta[name][0].endswith(("sample.cu", "route.cu")):
+        if meta[name][0].endswith(("sample.cu", "route.cu", "rank.cu")):
             row["replaces_pallas_kernel"] = False
         if name.startswith("route"):
             row["launches_by_path"] = {
@@ -3532,6 +4136,13 @@ def main():
                 if v.get(name)}
         if more:
             row["launches_objective_zoo"] = more
+        # this slice's paths: phase 13's runs
+        more = {k: v[name] for k, v in {**rank_counts,
+                                        "higgs-wave255-noc2f-fobj":
+                                        fobj_counts}.items()
+                if v.get(name)}
+        if more:
+            row["launches_ranking_fobj"] = more
         rows.append(row)
     print(json.dumps({"card": card, "e2e_exact": e2e, "e2e_wave": e2e_wave,
                       "e2e_c2f": e2e_c2f, "launches_exact": exact_counts,
@@ -3541,7 +4152,8 @@ def main():
                       "e2e_boosting": e2e_boosting,
                       "launches_valid": valid_counts, "cv": cv_result,
                       "e2e_multiclass": e2e_multiclass,
-                      "e2e_regression": e2e_regression}),
+                      "e2e_regression": e2e_regression,
+                      "e2e_ranking": e2e_ranking, "e2e_fobj": e2e_fobj}),
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

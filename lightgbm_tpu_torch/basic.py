@@ -1,11 +1,14 @@
 """Public ``Dataset`` / ``Booster`` API.
 
 Counterpart of ``lightgbm_tpu/basic.py`` for this slice: a ``Dataset``
-over a dense numerical matrix (binned on the device at first use; a
-validation set, ``reference=`` or ``create_valid``, bins with its
-reference's mappers), and a ``Booster`` that trains, evaluates its
-metrics on the training data and validation sets, predicts and reads and
-writes the model text.  The device comes from ``device_type`` (``cuda``
+over a dense numerical matrix with optional query groups (``group=``,
+per-query row counts; binned on the device at first use; a validation
+set, ``reference=`` or ``create_valid``, bins with its reference's
+mappers), and a ``Booster`` that trains (with the objective's gradients,
+or a custom objective's through ``update(fobj=)``; objectives ``none``,
+``custom``, ``null`` and ``na`` make none), evaluates its metrics on the
+training data and validation sets, predicts and reads and writes the
+model text.  The device comes from ``device_type`` (``cuda``
 by default, which raises without a card; ``cpu`` on request); a dataset
 with a reference lives on its reference's device.
 """
@@ -29,6 +32,11 @@ from .utils.log import Log
 __all__ = ["Dataset", "Booster"]
 
 
+# objective names that make no objective: a custom fobj gives the gradients
+# (lightgbm_tpu/basic.py:437-441)
+_NO_OBJECTIVE = ("none", "custom", "null", "na")
+
+
 def _to_matrix(data) -> np.ndarray:
     """float32 stays narrow; anything else becomes float64."""
     mat = np.asarray(data)
@@ -44,7 +52,7 @@ class Dataset:
     with the bin mappers of ``reference`` when one is given."""
 
     def __init__(self, data, label=None, reference: "Dataset" = None,
-                 weight=None, feature_name="auto",
+                 weight=None, group=None, feature_name="auto",
                  params: Optional[Dict[str, Any]] = None, **kwargs):
         unsupported = sorted(k for k, v in kwargs.items()
                              if v is not None and not
@@ -57,6 +65,7 @@ class Dataset:
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.feature_name = feature_name
         self.params = dict(params) if params else {}
         self._constructed: Optional[TorchDataset] = None
@@ -84,20 +93,22 @@ class Dataset:
             mappers, device = ref.mappers, ref.device
         self._constructed = TorchDataset.from_raw(
             mat, label, cfg, device or resolve_device(cfg.device_type),
-            weight=weight, feature_names=names, mappers=mappers)
+            weight=weight, feature_names=names, mappers=mappers,
+            group=self.group)
         self.raw_mat = mat
         return self
 
-    def create_valid(self, data, label=None, weight=None,
+    def create_valid(self, data, label=None, weight=None, group=None,
                      params: Optional[Dict[str, Any]] = None) -> "Dataset":
         """A validation set binned with this dataset's mappers."""
         return Dataset(data, label=label, reference=self, weight=weight,
-                       params=params or self.params)
+                       group=group, params=params or self.params)
 
     def subset(self, used_indices, params: Optional[Dict[str, Any]] = None
                ) -> "Dataset":
         """The rows ``used_indices``, binned with this dataset's mappers
-        (a validation set's subset keeps its reference's)."""
+        (a validation set's subset keeps its reference's), without query
+        groups, as in the JAX package."""
         ds = Dataset(self.data, label=self.label,
                      reference=self.reference if self.reference is not None
                      else self, weight=self.weight,
@@ -117,6 +128,17 @@ class Dataset:
 
     def get_weight(self) -> Optional[np.ndarray]:
         return self.construct()._constructed.metadata.weight
+
+    def get_group(self) -> Optional[np.ndarray]:
+        """Per-query counts, or None."""
+        qb = self.construct()._constructed.metadata.query_boundaries
+        return None if qb is None else np.diff(qb)
+
+    def set_group(self, group) -> "Dataset":
+        self.group = group
+        if self._constructed is not None:
+            self._constructed.metadata.set_query(group)
+        return self
 
 
 class Booster:
@@ -139,8 +161,9 @@ class Booster:
             train_set.construct()
             self.config = Config(self.params)
             self.device = train_set._constructed.device
-            self._objective = create_objective(self.config.objective,
-                                               self.config)
+            self._objective = None \
+                if self.config.objective in _NO_OBJECTIVE else \
+                create_objective(self.config.objective, self.config)
             metrics = create_metrics(self._resolve_metric_names(self.config),
                                      self.config)
             self._gbdt = create_boosting(self.config, train_set._constructed,
@@ -173,7 +196,7 @@ class Booster:
         else:
             names = list(m or [])
         if not names:
-            if config.objective in ("none", "custom", "null", "na"):
+            if config.objective in _NO_OBJECTIVE:
                 return []
             names = [default_metric_for(config.objective)]
         if any(n.lower() in ("none", "na", "null") for n in names):
@@ -193,8 +216,9 @@ class Booster:
                 cfg_params[k] = v
         self.config = Config(cfg_params)
         self.device = resolve_device(self.config.device_type)
+        # model text of a custom objective names none
         self._objective = create_objective(self.config.objective,
-                                           self.config)
+                                           self.config) if obj else None
         self._gbdt = None
         self.models = info["models"]
         self.average_output = info["average_output"]
@@ -219,11 +243,26 @@ class Booster:
         self._gbdt.add_valid(name, data.raw_mat, data._constructed)
         return self
 
-    def update(self) -> bool:
-        """One boosting iteration; True when training should stop."""
+    def update(self, train_set: Optional[Dataset] = None,
+               fobj=None) -> bool:
+        """One boosting iteration; True when training should stop.  With
+        ``fobj``, the iteration's gradients are ``fobj(score, train_set)``
+        on the float64 training score of class 0 (the JAX package's
+        ``train_score[0]``, :521-530), as host arrays."""
         if self._gbdt is None:
             Log.fatal("this booster holds no training data")
-        return self._gbdt.train_one_iter()
+        if train_set is not None and train_set is not self.train_set:
+            raise NotImplementedError(
+                "update(train_set=) with another dataset (reset_training_"
+                "data) is not implemented by lightgbm_tpu_torch yet")
+        if fobj is None:
+            return self._gbdt.train_one_iter()
+        score = self._gbdt.train_score()
+        if score.ndim == 2:
+            score = score[0]
+        grad, hess = fobj(score.astype(np.float64), self.train_set)
+        return self._gbdt.train_one_iter(np.asarray(grad, np.float32),
+                                         np.asarray(hess, np.float32))
 
     def rollback_one_iter(self) -> "Booster":
         """Undo the last boosting iteration (``GBDT.rollback_one_iter``)."""
@@ -275,10 +314,14 @@ class Booster:
             # a random forest's output is the mean of its trees
             # (lightgbm_tpu/models/gbdt.py:2993-2994)
             raw = raw / max(len(trees) // k, 1)
-        return raw if raw_score else self._objective.convert_output(raw)
+        if raw_score or self._objective is None:
+            return raw
+        return self._objective.convert_output(raw)
 
     def _objective_string(self) -> str:
         obj = self.config.objective
+        if obj in _NO_OBJECTIVE:
+            return ""
         if obj == "binary":
             return f"binary sigmoid:{self.config.sigmoid:g}"
         if obj in ("multiclass", "multiclassova"):

@@ -14,7 +14,11 @@ parameters whose non-default values ask for a part of the system this
 package does not implement yet; :meth:`Config.check_supported` raises
 ``NotImplementedError`` for them, and for a multiclass objective under a
 boosting mode that trains one tree an iteration (GOSS, MVS, DART, random
-forests).
+forests).  Every objective the JAX package registers is ported
+(``lambdarank`` with its ``sigmoid``, ``lambdamart_norm``,
+``max_position`` and ``label_gain``; ``none`` / ``custom`` for a custom
+``fobj``); ``rank_xendcg``, named in the ``objective`` description
+below as in the JAX package's registry, is registered by neither.
 """
 from __future__ import annotations
 

@@ -1,11 +1,12 @@
 """Training and cross-validation entry points.
 
 Counterpart of ``lightgbm_tpu/engine.py`` (``train`` :156 and ``cv``
-:501-695): ``train`` with validation sets, custom metrics (``feval``),
-callbacks, early stopping, ``evals_result`` and ``learning_rates``;
-``cv`` with stratified and shuffled folds and ``CVBooster``.  Custom
-objectives (``fobj``), ``init_model``, a device mesh and checkpoint
-resume are not ported yet and raise ``NotImplementedError``.
+:501-695): ``train`` with validation sets, custom objectives (``fobj``)
+and metrics (``feval``), callbacks, early stopping, ``evals_result`` and
+``learning_rates``; ``cv`` with stratified, shuffled and query-group
+folds (whole queries, for ranking) and ``CVBooster``.  ``init_model``, a
+device mesh and checkpoint resume (``resume_from``) are not ported yet
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import numpy as np
 from . import callback as callback_mod
 from .basic import Booster, Dataset
 from .callback import CallbackEnv, EarlyStopException
+from .io.dataset import group_ids, subset_group
 from .utils.log import Log
 
 __all__ = ["train", "cv", "CVBooster"]
@@ -53,8 +55,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
     every iteration (``vs is train_set`` names the training data) and
     running the callbacks; stops early when a tree cannot split or a
     callback raises ``EarlyStopException``."""
-    _not_ported(fobj=fobj, init_model=init_model, mesh=mesh,
-                resume_from=resume_from)
+    _not_ported(init_model=init_model, mesh=mesh, resume_from=resume_from)
     if categorical_feature != "auto":
         raise NotImplementedError("categorical features are not "
                                   "implemented by lightgbm_tpu_torch yet")
@@ -66,11 +67,20 @@ def train(params: Dict[str, Any], train_set: Dataset,
             if int(v) != num_boost_round:
                 Log.warning("%s is set with %s=%d, %s=%s will be ignored",
                             seen[0][0], seen[0][0], num_boost_round, a, v)
+    if fobj is not None:
+        params["objective"] = params.get("objective", "none")
+        if params["objective"] not in ("none", "custom"):
+            Log.warning("Using custom fobj; 'objective' parameter used only "
+                        "for score transform")
     for alias in _EARLY_STOP_ALIASES:
         if alias in params and early_stopping_rounds is None:
             early_stopping_rounds = int(params.pop(alias))
     if feature_name != "auto":
         train_set.feature_name = feature_name
+    if params.get("objective") in ("none", "custom") and fobj is None:
+        Log.fatal("objective=none requires a custom fobj")
+    if fobj is not None:
+        params["objective"] = "none"
     booster = Booster(params=params, train_set=train_set)
 
     valid_sets = list(valid_sets) if valid_sets else []
@@ -112,7 +122,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
     for i in range(num_boost_round):
         for cb in cbs_before:
             cb(CallbackEnv(booster, params, i, 0, num_boost_round, None))
-        should_stop = booster.update()
+        should_stop = booster.update(fobj=fobj)
         evaluation_result_list = []
         if gbdt.metrics and (gbdt.valid_sets or
                              gbdt.config.is_provide_training_metric):
@@ -185,14 +195,31 @@ class CVBooster:
 def _make_folds(train_set: Dataset, nfold: int, stratified: bool,
                 shuffle: bool, seed: int, folds=None):
     """(train rows, test rows) of each fold: ``folds`` as given (a
-    splitter or a list), else stratified by label or plain, shuffled by
-    ``seed`` (``lightgbm_tpu/engine.py:521``)."""
+    splitter, called with each row's query id as ``groups``, or a list),
+    else whole queries when the data has groups (permuted by ``seed``
+    when shuffled, cut with ``array_split``), else stratified by label or
+    plain, shuffled by ``seed`` (``lightgbm_tpu/engine.py:500-563``)."""
     n = train_set.num_data()
+    group = train_set.get_group()
     if folds is not None:
         if hasattr(folds, "split"):
-            return list(folds.split(np.zeros(n), train_set.get_label()))
+            return list(folds.split(np.zeros(n), train_set.get_label(),
+                                    groups=group_ids(group, n)))
         return list(folds)
     rng = np.random.RandomState(seed)
+    if group is not None:
+        order = rng.permutation(len(group)) if shuffle \
+            else np.arange(len(group))
+        bounds = np.concatenate([[0], np.cumsum(group)])
+        out = []
+        for qs in np.array_split(order, nfold):
+            test_idx = np.concatenate(
+                [np.arange(bounds[q], bounds[q + 1]) for q in qs]) \
+                if len(qs) else np.array([], dtype=np.int64)
+            mask = np.ones(n, bool)
+            mask[test_idx] = False
+            out.append((np.nonzero(mask)[0], test_idx))
+        return out
     if stratified:
         y = train_set.get_label()
         out_test = [[] for _ in range(nfold)]
@@ -227,10 +254,12 @@ def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
        callbacks=None, eval_train_metric: bool = False,
        return_cvbooster: bool = False) -> Dict[str, List[float]]:
     """K-fold cross-validation: one booster a fold, each with its
-    held-out rows as the validation set "valid", trained in lockstep; the
-    per-iteration mean and standard deviation of each metric over the
-    folds (``lightgbm_tpu/engine.py:564``)."""
-    _not_ported(fobj=fobj, init_model=init_model)
+    held-out rows as the validation set "valid" (with their queries when
+    the data has groups), trained in lockstep, ``fobj`` giving each
+    iteration's gradients when set; the per-iteration mean and standard
+    deviation of each metric over the folds
+    (``lightgbm_tpu/engine.py:564``)."""
+    _not_ported(init_model=init_model)
     if categorical_feature != "auto":
         raise NotImplementedError("categorical features are not "
                                   "implemented by lightgbm_tpu_torch yet")
@@ -246,6 +275,8 @@ def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
     raw = train_set.raw_mat
     label = train_set.get_label()
     weight = train_set.get_weight()
+    group = train_set.get_group()
+    n = train_set.num_data()
 
     folds_idx = _make_folds(train_set, nfold, stratified, shuffle, seed,
                             folds)
@@ -254,10 +285,12 @@ def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
     for tr_idx, te_idx in folds_idx:
         tr = Dataset(raw[tr_idx], label=label[tr_idx],
                      weight=None if weight is None else weight[tr_idx],
+                     group=subset_group(group, tr_idx, n),
                      params=dict(train_set.params))
         te = tr.create_valid(
             raw[te_idx], label=label[te_idx],
-            weight=None if weight is None else weight[te_idx])
+            weight=None if weight is None else weight[te_idx],
+            group=subset_group(group, te_idx, n))
         if fpreproc is not None:
             tr, te, params = fpreproc(tr, te, dict(params))
         fold_data.append((tr, te))
@@ -280,7 +313,7 @@ def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
     for i in range(num_boost_round):
         should_stop_all = True
         for bst in boosters:
-            should_stop_all = bst.update() and should_stop_all
+            should_stop_all = bst.update(fobj=fobj) and should_stop_all
         merged = _agg_cv_result(boosters, feval, fold_data)
         for name, metric, mean, hb, std in merged:
             results[f"{name} {metric}-mean"].append(mean)

@@ -202,14 +202,15 @@ class DART(GBDT):
         for i in self._drop_index:
             self._add_contrib(i, -1.0)
 
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, grad=None, hess=None) -> bool:
         # the snapshot is taken before the drops, so a rollback restores
-        # a consistent state (:272-301)
+        # a consistent state (:272-301); custom gradients were computed
+        # by the caller from the score before the drops, as there
         pre_score = self._score.clone()
         pre_valid = [vs.score.clone() for vs in self.valid_sets]
         pre_weights = (list(self.tree_weight), self.sum_weight)
         self._drop()
-        stop = super().train_one_iter()
+        stop = super().train_one_iter(grad, hess)
         if stop:
             # no tree was added: the dropped trees go back in
             for i in self._drop_index:
@@ -310,6 +311,8 @@ class RF(GBDT):
             Log.fatal("random forest requires bagging "
                       "(bagging_freq > 0, 0 < bagging_fraction < 1)")
         super().__init__(config, *args, **kwargs)
+        if self.objective is None:
+            Log.fatal("rf does not support a custom objective")
         self.average_output = True
         self.shrinkage_rate = 1.0
         Log.info("Using RF")
@@ -332,7 +335,9 @@ class RF(GBDT):
         after the tree lands (:422-430), not before the first tree."""
         return [self._init_score]
 
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, grad=None, hess=None) -> bool:
+        if grad is not None:
+            Log.fatal("rf does not support a custom objective")
         # the scores before the iteration, for a rollback (:407-409)
         self._rf_undo = (self._score.clone(),
                          [vs.score.clone() for vs in self.valid_sets])

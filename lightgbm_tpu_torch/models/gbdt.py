@@ -83,6 +83,14 @@ package gives it; its tail adds into row k.  Each class tree draws its
 own feature-fraction mask and quantization tree id, in tree order; a
 bagging draw is the iteration's, shared by its K trees.  An iteration
 stops training only when all its K trees have one leaf.
+
+Custom gradients (``train_one_iter(grad, hess)``, a ``fobj``; also a
+booster without an objective, :2457-2536) are copied from a pinned host
+buffer into static (K, N) buffers, and every tree's head reads them
+there: such an iteration is a block of its own, without boost_from_average;
+a head captured for the other kind of gradients is captured anew.  The
+metrics get each set's query boundaries (ranking: ``ndcg@k``,
+``map@k``).
 """
 from __future__ import annotations
 
@@ -291,9 +299,11 @@ class GBDT:
         self.models: List[Tree] = []
         self.iter = 0
         self.num_class = max(int(config.num_class), 1)
-        self.num_tree_per_iteration = C = int(
+        # a custom objective (objective None) trains one tree an iteration
+        self.num_tree_per_iteration = C = 1 if objective is None else int(
             objective.num_model_per_iteration)
-        self._per_tree_host = type(self)._per_tree_host or objective.renews
+        self._per_tree_host = type(self)._per_tree_host or (
+            objective is not None and objective.renews)
         # random forests average their trees' outputs
         self.average_output = False
         # the host's rate (callbacks change it) and the device's, which the
@@ -357,14 +367,19 @@ class GBDT:
         self._mask = torch.ones(self.num_data, dtype=torch.float32,
                                 device=dev)
         self._score = class_rows(C, self.num_data, torch.float32, dev)
-        # a multiclass iteration's gradients, written by class 0's head
+        # a multiclass iteration's gradients, written by class 0's head;
+        # custom gradients (train_one_iter(grad, hess)) go there too, from
+        # a pinned host buffer, and every head then reads them
         self._grad_all = torch.zeros((C, self.num_data), device=dev) \
             if C > 1 else None
         self._hess_all = torch.zeros_like(self._grad_all) \
             if C > 1 else None
+        self._host_gh = None
+        self._custom = False
         self._rng_feature = np.random.RandomState(
             config.feature_fraction_seed & 0x7FFFFFFF)
-        objective.init(train_set.metadata, self.num_data, dev)
+        if objective is not None:
+            objective.init(train_set.metadata, self.num_data, dev)
         # row sampling: a weight a row drawn in each tree's head from the
         # key words of the tree's iteration (:meth:`_sample_words`), which a
         # block's slot holds like the quantization words
@@ -412,8 +427,11 @@ class GBDT:
         (its presence mask into the tree's static sample mask), then the
         tree's head (lightgbm_tpu/models/gbdt.py:2104-2126).  Class k of a
         multiclass iteration reads row k of the iteration's gradients,
-        which class 0's head computes from the starting score."""
-        if self.num_tree_per_iteration == 1:
+        which class 0's head computes from the starting score.  Custom
+        gradients are read from the static buffers they were copied to."""
+        if self._custom:
+            grad, hess = self._grad_all[k], self._hess_all[k]
+        elif self.num_tree_per_iteration == 1:
             grad, hess = self._gradients()
         else:
             if k == 0:
@@ -508,10 +526,11 @@ class GBDT:
         DART and random forests (``_per_tree_host``), validation sets and
         a training metric need the host tree or the scores every
         iteration, so they run the per-iteration path, as do leaf-renewal
-        objectives (``_per_tree_host``) and multiclass ones.  (The JAX
-        package also falls back for custom objectives; the port has none
-        yet.)"""
+        objectives (``_per_tree_host``) and multiclass ones; so do custom
+        gradients (``train_one_iter`` checks them) and a booster without
+        an objective."""
         return (not self._per_tree_host and self.config.fused_iters > 1 and
+                self.objective is not None and
                 self.num_tree_per_iteration == 1 and
                 self.num_features > 0 and not self.valid_sets and
                 not self.config.is_provide_training_metric)
@@ -526,12 +545,19 @@ class GBDT:
         return max(int(self.config.superstep_pipeline_depth), 0) \
             if self._fused_ok() else 0
 
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, grad=None, hess=None) -> bool:
         """One boosting iteration; returns True when the tree could not
-        split (training stops)."""
+        split (training stops).  ``grad`` and ``hess``: custom gradients
+        as host arrays ((N,) or (K, N)), as the JAX package's
+        ``_train_one_iter_impl`` takes them (:2457-2536): blocks of one
+        iteration, no fusion, no pipelining, no boost_from_average."""
+        custom = grad is not None
+        if not custom and self.objective is None:
+            Log.fatal("no objective: a custom objective passes its "
+                      "gradients to each iteration")
         if self._stop_flag:
             return True
-        fused = self._fused_ok()
+        fused = not custom and self._fused_ok()
         blk = self._fused_block
         if blk is not None:
             in_flight = blk["served"] < self._block_iters(blk)
@@ -552,11 +578,45 @@ class GBDT:
             # blocks dispatched ahead at the old rate
             self._discard_queue()
         fused = fused and not self._fused_bias_pending()
+        self._use_custom(custom)
+        if custom:
+            self._load_gradients(grad, hess)
         target = 1 + self._pipeline_depth() if fused else 1
         while len(self._sq) < target:
             if not self._dispatch_block(fused, required=not self._sq):
                 break
         return self._land_block()
+
+    def _use_custom(self, custom: bool) -> None:
+        """Switch the heads between the objective's gradients and the
+        static custom ones; captured graphs hold the other kind, so they
+        are captured anew at the next tree."""
+        if custom != self._custom:
+            self._custom = custom
+            self.runner.graphs = None
+
+    def _load_gradients(self, grad, hess) -> None:
+        """Custom (K, N) gradients, ``np.atleast_2d`` of float32, through a
+        pinned host buffer into the static buffers the heads read."""
+        C, N = self.num_tree_per_iteration, self.num_data
+        g = np.atleast_2d(np.asarray(grad, np.float32))
+        h = np.atleast_2d(np.asarray(hess, np.float32))
+        if g.shape != (C, N) or h.shape != (C, N):
+            Log.fatal("custom gradients of shape %s and %s; expected "
+                      "(%d, %d)", g.shape, h.shape, C, N)
+        if self._grad_all is None:
+            self._grad_all = torch.zeros((C, N), device=self.device)
+            self._hess_all = torch.zeros_like(self._grad_all)
+        if self._host_gh is None:
+            self._host_gh = torch.zeros(
+                (2, C, N), dtype=torch.float32,
+                pin_memory=self.device.type == "cuda")
+        # the previous iteration's copy out of the buffer has landed: the
+        # iteration waited for its tree's records after it
+        self._host_gh[0].copy_(torch.from_numpy(g))
+        self._host_gh[1].copy_(torch.from_numpy(h))
+        self._grad_all.copy_(self._host_gh[0], non_blocking=True)
+        self._hess_all.copy_(self._host_gh[1], non_blocking=True)
 
     def _slot(self) -> dict:
         """The next block's buffers, from a ring of 1 + depth: a block's
@@ -611,7 +671,8 @@ class GBDT:
         the training score and of every validation set's."""
         inits = [0.0] * self.num_tree_per_iteration
         if self.iter == 0 and self.config.boost_from_average and \
-                not self.models:
+                not self.models and not self._custom and \
+                self.objective is not None:
             for k in range(len(inits)):
                 init = self.objective.boost_from_score(k)
                 if abs(init) > _KEPS:
@@ -752,7 +813,7 @@ class GBDT:
                 tree = records_to_tree({n: v[t] for n, v in host.items()},
                                        self.config, self.train_set,
                                        counts_proxy=self._counts_proxy)
-                if self.objective.renews:
+                if self.objective is not None and self.objective.renews:
                     self.objective.renew_tree_output(
                         tree, slot["start"],
                         slot["leaf_idx"][t, :self.num_data], self._mask)
@@ -927,22 +988,26 @@ class GBDT:
                                 vs.raw, self.device,
                                 self.num_tree_per_iteration)
 
-    def _eval_one_set(self, name: str, score: torch.Tensor, label, weight
-                      ) -> list:
+    def _eval_one_set(self, name: str, score: torch.Tensor, label, weight,
+                      query_boundaries=None) -> list:
         """Every metric on one dataset's raw float64 score, after the
-        objective's output transform; multiclass metrics get the (rows, K)
-        probabilities; rank metrics give one entry a position
-        (``lightgbm_tpu/models/gbdt.py:2866-2889``)."""
+        objective's output transform (none without an objective);
+        multiclass metrics get the (rows, K) probabilities; every metric
+        gets the set's query boundaries, and rank metrics give one entry a
+        position (``lightgbm_tpu/models/gbdt.py:2866-2889``)."""
         if score.dim() == 2:
             score = score.T
-        score = self.objective.convert_output(score)
+        if self.objective is not None:
+            score = self.objective.convert_output(score)
         out = []
         for m in self.metrics:
             if hasattr(m, "eval_all"):
-                for mname, val in m.eval_all(label, score, weight):
+                for mname, val in m.eval_all(label, score, weight,
+                                             query_boundaries):
                     out.append((name, mname, val, m.higher_better))
             else:
-                out.append((name, m.name, m.eval(label, score, weight),
+                out.append((name, m.name,
+                            m.eval(label, score, weight, query_boundaries),
                             m.higher_better))
         return out
 
@@ -955,8 +1020,9 @@ class GBDT:
             ts = self.train_set
             out.extend(self._eval_one_set(
                 "training", self.train_score_tensor().to(torch.float64),
-                ts.label, ts.weight))
+                ts.label, ts.weight, ts.metadata.query_boundaries))
         for vs in self.valid_sets:
             out.extend(self._eval_one_set(vs.name, vs.score, vs.label,
-                                          vs.weight))
+                                          vs.weight,
+                                          vs.metadata.query_boundaries))
         return out

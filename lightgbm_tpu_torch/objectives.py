@@ -3,13 +3,21 @@
 Counterpart of ``lightgbm_tpu/objectives.py`` (:170-632): the regression
 objectives (L2, L1, quantile, Huber, Fair, Poisson, MAPE, gamma,
 Tweedie), binary log loss, cross-entropy (and its lambda form) and
-multiclass (softmax and one-vs-all), under every alias the JAX package
-registers.  ``get_gradients(score) -> (grad, hess)`` over (N,) float32
-device tensors, or (K, N) for the multiclass objectives
-(``num_model_per_iteration = K``); ``boost_from_score(class_id)`` (the
-initial score) and ``convert_output`` (raw score -> prediction, on a
-numpy array or a tensor, which stays on its device; (rows, K) for
-multiclass).  ``lambdarank`` and ``rank_xendcg`` raise.
+multiclass (softmax and one-vs-all) and LambdaRank over query groups
+(``lambdarank``, alias ``rank``, :633-776), under every alias the JAX
+package registers: every objective it has.  ``get_gradients(score) ->
+(grad, hess)`` over (N,) float32 device tensors, or (K, N) for the
+multiclass objectives (``num_model_per_iteration = K``);
+``boost_from_score(class_id)`` (the initial score) and ``convert_output``
+(raw score -> prediction, on a numpy array or a tensor, which stays on
+its device; (rows, K) for multiclass).  A name the JAX package does not
+register (``rank_xendcg`` among them: only its config docstring names it)
+is refused as unknown, as there.  A custom objective (``fobj``) is no
+objective here: ``Booster`` takes its gradients (``models/gbdt.py``).
+
+LambdaRank's pairwise lambdas run on the card as kernel U
+(``ops/rank.py``, ``csrc/rank.cu``): float64 terms, each document's sums
+rounded once to float32, the same bits as its plain version on the CPU.
 
 Gradients that need ``exp``, ``log1p``, a sigmoid or a softmax are
 evaluated in float64 and rounded once to float32: ``exp`` differs by an
@@ -38,17 +46,17 @@ from typing import Dict, Optional, Tuple, Type
 import numpy as np
 import torch
 
+from .metrics import default_label_gain
+from .ops.rank import lambda_gradients, rank_layout
 from .utils.log import Log
 
 __all__ = ["Objective", "RegressionL2", "RegressionL1", "Quantile", "Huber",
            "Fair", "Poisson", "MAPE", "Gamma", "Tweedie", "Binary",
            "MulticlassSoftmax", "MulticlassOVA", "CrossEntropy",
-           "CrossEntropyLambda", "create_objective", "weighted_percentile",
-           "leaf_percentiles", "RENEW_STATS"]
+           "CrossEntropyLambda", "LambdaRank", "create_objective",
+           "weighted_percentile", "leaf_percentiles", "RENEW_STATS"]
 
 _REGISTRY: Dict[str, Type["Objective"]] = {}
-_RANKING = ("lambdarank", "rank", "rank_xendcg", "xendcg", "xe_ndcg",
-            "xe_ndcg_mart", "xendcg_mart")
 # what the last renewals moved to the host: rows whose weights were
 # fetched for the sequential sums, and leaves recomputed in row order
 RENEW_STATS = {"calls": 0, "host_rows": 0, "row_order_leaves": 0}
@@ -69,15 +77,10 @@ def _xp(x):
 
 
 def create_objective(name: str, config) -> "Objective":
-    """Factory (``ObjectiveFunction::CreateObjectiveFunction``)."""
-    if name in _RANKING:
-        raise NotImplementedError(
-            f"objective {name!r} is not implemented by lightgbm_tpu_torch "
-            f"yet: ranking needs Dataset(group=), the next item of the "
-            f"port's objective queue")
+    """Factory (``ObjectiveFunction::CreateObjectiveFunction``); an
+    unknown name is fatal, as in the JAX package."""
     if name not in _REGISTRY:
-        raise NotImplementedError(
-            f"objective {name!r} is not implemented by lightgbm_tpu_torch")
+        Log.fatal("unknown objective %s", name)
     return _REGISTRY[name](config)
 
 
@@ -676,3 +679,42 @@ class CrossEntropyLambda(Objective):
 
     def convert_output(self, raw):
         return _xp(raw).log1p(_xp(raw).exp(raw))
+
+
+@register("lambdarank", "rank")
+class LambdaRank(Objective):
+    """LambdaRank with NDCG gains (``rank_objective.hpp:19``,
+    ``lightgbm_tpu/objectives.py:633-776``): ``sigmoid``,
+    ``lambdamart_norm``, ``max_position`` and ``label_gain`` (default
+    ``2^i - 1``) from the config.  ``init`` needs the dataset's query
+    boundaries and builds the static layout (``ops/rank.py``
+    ``rank_layout``: each row's gain, each query's inverse ideal DCG in
+    float64 truncated at ``max_position`` then float32, the discount
+    table).  ``get_gradients`` writes into two static (N,) buffers:
+    kernel U for a CUDA score, its plain version for a CPU one."""
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.sigmoid = float(config.sigmoid)
+        self.norm = bool(config.lambdamart_norm)
+        self.max_position = int(config.max_position)
+        gains = config.label_gain
+        self.label_gain = (np.asarray(gains, np.float64) if gains
+                           else default_label_gain())
+
+    def init(self, metadata, num_data, device):
+        super().init(metadata, num_data, device)
+        if metadata.query_boundaries is None:
+            Log.fatal("lambdarank requires query information (set group)")
+        lab = np.asarray(metadata.label).astype(np.int64)
+        if lab.max() >= len(self.label_gain):
+            Log.fatal("label %d exceeds label_gain table size %d",
+                      int(lab.max()), len(self.label_gain))
+        self.layout = rank_layout(metadata.query_boundaries, lab,
+                                  self.label_gain, self.max_position, device)
+        self._out = tuple(torch.empty(num_data, dtype=torch.float32,
+                                      device=device) for _ in range(2))
+
+    def get_gradients(self, score):
+        return lambda_gradients(score.reshape(-1), self.layout, self.weight,
+                                self.sigmoid, self.norm, out=self._out)

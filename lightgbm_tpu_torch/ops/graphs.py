@@ -39,14 +39,15 @@ import time
 
 import torch
 
-from . import histogram, kernels, lookup, route, sample, split
+from . import histogram, kernels, lookup, rank, route, sample, split
 from .grow import GrowState, serial_steps, wave_body, wave_loop
 from .route import route_rows
 
 __all__ = ["Graph", "TreeRunner", "ValidScorer", "prepare", "REPLAYS"]
 
 LAUNCH_COUNTERS = (histogram.LAUNCHES, split.LAUNCHES, lookup.LAUNCHES,
-                   sample.LAUNCHES, sample.STEP_LAUNCHES, route.LAUNCHES)
+                   sample.LAUNCHES, sample.STEP_LAUNCHES, route.LAUNCHES,
+                   rank.LAUNCHES)
 REPLAYS = {"graph_replays": 0}
 
 

@@ -29,7 +29,7 @@ __all__ = ["load", "build_info", "sm_count", "SOURCES", "HEADERS"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("histogram.cu", "split.cu", "lookup.cu", "multi_hist.cu",
            "routed_hist.cu", "leaf_stats.cu", "window_hist.cu", "sample.cu",
-           "route.cu")
+           "route.cu", "rank.cu")
 # included by the sources above; part of the library's hash
 HEADERS = ("group_hist.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -44,6 +44,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 _SIGNATURES = {
     "ltt_hist_masked": [_P, _I, _P, _P, _P, _P, _I, _P, _I64, _I, _I, _I,
@@ -76,6 +77,8 @@ _SIGNATURES = {
     "ltt_mvs_scan": [_P, _I64, _F, _P, _I64, _P],
     "ltt_route": [_P, _I, _I64, _P, _P, _P, _P, _I, _I, _P, _I64, _P, _P,
                   _I, _I, _P],
+    "ltt_lambdarank": [_P, _P, _I, _P, _P, _P, _P, _P, _D, _I, _I, _P, _P,
+                       _P, _P],
 }
 
 

@@ -34,13 +34,14 @@ the graphs' capture, timed apart) it reports:
   saw (``kernel_launches``, per iteration) and device time by kernel name
   (the histogram body shared by kernels R, M, V and V-lanes, and the
   reduction kernel Q shares with it, by kernel), and the device time and
-  calls of kernels H, S, R, M, V, V-lanes and Q (``kernel_h``: its
+  calls of kernels H, S, R, M, V, V-lanes, Q and U (``kernel_h``: its
   histogram launch and its reduction; ``kernel_s``: its one launch;
   ``kernel_r``: its routing, histogram and reduction launches;
   ``kernel_m``, ``kernel_v`` and ``kernel_vl``: their histogram and
   reduction launches, and the exponent launch of float values;
-  ``kernel_q``: its sum, bound and reduction launches; the count is that
-  of the first, one per call);
+  ``kernel_q``: its sum, bound and reduction launches; ``kernel_u``:
+  LambdaRank's lambdas, one launch; the count is that of the first, one
+  per call);
 - per tree over the same window: the wrappers' kernel launches executed
   (``own_launches_per_tree``, graph replays included), graph replays
   (``graph_replays_per_tree``) and the wave loop's flag reads
@@ -65,7 +66,7 @@ ROOT = Path(__file__).resolve().parents[2]
 OWN_KERNELS = ("hist_masked_kernel", "hist_reduce_kernel", "best_split_kernel",
                "leaf_add_kernel", "route_kernel", "group_hist_kernel",
                "group_reduce_kernel", "exp_max_kernel", "leaf_bound_kernel",
-               "leaf_stats_kernel", "tree_walk_kernel")
+               "leaf_stats_kernel", "tree_walk_kernel", "lambda_kernel")
 # the shared body's launches, by the tag of their kernel (group_hist.cuh)
 GROUP_TAGS = (("RoutedTag", "R"), ("MultiTag", "M"), ("LanesTag", "V-lanes"),
               ("WindowTag", "V"), ("LeafTag", "Q"))
@@ -84,6 +85,7 @@ BY_KERNEL = {
                   "exp_max_kernel [V-lanes]"),
     "kernel_q": ("leaf_stats_kernel", "leaf_bound_kernel",
                  "group_reduce_kernel [Q]"),
+    "kernel_u": ("lambda_kernel",),
 }
 
 

@@ -14,6 +14,11 @@ clock:
   SEL, PRMT, ...), 16 lanes a sub-partition (64 an SM a clock);
 - ``fma``: float multiply-adds and IMAD, 16 lanes (the heavy half) for
   IMAD, 32 for the float ones;
+- ``fp64``: float64 adds, multiplies, fused multiply-adds, compares and
+  min/max (DADD, DMUL, DFMA, DSETP, DMNMX), 64 lanes an SM a clock on
+  the H100 SXM (its 67 TFLOP/s of float64 is 64 FMAs an SM a clock);
+- ``mufu``: the special-function unit (MUFU: reciprocals, the float64
+  division's first guess), 16 lanes an SM a clock;
 - ``mem``: loads, stores, atomics; ``other``: branches, barriers, moves.
 
 ``draws`` is the number of Threefry draws in the kernel's code (20
@@ -21,7 +26,13 @@ funnel-shift rotations, SHF.L.W, a draw), so that a per-draw count is a
 kernel's counts over it.  ``loop`` holds the same counts over the body
 of the kernel's outermost loop (from the target of its first backward
 branch to that branch): what a step of a grid-stride loop issues,
-without the prologue.  The JSON is the last line of standard output.
+without the prologue.  ``fp64_loop`` holds them over the innermost loop
+(one with no other loop inside its range) that issues the most float64
+instructions: kernel U's pair loop, one pair of documents a step (its
+version with the ``lambdamart_norm`` division, where the compiler keeps
+one loop with and one without it).  The counts are static: a slow path
+inside the range (a division's, an ``exp``'s special cases) counts as if
+it ran.  The JSON is the last line of standard output.
 """
 from __future__ import annotations
 
@@ -39,6 +50,7 @@ ALU = {"IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "LEA", "ISETP",
        "SGXT", "PLOP3", "P2R", "R2P", "FSETP", "FSEL", "FMNMX", "VIADD",
        "VIMNMX", "I2FP", "F2FP"}
 FMA = {"FFMA", "FADD", "FMUL", "IMAD", "IMUL", "HFMA2", "HADD2", "HMUL2"}
+FP64 = {"DADD", "DMUL", "DFMA", "DSETP", "DMNMX"}
 MEM = {"LDG", "STG", "LDS", "STS", "LD", "ST", "LDC", "ATOM", "ATOMS",
        "ATOMG", "RED", "LDSM", "ULDC"}
 _FUNC = re.compile(r"Function : (\S+)")
@@ -60,8 +72,8 @@ def _cuobjdump() -> str:
 
 
 def _classes(ops) -> dict:
-    c = {"alu": 0, "fma": 0, "imad": 0, "mem": 0, "other": 0, "total": 0,
-         "rotations": 0, "opcodes": {}}
+    c = {"alu": 0, "fma": 0, "imad": 0, "fp64": 0, "mufu": 0, "mem": 0,
+         "other": 0, "total": 0, "rotations": 0, "opcodes": {}}
     for op in ops:
         base = op.split(".")[0]
         c["total"] += 1
@@ -72,6 +84,10 @@ def _classes(ops) -> dict:
             c["fma"] += 1
             if base in ("IMAD", "IMUL"):
                 c["imad"] += 1
+        elif base in FP64:
+            c["fp64"] += 1
+        elif base == "MUFU":
+            c["mufu"] += 1
         elif base in MEM:
             c["mem"] += 1
         else:
@@ -106,7 +122,7 @@ def count(sass: str) -> dict:
     for name, f in funcs.items():
         insns = f["insns"]
         at = {addr: i for i, (addr, _, _) in enumerate(insns)}
-        loop = None
+        loop, loops = None, []
         for i, (_, op, rest) in enumerate(insns):
             if not op.startswith("BRA"):
                 continue
@@ -115,11 +131,22 @@ def count(sass: str) -> dict:
                 continue
             j = f["labels"].get(m.group(1)) if m.group(1) else \
                 at.get(int(m.group(2), 16))
-            if j is not None and j <= i and (loop is None or j < loop[0]):
-                loop = (j, i)
+            if j is not None and j <= i:
+                loops.append((j, i))
+                if loop is None or j < loop[0]:
+                    loop = (j, i)
+
+        def over(lo, hi):
+            return _classes(op for _, op, _ in insns[lo:hi + 1])
         c = _classes(op for _, op, _ in insns)
-        c["loop"] = None if loop is None else _classes(
-            op for _, op, _ in insns[loop[0]:loop[1] + 1])
+        c["loop"] = None if loop is None else over(*loop)
+        c["fp64_loop"] = None
+        # innermost loops: no other loop's range inside theirs
+        inner = [r for r in loops if not any(
+            o != r and r[0] <= o[0] and o[1] <= r[1] for o in loops)]
+        best = max(inner, default=None, key=lambda r: over(*r)["fp64"])
+        if best is not None and over(*best)["fp64"]:
+            c["fp64_loop"] = over(*best)
         out[name] = c
     return out
 
@@ -150,7 +177,8 @@ def main(argv=None) -> int:
               f"(imad {c['imad']}) mem {c['mem']} other {c['other']} "
               f"draws {c['draws']:g}; loop total {lp.get('total')} alu "
               f"{lp.get('alu')} imad {lp.get('imad')} draws "
-              f"{lp.get('draws')}", flush=True)
+              f"{lp.get('draws')}; fp64 {c['fp64']} mufu {c['mufu']}",
+              flush=True)
     print(json.dumps(res))
     return 0
 

@@ -215,14 +215,25 @@ def test_boost_from_score_and_convert_output(name):
 
 def test_aliases_and_ranking():
     """Every alias the JAX package registers for these objectives names
-    the same objective in the port; the ranking objectives raise, naming
-    what they wait for."""
+    the same objective in the port; ``lambdarank`` trains on grouped data
+    and refuses data without groups, as the JAX package does;
+    ``rank_xendcg``, which the JAX package does not register, is an
+    unknown objective in both."""
     for alias, cls in jobj._REGISTRY.items():
         if cls.name in NEW + MULTI:
             assert tobj._REGISTRY[alias].name == cls.name, alias
-    for name in ("lambdarank", "rank_xendcg"):
-        with pytest.raises(NotImplementedError, match="group"):
-            tobj.create_objective(name, TConfig({}))
+    rng = np.random.RandomState(2)
+    X = rng.randn(300, 4)
+    y = rng.randint(0, 3, 300).astype(float)
+    p = {"objective": "lambdarank", "num_leaves": 7, "verbose": -1,
+         "metric": "None", "device_type": "cpu"}
+    b = ltt.train(p, ltt.Dataset(X, label=y, group=[100, 150, 50], params=p),
+                  num_boost_round=2)
+    assert b.num_trees() == 2
+    with pytest.raises(ltt.LightGBMError, match="group"):
+        ltt.train(p, ltt.Dataset(X, label=y, params=p), num_boost_round=1)
+    with pytest.raises(ltt.LightGBMError, match="unknown objective"):
+        tobj.create_objective("rank_xendcg", TConfig({}))
 
 
 def _train_data(name, n=4000, F=6, seed=3):

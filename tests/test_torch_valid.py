@@ -367,8 +367,9 @@ def test_dataset_api():
     other = ltt.Dataset(X[:, :4], label=y, params=p).construct()
     assert not train.construct()._constructed.check_align(
         other._constructed)
-    for kw in ({"group": [250, 250]}, {"init_score": np.zeros(500)},
-               {"categorical_feature": [0]}):
+    grouped = ltt.Dataset(X, label=y, group=[250, 250], params=p)
+    np.testing.assert_array_equal(grouped.get_group(), [250, 250])
+    for kw in ({"init_score": np.zeros(500)}, {"categorical_feature": [0]}):
         with pytest.raises(NotImplementedError):
             ltt.Dataset(X, label=y, params=p, **kw)
 
@@ -418,11 +419,15 @@ def test_params_set_early_stopping_and_first_metric_only():
 def test_unported_arguments_raise():
     X, y, _, _ = _data_of("exact")
     p = dict(BASE, device_type="cpu")
-    for kw in ({"fobj": lambda s, d: (s, s)}, {"init_model": "model.txt"},
-               {"mesh": object()}, {"resume_from": "auto"}):
+    for kw in ({"init_model": "model.txt"}, {"mesh": object()},
+               {"resume_from": "auto"}):
         with pytest.raises(NotImplementedError):
             ltt.train(p, ltt.Dataset(X, label=y, params=p),
                       num_boost_round=1, **kw)
+    # a custom objective is ported: an L2 fobj trains
+    b = ltt.train(p, ltt.Dataset(X, label=y, params=p), num_boost_round=1,
+                  fobj=lambda s, d: (s - d.get_label(), np.ones_like(s)))
+    assert b.num_trees() == 1
 
 
 def test_callback_names_match_jax():
