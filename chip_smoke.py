@@ -67,16 +67,19 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    phase 11, on phase 13's data): against its plain version at the
    MS-LTR shape (9,999 queries of 227 documents, bench.py's labels) on
    the all-equal first iteration and a trained-like score, on its first
-   500 queries, and on a skewed set (a 20,000-document query that walks
-   device memory, queries of 1 document, sizes around a block's and
-   shared memory's; with weights, without ``lambdamart_norm``), a repeat
-   launch bit for bit and every document within one float32 ulp of the
-   plain version, each one-ulp document explained by its float64 sum's
-   order (the count printed); at the MS-LTR shape its time, device time,
-   CUDA launches a call, the plain version's time, and its bound from its
-   SASS (the pair loop's float64 instructions, ``tools/sass_ops.py``,
-   times the pairs of documents with different labels, at 64 float64
-   lanes an SM and the card's maximum clock);
+   500 queries, and on a skewed set (queries split across blocks, the
+   20,000-document one checked to take the split path; queries of 1
+   document, at a band's and a tile's edges, of one label; with weights,
+   without ``lambdamart_norm``), a repeat launch bit for bit and every
+   document within one float32 ulp of the plain version, each one-ulp
+   document explained by its float64 sum in kernel U's order
+   (``ops/rank.py`` ``replay_sums``; the count printed); at the MS-LTR
+   shape its time, device time, CUDA launches a call, the plain version's
+   time, and its bound from the float64 operations its pairs need (21 an
+   unordered pair with different labels, at 64 float64 lanes an SM and
+   the card's maximum clock), its own pair step's SASS beside it as a
+   reading; with ``LTT_OLD_U`` naming an earlier checkout's
+   ``csrc/rank.cu``, that kernel's times beside the new one's;
 3. the exact path: trains the Higgs-shaped configuration at full width
    (10.5M x 28, num_leaves=255, max_bin=255, learning_rate=0.1,
    min_sum_hessian_in_leaf=100) in three modes, 6 trees each, the launch
@@ -3436,9 +3439,13 @@ RANK_NAMES = ("lambdarank", "multi_histogram", "window_histogram",
               "leaf_lookup")
 # the subset whose NDCG shows that ranking was learned (bench.py:2264)
 RANK_SUBSET_QUERIES = 200
-# the skewed set of kernel U's checks: a query past shared memory (it walks
-# device memory), queries of one document, and sizes around a block's
-SKEWED_COUNTS = (1, 20_000, 1, 2, 255, 256, 257, 1, 3000, 1, 11_520, 17)
+# the skewed set of kernel U's checks: queries split across blocks (20,000
+# documents, 11,520, 3,000; 257 just above a block's band of 256),
+# queries of one document, sizes around a band and a tile's edges (31, 32,
+# 33, 65), and a query whose documents share one label (SKEWED_ONE_LABEL)
+SKEWED_COUNTS = (1, 20_000, 1, 2, 255, 256, 257, 1, 3000, 1, 11_520, 17, 31,
+                 32, 33, 65, 300)
+SKEWED_ONE_LABEL = 16
 # the card's float64 rate outside the tensor cores: 64 FMA lanes an SM a
 # clock, 2 operations each (33.4 TFLOP/s at 132 SMs and 1980 MHz)
 FP64_LANES = 64
@@ -3504,14 +3511,22 @@ def _ulps(torch, a, b):
 def _explain_ulp(torch, tr, lay, score, weight, doc, which, k_val, norm):
     """True when document ``doc``'s one-ulp difference in its gradient
     (``which`` 0) or hessian (1) is the order of its float64 sum: its
-    terms summed in index order (the kernel's) round to the kernel's
-    float32 value, and their exact sum (``math.fsum``) lies within 1e-12
-    of a float32 rounding boundary, where another float64 order (the
-    plain version's ``torch.sum``) may round to the other side."""
+    terms summed in kernel U's order (``ops/rank.py``'s docstring,
+    replayed by ``replay_sums`` for the document's query and band) round
+    to the kernel's float32 value, and their exact sum (``math.fsum``)
+    lies within 1e-12 of a float32 rounding boundary, where another
+    float64 order (the plain version's ``torch.sum``) may round to the
+    other side."""
     import math
     qb = lay.qb.cpu().numpy()
     q = int(np.searchsorted(qb, doc, side="right") - 1)
     lo, m = int(qb[q]), int(qb[q + 1] - qb[q])
+    # the document's band: its position in the query's label order
+    pos = int(np.nonzero(lay.perm[lo:lo + m].cpu().numpy() == doc)[0][0])
+    bands = -(-m // tr.BAND_DOCS)
+    band = (bands * tr.BAND_DOCS - m + pos) // tr.BAND_DOCS
+    model = tr.replay_sums(score.cpu(), lay, 1.0, norm, queries=[q],
+                           band=band)[which][doc]
     s = score[lo:lo + m].to(torch.float64)[None]
     lab = lay.label[lo:lo + m][None]
     gn = lay.gain[lo:lo + m].to(torch.float64)[None]
@@ -3522,11 +3537,12 @@ def _explain_ulp(torch, tr, lay, score, weight, doc, which, k_val, norm):
     disc = lay.disc[rk][None]
     valid = torch.ones((1, m), dtype=torch.bool, device=s.device)
     inv = lay.inv_max[q:q + 1].to(torch.float64)
-    scaled = torch.tensor([bool(s.max() != s.min())], device=s.device)
+    scaled, factored, e = tr.exponentials(s, valid, 2.0)
     i = doc - lo
     row = tr.pair_terms(s, lab, gn, disc, valid, inv, scaled,
-                        slice(i, i + 1), 2.0, norm)[which][0, 0].cpu()
-    seq = torch.cumsum(row, 0)[-1].to(torch.float32)
+                        slice(i, i + 1), 2.0, norm, factored,
+                        e)[which][0, 0].cpu()
+    seq = model.to(torch.float32)
     w = torch.ones(()) if weight is None else weight[doc].cpu()
     exact = math.fsum(row.tolist())
     f = np.float32(exact)
@@ -3618,16 +3634,27 @@ def rank_pairs(lay):
 
 def pair_ops():
     """The kernel's own instructions a step of its pair loop, by pipe
-    (``tools/sass_ops.py``'s ``fp64_loop``: a step is one pair of one
-    document's walk, so an unordered pair takes two): a reading of the
-    kernel's overhead beside the bound, not the bound."""
+    (``tools/sass_ops.py``'s ``fp64_loops``: a step of a tile pair is one
+    unordered pair, each lane's, with its column sums' shuffles; the
+    factored and the direct version): a reading of the kernel's overhead
+    beside the bound, not the bound."""
     from lightgbm_tpu_torch.tools import sass_ops
     counts = sass_ops.kernel_counts("rank.cu")
-    loops = [c["fp64_loop"] for k, c in counts.items()
+    loops = [c["fp64_loops"] for k, c in counts.items()
              if "lambda_kernel" in k]
-    if len(loops) != 1 or loops[0] is None or loops[0]["mufu"] < 1:
+    # the pair loop's versions (masks; p factored or direct) all divide
+    steps = [x for x in loops[0] if x["mufu"] >= 1] if len(loops) == 1 \
+        else []
+    if not steps:
         fail(f"the SASS of kernel U's pair loop: {counts}")
-    return loops[0]
+    # the factored step (no exp: the fewest float64 instructions), the
+    # direct one (the most) beside it
+    fewest = min(steps, key=lambda x: (x["fp64"], x["total"]))
+    most = max(steps, key=lambda x: (x["fp64"], x["total"]))
+    return dict(fewest, direct_total=most["total"], direct_fp64=most["fp64"],
+                versions=len(steps),
+                opcodes={"factored": fewest["opcodes"],
+                         "direct": most["opcodes"]})
 
 
 def rank_bound_ms(pairs, ops_per_pair, clock_mhz, sms):
@@ -3638,14 +3665,104 @@ def rank_bound_ms(pairs, ops_per_pair, clock_mhz, sms):
     return pairs * ops_per_pair / peak * 1e3
 
 
+def split_path_taken(torch, tr, lay, score, q):
+    """Whether kernel U took the split path for query ``q`` at run time:
+    every float64 partial of its ``PAIR`` items, NaN before the launch, is
+    written by it, and the launch leaves its sync words zero."""
+    items = lay.items.cpu().numpy()
+    mine = np.nonzero((items[:, 0] == tr.PAIR) & (items[:, 1] == q))[0]
+    if not len(mine) or not (items[items[:, 1] == q, 0] == tr.PREP).any():
+        return False
+    lay.scratch.fill_(float("nan"))
+    tr.lambda_gradients(score, lay, None, 1.0, True)
+    torch.cuda.synchronize()
+    soff = lay.soff.cpu().numpy()
+    for i in mine:
+        words = (2 if items[i, 2] == items[i, 3] else 4) * tr.BAND_DOCS
+        if not bool(torch.isfinite(lay.scratch[soff[i]:soff[i] + words])
+                    .all()):
+            return False
+    stream = torch.cuda.current_stream(score.device).cuda_stream
+    return not bool(tr.sync_words(score.device, stream).any())
+
+
+# kernel U before its redesign (one block a query, each thread walking
+# every pair of its documents; an earlier checkout's csrc/rank.cu): its C
+# interface, and the shared-memory limit its wrapper used
+OLD_U_ARGS = ("P", "P", "I", "P", "P", "P", "P", "P", "D", "I", "I", "P",
+              "P", "P", "P")
+OLD_U_SMEM_DOCS = 11520
+
+
+def old_u(torch, dev, shapes, new_calls):
+    """Kernel U before its redesign, built from the source that the
+    environment's ``LTT_OLD_U`` names, beside the new kernel in one run:
+    for each shape (name -> (score, layout)), ms of old, new, new, old
+    back to back (``cuda_ms``), and the largest float32 ulp distance of
+    the old kernel's output from the new one's.  None without
+    ``LTT_OLD_U``."""
+    import ctypes
+    src = os.environ.get("LTT_OLD_U")
+    if not src:
+        return None
+    from lightgbm_tpu_torch.ops import kernels
+    lib_path = os.path.splitext(src)[0] + ".so"
+    build = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared",
+                            "-o", lib_path, src], capture_output=True,
+                           text=True)
+    if build.returncode != 0:
+        fail(f"the old kernel U did not build: {build.stdout}"
+             f"{build.stderr}")
+    fn = ctypes.CDLL(lib_path).ltt_lambdarank
+    types = {"P": ctypes.c_void_p, "I": ctypes.c_int, "D": ctypes.c_double}
+    fn.argtypes = [types[a] for a in OLD_U_ARGS]
+    fn.restype = ctypes.c_int
+    out = {}
+    for name, (score, lay) in shapes.items():
+        n, counts = lay.num_data, lay.counts
+        fits = counts[counts <= OLD_U_SMEM_DOCS]
+        smem_docs = int(fits.max()) if len(fits) else 0
+        scratch = torch.empty(n, dtype=torch.float64, device=dev) \
+            if counts.max() > OLD_U_SMEM_DOCS else None
+        gh = [torch.empty(n, dtype=torch.float32, device=dev)
+              for _ in range(2)]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def call():
+            rc = fn(score.data_ptr(), lay.qb.data_ptr(), lay.num_queries,
+                    lay.label.data_ptr(), lay.gain.data_ptr(),
+                    lay.inv_max.data_ptr(), lay.disc.data_ptr(), None, 2.0,
+                    1, smem_docs, None if scratch is None else
+                    scratch.data_ptr(), gh[0].data_ptr(), gh[1].data_ptr(),
+                    stream)
+            if rc != 0:
+                fail(f"the old kernel U did not launch: {rc}")
+        reps = 2 if counts.max() > OLD_U_SMEM_DOCS else 10
+        times = [cuda_ms(call, reps), cuda_ms(new_calls[name], reps),
+                 cuda_ms(new_calls[name], reps), cuda_ms(call, reps)]
+        g, h = new_calls[name]()
+        torch.cuda.synchronize()
+        ulps = max(int(_ulps(torch, gh[0], g).max()),
+                   int(_ulps(torch, gh[1], h).max()))
+        out[name] = {"old_ms": [times[0], times[3]],
+                     "new_ms": [times[1], times[2]],
+                     "max_ulps_old_vs_new": ulps}
+    print(f"kernel U, old (LTT_OLD_U) against new in one run, ms old, new, "
+          f"new, old: {out}", flush=True)
+    return out
+
+
 def phase_kernels_rank(torch, dev, X, y, counts):
     """Phase 2's kernel U: against its plain version (``check_rank``) at
     the MS-LTR shape (the all-equal first iteration and a trained-like
-    score), its first 500 queries, and the skewed set (a 20,000-document
-    query through device memory, queries of one document), with weights
+    score), its first 500 queries, and the skewed set (queries split
+    across blocks, the 20,000-document one checked to take the split path;
+    queries of one document, at tile edges and of one label), with weights
     and without ``lambdamart_norm`` too; at the MS-LTR shape its time,
-    device time and CUDA launches a call, its bound from its SASS and the
-    plain version's time."""
+    device time and CUDA launches a call, its bound from the float64
+    operations its pairs need, its own pair step's SASS as a reading, the
+    plain version's time; the kernel before its redesign beside it when
+    ``LTT_OLD_U`` names its source."""
     from lightgbm_tpu_torch.objectives import default_label_gain
     from lightgbm_tpu_torch.ops import kernels
     from lightgbm_tpu_torch.ops import rank as tr
@@ -3668,12 +3785,14 @@ def phase_kernels_rank(torch, dev, X, y, counts):
         torch, tr, lay500, trained[:n500], "500 queries")
     sk = np.asarray(SKEWED_COUNTS, np.int64)
     ns = int(sk.sum())
-    ys = y[:ns] if ns <= n else np.resize(y, ns)
-    lays = tr.rank_layout(np.concatenate([[0], np.cumsum(sk)]), ys, gains,
-                          20, dev)
-    if lays.scratch is None or lays.smem_docs != tr.SMEM_DOCS:
-        fail("the skewed set does not take kernel U's device-memory path")
+    ys = (y[:ns] if ns <= n else np.resize(y, ns)).copy()
+    qbs = np.concatenate([[0], np.cumsum(sk)])
+    ys[qbs[SKEWED_ONE_LABEL]:qbs[SKEWED_ONE_LABEL + 1]] = 2
+    lays = tr.rank_layout(qbs, ys, gains, 20, dev)
     ss = trained[:ns] if ns <= n else trained.repeat(-(-ns // n))[:ns]
+    if not split_path_taken(torch, tr, lays, ss, 1):
+        fail("kernel U did not take its split path for the skewed set's "
+             "20,000-document query")
     w = (torch.rand(ns, generator=g, device=dev) + 0.5).float()
     for ctx, kw in (("skewed", {}), ("skewed, weights", {"weight": w}),
                     ("skewed, no norm", {"norm": False}),
@@ -3694,7 +3813,15 @@ def phase_kernels_rank(torch, dev, X, y, counts):
     ms500 = cuda_ms(lambda: tr.lambda_gradients(trained[:n500], lay500, None,
                                                 1.0, True), reps=10)
     ms_sk = cuda_ms(lambda: tr.lambda_gradients(ss, lays, None, 1.0, True),
-                    reps=2)
+                    reps=10)
+    old = old_u(torch, dev, {"msltr": (trained, lay),
+                             "500 queries": (trained[:n500], lay500),
+                             "skewed": (ss, lays)},
+                {"msltr": call,
+                 "500 queries": lambda: tr.lambda_gradients(
+                     trained[:n500], lay500, None, 1.0, True),
+                 "skewed": lambda: tr.lambda_gradients(ss, lays, None, 1.0,
+                                                       True)})
     per_pair = pair_ops()
     pairs = rank_pairs(lay)
     _, clock_top = clocks_line()
@@ -3716,7 +3843,10 @@ def phase_kernels_rank(torch, dev, X, y, counts):
           f"{FP64_LANES} an SM a clock, {clock_top:.0f} MHz x {sms} SMs; "
           f"bytes {bytes_ms:.4f} ms); the kernel's own pair step "
           f"{per_pair['total']} instructions ({per_pair['fp64']} float64, "
-          f"{per_pair['mufu']} MUFU), two steps a pair; 500 queries "
+          f"{per_pair['mufu']} MUFU) with p factored, "
+          f"{per_pair['direct_total']} ({per_pair['direct_fp64']} float64) "
+          f"direct, a step an unordered pair ({per_pair['versions']} "
+          f"versions; opcodes {per_pair['opcodes']}); 500 queries "
           f"{ms500:.4f} ms; skewed set {ms_sk:.3f} ms", flush=True)
     return dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
                 launches_per_call=launched["lambdarank"], plain_ms=plain_ms,
@@ -3724,10 +3854,13 @@ def phase_kernels_rank(torch, dev, X, y, counts):
                 pairs=pairs, pair_fp64_ops=ops,
                 pair_step_instructions=per_pair["total"],
                 pair_step_fp64=per_pair["fp64"],
-                pair_step_mufu=per_pair["mufu"], bytes_bound_ms=bytes_ms,
+                pair_step_mufu=per_pair["mufu"],
+                pair_step_direct_instructions=per_pair["direct_total"],
+                pair_step_direct_fp64=per_pair["direct_fp64"],
+                bytes_bound_ms=bytes_ms,
                 ulp1_documents=ulp1, max_abs_err_by_shape=errs,
                 ms_500_queries=ms500, ms_skewed=ms_sk, queries=len(counts),
-                docs=RANK_DOCS)
+                docs=RANK_DOCS, old_kernel=old)
 
 
 def rank_share(torch, booster, iters=3):

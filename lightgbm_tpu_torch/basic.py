@@ -1,16 +1,17 @@
 """Public ``Dataset`` / ``Booster`` API.
 
-Counterpart of ``lightgbm_tpu/basic.py`` for this slice: a ``Dataset``
-over a dense numerical matrix with optional query groups (``group=``,
-per-query row counts; binned on the device at first use; a validation
-set, ``reference=`` or ``create_valid``, bins with its reference's
-mappers), and a ``Booster`` that trains (with the objective's gradients,
-or a custom objective's through ``update(fobj=)``; objectives ``none``,
-``custom``, ``null`` and ``na`` make none), evaluates its metrics on the
-training data and validation sets, predicts and reads and writes the
-model text.  The device comes from ``device_type`` (``cuda``
-by default, which raises without a card; ``cpu`` on request); a dataset
-with a reference lives on its reference's device.
+Counterpart of ``lightgbm_tpu/basic.py`` for this slice: a ``Dataset`` over a
+dense numerical matrix (an array, a pandas frame whose column names become the
+feature names, or a scipy sparse matrix, densified) with optional query groups
+(``group=``, per-query row counts; binned on the device at first use; a
+validation set, ``reference=`` or ``create_valid``, bins with its reference's
+mappers), and a ``Booster`` that trains (with the objective's gradients, or a
+custom objective's through ``update(fobj=)``; objectives ``none``, ``custom``,
+``null`` and ``na`` make none), evaluates its metrics on the training data and
+validation sets, predicts and reads and writes the model text.  The device
+comes from ``device_type`` (``cuda`` by default, which raises without a card;
+``cpu`` on request); a dataset with a reference lives on its reference's
+device.
 """
 from __future__ import annotations
 
@@ -37,14 +38,34 @@ __all__ = ["Dataset", "Booster"]
 _NO_OBJECTIVE = ("none", "custom", "null", "na")
 
 
-def _to_matrix(data) -> np.ndarray:
-    """float32 stays narrow; anything else becomes float64."""
-    mat = np.asarray(data)
+def _to_matrix(data):
+    """(matrix, column names or None) of the JAX package's input types
+    (``lightgbm_tpu/basic.py:50-80``): a pandas frame's values with its
+    column names, a scipy sparse matrix (CSR, CSC, COO) densified, else an
+    array.  float32 stays narrow; anything else becomes float64.  A pandas
+    ``category`` column raises (categorical features are not ported yet),
+    an ``object`` column is fatal as in the JAX package."""
+    names = None
+    if hasattr(data, "dtypes") and hasattr(data, "columns"):  # pandas
+        names = [str(c) for c in data.columns]
+        for col in data.columns:
+            if str(data[col].dtype) == "category":
+                raise NotImplementedError(
+                    f"pandas category column {col}: categorical features "
+                    f"are not implemented by lightgbm_tpu_torch yet")
+            if data[col].dtype == object:
+                Log.fatal("pandas object column %s is not supported; "
+                          "use category dtype or numeric", col)
+        mat = data.values
+    elif hasattr(data, "toarray"):  # scipy sparse
+        mat = np.asarray(data.toarray())
+    else:
+        mat = np.asarray(data)
     if mat.dtype != np.float32:
         mat = np.asarray(mat, dtype=np.float64)
     if mat.ndim == 1:
         mat = mat.reshape(-1, 1)
-    return mat
+    return mat, names
 
 
 class Dataset:
@@ -77,9 +98,10 @@ class Dataset:
             return self
         cfg = Config(self.params)
         cfg.check_supported()
-        names = None if self.feature_name in ("auto", None) \
-            else list(self.feature_name)
-        mat, label, weight = _to_matrix(self.data), self.label, self.weight
+        mat, names = _to_matrix(self.data)
+        if self.feature_name not in ("auto", None):
+            names = list(self.feature_name)
+        label, weight = self.label, self.weight
         if self.used_indices is not None:
             mat = mat[self.used_indices]
             label = None if label is None else \
@@ -307,7 +329,8 @@ class Booster:
         if ni > 0:
             trees = trees[:ni * k]
         ff = flatten_forest(trees, self.device)
-        raw = predict_raw(ff, _to_matrix(data), self.device, k).cpu().numpy()
+        mat = _to_matrix(data)[0]
+        raw = predict_raw(ff, mat, self.device, k).cpu().numpy()
         if k > 1:
             raw = raw.T
         if self.average_output and trees:

@@ -315,6 +315,7 @@ class GBDT:
         mappers = [train_set.mappers[i] for i in train_set.used_features]
         self.max_bin = int(2 ** np.ceil(np.log2(max(
             train_set.max_bin_count, 2))))
+        config.check_histogram_pool(F, self.max_bin)
         dev = self.device
         self._num_bins = torch.as_tensor([m.num_bin for m in mappers],
                                          dtype=torch.int32, device=dev)

@@ -17,7 +17,8 @@ objective here: ``Booster`` takes its gradients (``models/gbdt.py``).
 
 LambdaRank's pairwise lambdas run on the card as kernel U
 (``ops/rank.py``, ``csrc/rank.cu``): float64 terms, each document's sums
-rounded once to float32, the same bits as its plain version on the CPU.
+rounded once to float32, within one float32 ulp of its plain version on
+the CPU (the two sum in different orders; in practice the same bits).
 
 Gradients that need ``exp``, ``log1p``, a sigmoid or a softmax are
 evaluated in float64 and rounded once to float32: ``exp`` differs by an

@@ -104,13 +104,14 @@ def prepare(st: GrowState, stream: torch.cuda.Stream) -> None:
     the phases need that the warm-up tree may not have asked for (kernel
     H's active clusters on the exact loop, kernel V-lanes' blocks an SM at
     both widths of a coarse-to-fine wave) and make kernel S's completion
-    counters and kernel T's sync words for the capture stream."""
+    counters and kernels T's and U's sync words for the capture stream."""
     dev = st.xt.device
     p = st.params
     kernels.load()
     kernels.sm_count(dev)
     split.done_counters(1, dev, stream.cuda_stream)
     route.sync_words(dev, stream.cuda_stream)
+    rank.sync_words(dev, stream.cuda_stream)
     if not st.wave:
         histogram.masked_histogram_plan(st.xt, st.leaf_idx, p.split.max_bin)
     elif p.refine_shift:

@@ -24,7 +24,8 @@ import time
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["load", "build_info", "sm_count", "SOURCES", "HEADERS"]
+__all__ = ["load", "build_info", "sm_count", "sync_words", "SOURCES",
+           "HEADERS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("histogram.cu", "split.cu", "lookup.cu", "multi_hist.cu",
@@ -39,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 _LIB: Optional[ctypes.CDLL] = None
 _INFO: dict = {}
 _SMS: dict = {}
+_SYNC: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -77,8 +79,8 @@ _SIGNATURES = {
     "ltt_mvs_scan": [_P, _I64, _F, _P, _I64, _P],
     "ltt_route": [_P, _I, _I64, _P, _P, _P, _P, _I, _I, _P, _I64, _P, _P,
                   _I, _I, _P],
-    "ltt_lambdarank": [_P, _P, _I, _P, _P, _P, _P, _P, _D, _I, _I, _P, _P,
-                       _P, _P],
+    "ltt_lambdarank": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                       _D, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
 }
 
 
@@ -175,6 +177,26 @@ def sm_count(device) -> int:
         _SMS[index] = torch.cuda.get_device_properties(
             index).multi_processor_count
     return _SMS[index]
+
+
+def sync_words(kernel: str, words: int, device, stream: int):
+    """A kernel's sync words for launches on ``stream`` of ``device``:
+    ``words`` int32 words, zeroed once, which each launch leaves zero
+    again.  Each stream has its own, so launches on two streams cannot mix
+    them.  A graph capture makes its stream's words first
+    (``ops/graphs.py`` ``prepare``): made inside a capture, their zeroing
+    would be captured, not run, and a launch would wait on a counter no
+    block sets."""
+    import torch
+    key = (kernel, torch.device(device).index, stream)
+    sync = _SYNC.get(key)
+    if sync is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{kernel}'s sync words must be made before "
+                               f"a CUDA graph captures its launch")
+        sync = _SYNC[key] = torch.zeros(words, dtype=torch.int32,
+                                        device=device)
+    return sync
 
 
 def check(rc: int, what: str) -> None:

@@ -31,7 +31,6 @@ ROUTE_BLOCKS_PER_SM = 2
 LAUNCHES = {"route": 0}
 # int32 sync words a launch takes (kSyncWords in csrc/route.cu)
 SYNC_WORDS = 4
-_SYNC: dict = {}
 
 
 def route_rows_plain(xt: torch.Tensor, rec_leaf: torch.Tensor,
@@ -153,22 +152,9 @@ def route_walk_plain(xt: torch.Tensor, table: torch.Tensor, S: int, B: int,
 
 
 def sync_words(device, stream: int) -> torch.Tensor:
-    """Kernel T's sync words for launches on ``stream`` of ``device``
-    (the packing block's ticket and flag): zeroed once; each launch
-    leaves them zero again.  Each stream has its own, so launches on two
-    streams cannot mix them.  A graph capture makes its stream's words
-    first (``ops/graphs.py`` ``prepare``): made inside a capture, their
-    zeroing would be captured, not run, and the launch would wait on a
-    flag no block sets."""
-    key = (torch.device(device).index, stream)
-    sync = _SYNC.get(key)
-    if sync is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("kernel T's sync words must be made before "
-                               "a CUDA graph captures its launch")
-        sync = _SYNC[key] = torch.zeros(SYNC_WORDS, dtype=torch.int32,
-                                        device=device)
-    return sync
+    """Kernel T's sync words for launches on ``stream`` of ``device`` (the
+    packing block's ticket and flag; ``kernels.sync_words``)."""
+    return kernels.sync_words("kernel T", SYNC_WORDS, device, stream)
 
 
 def route_plan(n: int, sms: int) -> dict:

@@ -21,18 +21,19 @@ clock:
   division's first guess), 16 lanes an SM a clock;
 - ``mem``: loads, stores, atomics; ``other``: branches, barriers, moves.
 
-``draws`` is the number of Threefry draws in the kernel's code (20
-funnel-shift rotations, SHF.L.W, a draw), so that a per-draw count is a
-kernel's counts over it.  ``loop`` holds the same counts over the body
-of the kernel's outermost loop (from the target of its first backward
-branch to that branch): what a step of a grid-stride loop issues,
-without the prologue.  ``fp64_loop`` holds them over the innermost loop
-(one with no other loop inside its range) that issues the most float64
-instructions: kernel U's pair loop, one pair of documents a step (its
-version with the ``lambdamart_norm`` division, where the compiler keeps
-one loop with and one without it).  The counts are static: a slow path
-inside the range (a division's, an ``exp``'s special cases) counts as if
-it ran.  The JSON is the last line of standard output.
+``draws`` is the number of Threefry draws in the kernel's code (20 funnel-shift
+rotations, SHF.L.W, a draw), so that a per-draw count is a kernel's counts over
+it.  ``loop`` holds the same counts over the body of the kernel's outermost
+loop (from the target of its first backward branch to that branch): what a step
+of a grid-stride loop issues, without the prologue.  ``fp64_loop`` holds them
+over the innermost loop (one with no other loop inside its range) that issues
+the most float64 instructions (kernel U's pair loop, one pair of documents a
+step: its version with the ``lambdamart_norm`` division and ``exp``, where the
+compiler keeps several), and ``fp64_loops`` every innermost loop that issues
+float64 instructions, in code order (kernel U's versions of its pair loop: with
+and without masks, with ``p`` factored or direct).  The counts are static: a
+slow path inside the range (a division's, an ``exp``'s special cases) counts as
+if it ran.  The JSON is the last line of standard output.
 """
 from __future__ import annotations
 
@@ -147,6 +148,9 @@ def count(sass: str) -> dict:
         best = max(inner, default=None, key=lambda r: over(*r)["fp64"])
         if best is not None and over(*best)["fp64"]:
             c["fp64_loop"] = over(*best)
+        # every innermost loop that issues float64, in code order
+        c["fp64_loops"] = [x for x in (over(*r) for r in sorted(inner))
+                           if x["fp64"]]
         out[name] = c
     return out
 

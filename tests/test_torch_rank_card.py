@@ -1,18 +1,18 @@
 """Kernel U and LambdaRank training on the card.
 
-Kernel U (``ops/rank.py`` ``lambda_gradients``) against its plain version
-on the same CUDA tensors: skewed queries of 1 to 3,000 documents (one
-staged through device memory when the shared-memory limit is set below
-it), all-equal scores, ties, weights, ``lambdamart_norm`` off: bit for
-bit, one launch a call, and a repeat launch bit for bit.  Training with
-``objective=lambdarank`` on 3,000 rows x 8 features, 15 leaves, 4
-iterations, on the exact loop and quantized two-column waves: graphed and
-eager runs give the same model text and training score bit for bit,
-kernel U runs once a tree, and the CPU's trees split alike.  A binary
-booster switching between a numpy log-loss ``fobj`` and its objective
-(two trees each way, then ``fobj`` again) likewise: graphed, eager and
-the CPU.  It needs a card and skips without one; it imports nothing of JAX, so it runs on the
-card's machine with ``python3 -m pytest --noconftest -m cuda``.
+Kernel U (``ops/rank.py`` ``lambda_gradients``) against its plain version on
+the same CUDA tensors: skewed queries of 1 to 3,000 documents (those past a
+band of 256 split across blocks, their partials in the layout's float64 scratch
+in device memory), all-equal scores, ties, weights, ``lambdamart_norm`` off:
+bit for bit, one launch a call, and a repeat launch bit for bit.  Training with
+``objective=lambdarank`` on 3,000 rows x 8 features, 15 leaves, 4 iterations,
+on the exact loop and quantized two-column waves: graphed and eager runs give
+the same model text and training score bit for bit, kernel U runs once a tree,
+and the CPU's trees split alike.  A binary booster switching between a numpy
+log-loss ``fobj`` and its objective (two trees each way, then ``fobj`` again)
+likewise: graphed, eager and the CPU.  It needs a card and skips without one;
+it imports nothing of JAX, so it runs on the card's machine with ``python3 -m
+pytest --noconftest -m cuda``.
 """
 import numpy as np
 import pytest
@@ -46,10 +46,10 @@ def test_kernel_u_matches_plain_on_card(case):
     qb = np.concatenate([[0], np.cumsum(counts)])
     lay = rank.rank_layout(qb, label, default_label_gain(), 20, dev)
     if case == "device memory":
-        # the 3,000-document query walks device memory
-        lay.smem_docs = 300
-        lay.scratch = torch.empty(len(label), dtype=torch.float64,
-                                  device=dev)
+        # the 300-, 3,000- and 257-document queries are split across
+        # blocks, their partials in device memory
+        split = lay.items[:, 1][lay.items[:, 0] == rank.PREP].unique()
+        assert split.tolist() == [2, 3, 7] and lay.scratch is not None
     w = torch.from_numpy(np.random.RandomState(2).rand(len(label)).astype(
         np.float32) + 0.5).to(dev) if case == "weights" else None
     norm = case != "no norm"
