@@ -79,7 +79,13 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    unordered pair with different labels, at 64 float64 lanes an SM and
    the card's maximum clock), its own pair step's SASS beside it as a
    reading; with ``LTT_OLD_U`` naming an earlier checkout's
-   ``csrc/rank.cu``, that kernel's times beside the new one's;
+   ``csrc/rank.cu``, that kernel's times beside the new one's; and
+   kernel B's class sum (K > 1: gh = sum_k |g * h|, or MVS's scores of it
+   in the same launch) bit for bit against its plain version with a
+   repeat launch, and GOSS's and MVS's whole steps on it, at K = 2 and 5
+   and 1 to 1M rows; at K = 5, N = 1M its CUDA launches a call, time,
+   device time, the plain version's and ``(g * h).abs().sum(0)``'s times
+   and its bound by bytes;
 3. the exact path: trains the Higgs-shaped configuration at full width
    (10.5M x 28, num_leaves=255, max_bin=255, learning_rate=0.1,
    min_sum_hessian_in_leaf=100) in three modes, 6 trees each, the launch
@@ -172,13 +178,20 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    (``bench.py:2333-2343``: RandomState(17), 1M x 28, 5 classes, label
    the argmax of the first five features plus noise, 63 leaves,
    wave255's parameters with coarse-to-fine as it ships): softmax 6
-   iterations (30 trees), one-vs-all 4 and softmax on the exact loop 3,
-   each on CUDA graphs and eagerly (the same trees and training score bit
-   for bit, the same kernel launches; counters set to 0 just before each
-   run and read just after), the training score within 1e-4 of the
-   trees' prediction; the kernels' launches a class tree, seconds an
-   iteration and a tree; then softmax through ``train`` with a 100k-row
-   holdout drawn next from the same generator
+   iterations (30 trees), one-vs-all 4 and softmax on the exact loop 3;
+   at K = 5 under the other boosting modes, softmax with GOSS 4
+   iterations and with MVS (``bagging_fraction=0.5``) 4 (kernel B's class
+   sum, its select or scan and its draw once an iteration), DART
+   (``drop_rate=0.3``, ``skip_drop=0``) 4 with the 100k holdout as a
+   validation set (kernel T once a class tree; the holdout scores bit for
+   bit graphed and eager and within 1e-5 of the trees' prediction) and a
+   one-vs-all random forest on the exact loop (``bagging_fraction=0.5``,
+   ``bagging_freq=1``) 3; each on CUDA graphs and eagerly (the same trees
+   and training score bit for bit, the same kernel launches; counters set
+   to 0 just before each run and read just after), the training score
+   within 1e-4 of the trees' prediction; the kernels' launches a class
+   tree, seconds an iteration and a tree; then softmax through ``train``
+   with a 100k-row holdout drawn next from the same generator
    (``metric=multi_logloss,multi_error``): its (K, n) score within 1e-5
    of ``predict(raw_score=True)``, the metrics within 1e-9 of their numpy
    formulas, multi_error below 0.5 (chance is 0.8), kernels T and L's
@@ -1899,6 +1912,107 @@ def phase_kernels_sample(torch, dev):
     return out
 
 
+# ---- kernel B's class sum: GOSS and MVS at K > 1 classes -----------------
+# at phase 11's shape (bench.py's multiclass row): 5 classes of 1M rows;
+# ragged sizes first
+CLASS_SUM_K, CLASS_SUM_N = 5, 1_000_000
+CLASS_SUM_SIZES = (1, 17, 4097, 65537)
+
+
+def class_sum_inputs(torch, dev, k, n, seed):
+    """Random key words and (K, N) float32 gradients and hessians, every
+    fifth row's products 0: the gradients rows of a padded buffer, the
+    hessians contiguous (two row strides, which the kernel honours)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    buf = torch.randn((2, k, n + 3), generator=g, device=dev)
+    buf[:, :, ::5] = 0.0
+    words = torch.randint(0, 2 ** 32, (4,), generator=g, device=dev,
+                          dtype=torch.int64)
+    return words, buf[0, :, :n], buf[1, :, :n].abs()
+
+
+def class_sum_steps(torch, ts, words, grad, hess):
+    """(kernel, plain) pairs of GOSS's and MVS's whole steps on the class
+    sum, the step outputs as ``check_step`` reads them."""
+    n = grad.shape[1]
+    top_k = max(int(n * GOSS_TOP), 1)
+    other_k = int(n * GOSS_OTHER)
+    rr, amp = other_k / max(n - top_k, 1), \
+        (n - top_k) / float(max(other_k, 1))
+    target = MVS_FRACTION * n
+
+    def goss_plain():
+        gh = ts.class_gh_plain(grad, hess)
+        thr, n_gt, n_tie, p_tie = ts.goss_threshold(gh, top_k)
+        return (ts.goss_weights_plain(words, gh, thr, p_tie, rr, amp), thr,
+                n_gt, n_tie, p_tie)
+
+    def mvs_plain():
+        s = ts.mvs_scores(ts.class_gh_plain(grad, hess), MVS_VAR_WEIGHT)
+        mu = ts.mvs_threshold(s, target)
+        return ts.mvs_weights_plain(words, s, mu), s, mu
+    return ((lambda: ts.goss_step(words, ts.class_gh(grad, hess), top_k,
+                                  rr, amp), goss_plain),
+            (lambda: ts.mvs_class_step(words, grad, hess, MVS_VAR_WEIGHT,
+                                       target), mvs_plain))
+
+
+def phase_kernels_class_sum(torch, dev):
+    """Kernel B's class sum (``ltt_class_sum``, K > 1): gh against its
+    plain version bit for bit and a repeat launch the same bits, and
+    GOSS's and MVS's whole steps on it (MVS's scores written by the same
+    launch) bit for bit, at ``CLASS_SUM_SIZES`` and 1M rows, K = 2 and 5.
+    At K = 5, N = 1M: its CUDA launches a call (the profiler and the
+    counters), ms, device ms, the scores mode's ms, the plain version's
+    and the library call's ``(g * h).abs().sum(0)`` ms, its bound."""
+    from lightgbm_tpu_torch.ops import sample as ts
+    sizes = CLASS_SUM_SIZES + (CLASS_SUM_N,)
+    for seed, n in enumerate(sizes, start=140):
+        for k in (2, CLASS_SUM_K):
+            words, grad, hess = class_sum_inputs(torch, dev, k, n, seed)
+            ctx = f"K={k}, N={n}"
+            gh = ts.class_gh(grad, hess)
+            for other, what in ((ts.class_gh(grad, hess), "a repeat launch"),
+                                (ts.class_gh_plain(grad, hess),
+                                 "its plain version")):
+                if not _step_same(torch, gh, other):
+                    fail(f"kernel B's class sum differs from {what} ({ctx})")
+            for kernel, plain in class_sum_steps(torch, ts, words, grad,
+                                                 hess):
+                check_step(torch, kernel, plain, f"class sum, {ctx}")
+    K, N = CLASS_SUM_K, CLASS_SUM_N
+    words, grad, hess = class_sum_inputs(torch, dev, K, N, 99)
+    call = lambda: ts.class_gh(grad, hess)  # noqa: E731
+    gh, plain = call(), ts.class_gh_plain(grad, hess)
+    err = float((gh - plain).abs().max())
+    ms = cuda_ms(call, reps=50)
+    seen, launched = named_profile(torch, call, 10, {"class_sum_kernel": 1},
+                                   {"class_sum": 1}, "kernel B's class sum")
+    scores_ms = cuda_ms(lambda: ts._class_sum(grad, hess, MVS_VAR_WEIGHT, 1),
+                        reps=50)
+    nbytes = (2 * K + 1) * 4 * N
+    b_ms, b_by = bound(nbytes, (2 * K - 1) * N)
+    row = dict(max_abs_err=err, ms=ms,
+               device_ms=seen["class_sum_kernel"][1],
+               launches_per_call=launched["class_sum"],
+               plain_ms=cuda_ms(lambda: ts.class_gh_plain(grad, hess),
+                                reps=10),
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=cuda_ms(lambda: (grad * hess).abs().sum(0),
+                                  reps=10),
+               bytes=nbytes, classes=K, rows=N, mvs_scores_mode_ms=scores_ms)
+    print(f"kernel B class sum: gh and GOSS's and MVS's steps on it bit for "
+          f"bit (K = 2, {K}; N = {', '.join(map(str, sizes))}; repeat "
+          f"launches); at K={K}, N={N} {ms:.4f} ms (device "
+          f"{row['device_ms']:.4f}, {launched} a call), the scores mode "
+          f"{scores_ms:.4f}, plain {row['plain_ms']:.4f}, (g * h).abs()"
+          f".sum(0) {row['library_ms']:.4f}; bound {b_ms:.4f} ms by {b_by}",
+          flush=True)
+    del grad, hess, gh, plain
+    torch.cuda.empty_cache()
+    return row
+
+
 # ---- kernel T: the validation scorer's route ---------------------------
 # its one launch: the pack of the records by one block, the walk of the
 # rows by all
@@ -3126,19 +3240,37 @@ MC_PARAMS = {"objective": "multiclass", "num_class": MC_CLASSES,
              "min_sum_hessian_in_leaf": 100.0, "min_data_in_leaf": 0,
              "verbose": -1, "metric": "None", "wave_splits": True,
              "use_quantized_grad": True}
-# (params, iterations, names of the kernels the run must launch)
+MC_WAVE_NAMES = ("multi_histogram", "window_histogram", "routed_histogram",
+                 "lanes_window_histogram", "leaf_stats", "leaf_lookup")
+MC_EXACT_PARAMS = {k: v for k, v in MC_PARAMS.items()
+                   if k not in ("wave_splits", "use_quantized_grad")}
+# (params, iterations, names of the kernels the run must launch, whether
+# the 100k holdout is a validation set); the last four: K > 1 under GOSS,
+# MVS, DART and a random forest
 MC_CELLS = {
-    "multiclass-wave255": (MC_PARAMS, 6, (
-        "multi_histogram", "window_histogram", "routed_histogram",
-        "lanes_window_histogram", "leaf_stats", "leaf_lookup")),
+    "multiclass-wave255": (MC_PARAMS, 6, MC_WAVE_NAMES, False),
     "multiclassova-wave255": (dict(MC_PARAMS, objective="multiclassova"), 4,
-                              ("multi_histogram", "window_histogram",
-                               "routed_histogram", "lanes_window_histogram",
-                               "leaf_stats", "leaf_lookup")),
-    "multiclass-exact": ({k: v for k, v in MC_PARAMS.items()
-                          if k not in ("wave_splits", "use_quantized_grad")},
-                         3, ("histogram", "best_split", "leaf_lookup")),
+                              MC_WAVE_NAMES, False),
+    "multiclass-exact": (MC_EXACT_PARAMS, 3,
+                         ("histogram", "best_split", "leaf_lookup"), False),
+    "multiclass-goss-wave255": (dict(MC_PARAMS, boosting="goss"), 4,
+                                MC_WAVE_NAMES + ("class_sum", "goss_select",
+                                                 "sample_goss"), False),
+    "multiclass-mvs-wave255": (dict(MC_PARAMS, boosting="mvs",
+                                    bagging_fraction=0.5), 4,
+                               MC_WAVE_NAMES + ("class_sum", "mvs_scan",
+                                                "sample_mvs"), False),
+    "multiclass-dart-wave255": (dict(MC_PARAMS, boosting="dart",
+                                     drop_rate=0.3, skip_drop=0.0), 4,
+                                MC_WAVE_NAMES + ("route",), True),
+    "multiclassova-rf-exact": (dict(MC_EXACT_PARAMS, objective="multiclassova",
+                                    boosting="rf", bagging_fraction=0.5,
+                                    bagging_freq=1), 3,
+                               ("histogram", "best_split", "leaf_lookup",
+                                "sample_bag"), False),
 }
+# the class sum's launches: the GOSS and MVS cells'
+MC_SAMPLED = ("multiclass-goss-wave255", "multiclass-mvs-wave255")
 MC_METRICS = ("multi_logloss", "multi_error")
 
 
@@ -3153,10 +3285,11 @@ def make_multiclass(n_rows, n_holdout, n_features=28, k=MC_CLASSES):
     return X, y.astype(np.float32), Xh, yh.astype(np.float32)
 
 
-def run_cell(torch, ltt, ds, params, n_iter, eager, what):
+def run_cell(torch, ltt, ds, params, n_iter, eager, what, valid=None):
     """``n_iter`` iterations through ``Booster.update`` on the graphs (the
-    first tree eager, the graphs captured at the second) or eagerly, the
-    launch counters set to 0 just before and read just after; a refitting
+    first tree eager, the graphs captured at the second) or eagerly, with
+    ``valid`` (a Dataset) as a validation set where given, the launch
+    counters set to 0 just before and read just after; a refitting
     objective's renewals timed (host ms, synchronised).  Returns the
     booster, seconds of each iteration after the first, the kernel
     launches executed, graph replays and the renewals' ms."""
@@ -3164,6 +3297,8 @@ def run_cell(torch, ltt, ds, params, n_iter, eager, what):
     from lightgbm_tpu_torch.ops import graphs
     b = ltt.Booster(params=dict(params, num_iterations=n_iter),
                     train_set=ds, _eager=eager)
+    if valid is not None:
+        b.add_valid(valid, "holdout")
     obj = b._gbdt.objective
     renew_ms = []
     if obj.renews:
@@ -3194,13 +3329,20 @@ def run_cell(torch, ltt, ds, params, n_iter, eager, what):
             "renew_ms": renew_ms, "renew_stats": dict(tobj.RENEW_STATS)}
 
 
-def graphed_and_eager(torch, ltt, ds, params, n_iter, names, what):
+def graphed_and_eager(torch, ltt, ds, params, n_iter, names, what,
+                      valid=None):
     """One cell graphed and eager: the same trees and training score bit
-    for bit, the same kernel launches executed, each kernel of ``names``
-    launched; returns the graphed run (the eager booster freed)."""
-    g = run_cell(torch, ltt, ds, params, n_iter, False, what)
-    e = run_cell(torch, ltt, ds, params, n_iter, True, f"{what} eager")
+    for bit (and validation score, with ``valid``), the same kernel
+    launches executed, each kernel of ``names`` launched; returns the
+    graphed run (the eager booster freed)."""
+    g = run_cell(torch, ltt, ds, params, n_iter, False, what, valid)
+    e = run_cell(torch, ltt, ds, params, n_iter, True, f"{what} eager",
+                 valid)
     _same_bits(g["booster"], e["booster"], f"{what}: graphs vs eager")
+    if valid is not None and not torch.equal(
+            g["booster"]._gbdt.valid_sets[0].score,
+            e["booster"]._gbdt.valid_sets[0].score):
+        fail(f"{what}: the holdout scores differ between graphs and eager")
     if g["counts"] != e["counts"]:
         fail(f"{what}: kernel launches executed differ between graphs "
              f"{g['counts']} and eager {e['counts']}")
@@ -3228,9 +3370,12 @@ def _train_score_vs_prediction(b, X, what, rows=TRAIN_SLICE, atol=1e-4):
 
 def phase_multiclass(torch, ltt):
     """Phase 11: bench.py's multiclass shape at full width, each cell of
-    ``MC_CELLS`` graphed and eager (the same bits and launches); then the
-    softmax cell through ``train`` with the 100k holdout as a validation
-    set (``metric=multi_logloss,multi_error``): its score within 1e-5 of
+    ``MC_CELLS`` graphed and eager (the same bits and launches; the DART
+    cell with the 100k holdout as a validation set, its holdout scores the
+    same bits and within 1e-5 of the trees' prediction), the training
+    score within 1e-4 of the trees' prediction; then the softmax cell
+    through ``train`` with the holdout as a validation set
+    (``metric=multi_logloss,multi_error``): its score within 1e-5 of
     ``predict(raw_score=True)``, the metrics within 1e-9 of their numpy
     formulas, multi_error below 0.5.  Seconds an iteration and a tree,
     the kernels' launches a class tree."""
@@ -3239,12 +3384,13 @@ def phase_multiclass(torch, ltt):
     print(f"multiclass data generation: {time.perf_counter() - t0:.1f} s",
           flush=True)
     out, counts_by = {}, {}
-    ds = None
-    for cell, (params, n_iter, names) in MC_CELLS.items():
+    ds = ltt.Dataset(X, label=y, params=dict(
+        MC_PARAMS, device_type=DEVICE)).construct()
+    valid = ds.create_valid(Xh, label=yh).construct()
+    for cell, (params, n_iter, names, holdout) in MC_CELLS.items():
         p = dict(params, device_type=DEVICE)
-        ds = ltt.Dataset(X, label=y, params=p).construct() \
-            if ds is None else ds
-        r = graphed_and_eager(torch, ltt, ds, p, n_iter, names, cell)
+        r = graphed_and_eager(torch, ltt, ds, p, n_iter, names, cell,
+                              valid if holdout else None)
         b = r["booster"]
         K = b.num_tree_per_iteration
         diff = _train_score_vs_prediction(b, X, cell, atol=1e-4)
@@ -3260,6 +3406,16 @@ def phase_multiclass(torch, ltt):
                      "graph_replays_per_tree": r["replays"] / (n_iter * K),
                      "refine_shift": b._gbdt.grow_params.refine_shift,
                      "train_score_vs_prediction": diff}
+        if holdout:
+            score = b._gbdt.valid_sets[0].score.cpu().numpy().T
+            sdiff = float(np.max(np.abs(score - b.predict(
+                Xh, raw_score=True))))
+            if not sdiff <= 1e-5:
+                fail(f"{cell}: the holdout score is {sdiff} from the trees' "
+                     f"prediction")
+            out[cell]["holdout_score_vs_prediction"] = sdiff
+        if p.get("boosting") == "dart":
+            out[cell]["kept_leaf_id_bytes"] = b._gbdt.leaf_idx_bytes()
         counts_by[cell] = r["counts"]
         eager_s = out[cell]["eager_seconds_per_iteration"]
         print(f"{cell}: {n_iter} iterations x {K} trees, graphs and eager "
@@ -3268,9 +3424,8 @@ def phase_multiclass(torch, ltt):
               f"{per_tree}", flush=True)
         del b, r
     # the softmax cell with the holdout as a validation set
-    params, n_iter, names = MC_CELLS["multiclass-wave255"]
+    params, n_iter, names, _ = MC_CELLS["multiclass-wave255"]
     p = dict(params, device_type=DEVICE, metric=",".join(MC_METRICS))
-    valid = ds.create_valid(Xh, label=yh).construct()
     res, clock = {}, _Clock(torch)
     reset_counts()
     torch.cuda.synchronize()
@@ -4110,6 +4265,7 @@ def main():
         stats[f"sample_{k}"] = b_stats[k]
     for k in ("goss_select", "mvs_scores", "mvs_scan"):
         stats[k] = b_stats[k]
+    stats["class_sum"] = phase_kernels_class_sum(torch, dev)
     stats["route"] = phase_kernels_route(torch, dev)
     t_phase = _phase_done("phase 2 (kernels H-T)", t_phase)
     # ---- phase 3: the exact path end to end at full width ------------
@@ -4230,6 +4386,12 @@ def main():
         "mvs_scan": ("lightgbm_tpu_torch/csrc/sample.cu",
                      "lightgbm_tpu/models/boosting.py:119",
                      sampled_counts["wave255-noc2f-mvs"]),
+        # the class sum over K classes (:82, :165), on phase 11's GOSS and
+        # MVS cells
+        "class_sum": ("lightgbm_tpu_torch/csrc/sample.cu",
+                      "lightgbm_tpu/models/boosting.py:82",
+                      {"class_sum": sum(mc_counts[c]["class_sum"]
+                                        for c in MC_SAMPLED)}),
         # kernel T replaces no Pallas kernel: the JAX package routes a
         # validation set's rows in XLA
         "route": ("lightgbm_tpu_torch/csrc/route.cu",

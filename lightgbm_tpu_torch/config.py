@@ -11,10 +11,9 @@ Parameter names, defaults and alias sets follow the reference
 of which this is a copy; only the ``device_type`` default differs (``cuda``).
 :data:`UNSUPPORTED` names, in one place, the parameters whose non-default
 values ask for a part of the system this package does not implement yet;
-:meth:`Config.check_supported` raises ``NotImplementedError`` for them, and for
-a multiclass objective under a boosting mode that trains one tree an iteration
-(GOSS, MVS, DART, random forests); :meth:`Config.check_histogram_pool` raises
-for a histogram pool over its budget, which the JAX package would drop.  Every
+:meth:`Config.check_supported` raises ``NotImplementedError`` for them;
+:meth:`Config.check_histogram_pool` raises for a histogram pool over its
+budget, which the JAX package would drop.  Every
 objective the JAX package registers is ported (``lambdarank`` with its
 ``sigmoid``, ``lambdamart_norm``, ``max_position`` and ``label_gain``; ``none``
 / ``custom`` for a custom ``fobj``); ``rank_xendcg``, named in the
@@ -1180,13 +1179,6 @@ UNSUPPORTED: List[Tuple[str, Any, str]] = [
 ]
 
 
-# objectives that train one tree a class an iteration, and the boosting
-# modes that train one tree an iteration only (Config.check_supported)
-MULTICLASS_OBJECTIVES = ("multiclass", "softmax", "multiclassova",
-                         "multiclass_ova", "ova", "ovr")
-SINGLE_TREE_BOOSTING = ("goss", "mvs", "dart", "rf", "random_forest")
-
-
 def param_docs() -> str:
     """Render parameter docs (the reference generates Parameters.rst)."""
     lines = []
@@ -1333,13 +1325,6 @@ class Config:
                 raise NotImplementedError(
                     f"{name}={value!r}: {what} are not implemented by "
                     f"lightgbm_tpu_torch yet")
-        if self.objective in MULTICLASS_OBJECTIVES and \
-                self.boosting in SINGLE_TREE_BOOSTING:
-            raise NotImplementedError(
-                f"boosting={self.boosting!r} with objective="
-                f"{self.objective!r}: more than one tree an iteration under "
-                f"GOSS, MVS, DART or random forests is not implemented by "
-                f"lightgbm_tpu_torch yet")
 
     def check_histogram_pool(self, num_features: int, max_bin: int) -> None:
         """Raise ``NotImplementedError`` where the JAX package would drop

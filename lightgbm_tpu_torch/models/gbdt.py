@@ -81,8 +81,9 @@ head reads row k, so each class's tree is one CUDA graph (a head and a
 tail a class on the wave loop) and trains on the gradients the JAX
 package gives it; its tail adds into row k.  Each class tree draws its
 own feature-fraction mask and quantization tree id, in tree order; a
-bagging draw is the iteration's, shared by its K trees.  An iteration
-stops training only when all its K trees have one leaf.
+sample (bagging, GOSS, MVS) is the iteration's: class 0's head draws it
+once from the (K, N) gradients into a static buffer its K trees read.
+An iteration stops training only when all its K trees have one leaf.
 
 Custom gradients (``train_one_iter(grad, hess)``, a ``fobj``; also a
 booster without an objective, :2457-2536) are copied from a pinned host
@@ -388,6 +389,10 @@ class GBDT:
         self._bag_key = prng.prng_key(config.bagging_seed & 0x7FFFFFFF)
         self._sampled = self._samples()
         self._bag_words = torch.zeros(4, dtype=torch.int64, device=dev)
+        # a multiclass iteration's weights, drawn by class 0's head from the
+        # (K, N) gradients and read by every class tree's
+        self._class_w = torch.zeros(self.num_data, device=dev) \
+            if self._sampled and C > 1 else None
         self._label_pos = (train_set.label > 0).to(torch.uint8) \
             if self._bagging_active() and self._pos_neg() else None
 
@@ -428,11 +433,15 @@ class GBDT:
         (its presence mask into the tree's static sample mask), then the
         tree's head (lightgbm_tpu/models/gbdt.py:2104-2126).  Class k of a
         multiclass iteration reads row k of the iteration's gradients,
-        which class 0's head computes from the starting score.  Custom
-        gradients are read from the static buffers they were copied to."""
+        which class 0's head computes from the starting score, and the
+        iteration's sample, which class 0's head draws from all K rows of
+        them (the JAX package's one ``bag`` an iteration, :2526-2530).
+        Custom gradients are read from the static buffers they were
+        copied to."""
+        C = self.num_tree_per_iteration
         if self._custom:
             grad, hess = self._grad_all[k], self._hess_all[k]
-        elif self.num_tree_per_iteration == 1:
+        elif C == 1:
             grad, hess = self._gradients()
         else:
             if k == 0:
@@ -441,9 +450,17 @@ class GBDT:
                 self._hess_all.copy_(h)
             grad, hess = self._grad_all[k], self._hess_all[k]
         if self._sampled:
-            w = self._sample_weights(self._bag_words, grad, hess)
+            if C == 1:
+                w = self._sample_weights(self._bag_words, grad, hess)
+                self._mask.copy_(w > 0)
+            else:
+                w = self._class_w
+                if k == 0:
+                    w.copy_(self._sample_weights(self._bag_words,
+                                                 self._grad_all,
+                                                 self._hess_all))
+                    self._mask.copy_(w > 0)
             grad, hess = grad * w, hess * w
-            self._mask.copy_(w > 0)
         tree_head(self._state, grad, hess)
 
     def _tree_tail(self, k: int = 0) -> None:
@@ -496,7 +513,8 @@ class GBDT:
     def _sample_weights(self, words: torch.Tensor, grad: torch.Tensor,
                         hess: torch.Tensor) -> torch.Tensor:
         """The (N,) float32 weights of the draw keyed by ``words``
-        ((4,) int64, :meth:`_sample_words`): bagging's
+        ((4,) int64, :meth:`_sample_words`) for the gradients ``grad`` and
+        ``hess`` ((N,), or (K, N) for K classes): bagging's
         (``_draw_bag_mask_impl``, :1110-1125)."""
         cfg = self.config
         return sample.bag_weights(words, self.num_data, cfg.bagging_fraction,
@@ -877,9 +895,9 @@ class GBDT:
         vals[:tree.num_leaves] = tree.leaf_value[:tree.num_leaves]
         return torch.from_numpy(vals).to(self.device)
 
-    def _landed_leaf_idx(self, blk: dict) -> torch.Tensor:
-        """The training leaf ids of a landed block of one tree."""
-        return blk["slot"]["leaf_idx"][0, :self.num_data]
+    def _landed_leaf_idx(self, blk: dict, t: int = 0) -> torch.Tensor:
+        """The training leaf ids of a landed block's tree ``t``."""
+        return blk["slot"]["leaf_idx"][t, :self.num_data]
 
     def _serve_fused(self) -> bool:
         """Append the next iteration's trees of the landed block: one

@@ -219,20 +219,32 @@ class ValidScorer:
     """A validation set's score update after each tree: the rows of ``xt``
     (F, N) routed through the split records in ``st`` (``route_rows``:
     kernel T on the card) into the static leaf-id buffer ``li`` (uint8 up
-    to 256 leaves, else int32), then ``score += vals[li]`` (``score`` (N,)
-    float64, or (K, N) with class k's tree added into row k; ``vals`` the
-    booster's shrunken float32 leaf values: kernel L's float64 mode on
-    the card).  With ``vals=None`` it only routes: the booster adds the
-    host tree's values once the tree lands (DART, random forests, leaf
-    renewal).  It reads only device buffers, so it runs eagerly until
-    ``runner`` holds its tree graphs and from then on as replays of one
-    graph a class."""
+    to 256 leaves, else int32; (K, N) for K classes, class k's tree routed
+    into row k, each row 16-byte aligned), then ``score += vals[li]``
+    (``score`` (N,) float64, or (K, N) with class k's tree added into row
+    k; ``vals`` the booster's shrunken float32 leaf values: kernel L's
+    float64 mode on the card).  With ``vals=None`` it only routes: the
+    booster adds the host trees' values once an iteration lands (DART,
+    random forests, leaf renewal), from each class's row of ``li``
+    (:meth:`leaf_ids`).  It reads only device buffers, so it runs eagerly
+    until ``runner`` holds its tree graphs and from then on as replays of
+    one graph a class."""
 
     def __init__(self, st: GrowState, xt: torch.Tensor, vals, score):
         self.st, self.xt, self.vals, self.score = st, xt, vals, score
-        self.li = torch.zeros(xt.shape[1], dtype=st.li_dtype,
-                              device=xt.device)
+        n = xt.shape[1]
+        if score.dim() == 1:
+            self.li = torch.zeros(n, dtype=st.li_dtype, device=xt.device)
+        else:
+            size = torch.empty((), dtype=st.li_dtype).element_size()
+            n16 = -(-n * size // 16) * 16 // size
+            self.li = torch.zeros((score.shape[0], n16), dtype=st.li_dtype,
+                                  device=xt.device)[:, :n]
         self.graphs = {}
+
+    def leaf_ids(self, k: int = 0) -> torch.Tensor:
+        """Class k's leaf ids of the last tree routed for it."""
+        return self.li if self.li.dim() == 1 else self.li[k]
 
     @property
     def graph(self):
@@ -241,11 +253,12 @@ class ValidScorer:
 
     def _score(self, k: int = 0) -> None:
         rec = self.st.rec
+        li = self.leaf_ids(k)
         route_rows(self.xt, rec["leaf"], rec["feature"], rec["left_mask"],
-                   rec["valid"], self.st.params.num_leaves, out=self.li)
+                   rec["valid"], self.st.params.num_leaves, out=li)
         if self.vals is not None:
             row = self.score if self.score.dim() == 1 else self.score[k]
-            lookup.take_small_add(row, self.vals, self.li)
+            lookup.take_small_add(row, self.vals, li)
 
     def run(self, runner: TreeRunner, k: int = 0) -> None:
         if runner.graphs is None:

@@ -76,6 +76,7 @@ _SIGNATURES = {
     "ltt_sample": [_I, _P, _P, _P, _P, _F, _F, _P, _I64, _I, _P, _P],
     "ltt_goss_select": [_P, _I64, _I64, _P, _I64, _P, _P, _P, _I, _P],
     "ltt_mvs_scores": [_P, _F, _P, _I64, _I, _P],
+    "ltt_class_sum": [_P, _I64, _P, _I64, _I, _F, _I, _P, _I64, _I, _P],
     "ltt_mvs_scan": [_P, _I64, _F, _P, _I64, _P],
     "ltt_route": [_P, _I, _I64, _P, _P, _P, _P, _I, _I, _P, _I64, _P, _P,
                   _I, _I, _P],

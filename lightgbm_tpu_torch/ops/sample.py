@@ -13,7 +13,11 @@ Kernel B (``csrc/sample.cu``) is the whole sampling step on the card:
 :func:`bag_weights` draws, :func:`goss_step` runs GOSS's radix select
 (:func:`goss_select`, 3 launches) and the draw, :func:`mvs_step` MVS's
 scores, PyTorch's sort, its scan (2 launches) and the draw, which
-computes ``mu``.  They
+computes ``mu``.  With K classes GOSS and MVS sample on ``gh = sum_k |g[k]
+* h[k]|`` over the (K, N) gradients (``boosting.py:82``, :165): kernel
+B's class sum, :func:`class_gh` (one launch, then GOSS's step on it) and
+:func:`mvs_class_step` (the same launch writing MVS's scores, then the
+rest of MVS's step); :func:`class_gh_plain` is its plain version.  They
 read nothing back to the host, so a CUDA graph of a tree's head holds
 them.  A CUDA tensor launches the kernels (or raises); a CPU tensor takes
 the plain versions: the thresholds :func:`goss_threshold`,
@@ -35,9 +39,11 @@ from ..utils.prng import uniform_rows
 from . import kernels
 from .split import fma32, prefix_sum
 
-__all__ = ["bag_weights", "bag_weights_plain", "goss_select", "goss_step",
+__all__ = ["bag_weights", "bag_weights_plain", "class_gh", "class_gh_plain",
+           "goss_select", "goss_step",
            "goss_threshold", "goss_weights", "goss_weights_plain",
-           "mvs_scores", "mvs_step", "mvs_threshold", "mvs_weights",
+           "mvs_class_step", "mvs_scores", "mvs_step", "mvs_threshold",
+           "mvs_weights",
            "mvs_weights_plain", "sample_plan", "scan_levels", "scan_words",
            "sort_scores", "select_plan", "LAUNCHES", "STEP_LAUNCHES"]
 
@@ -62,8 +68,10 @@ _BAG, _STRATIFIED, _GOSS, _MVS, _MVS_STEP = 0, 1, 2, 3, 4
 # launches of kernel B's draw, one a call, by mode (one a sampled tree)
 LAUNCHES = {"sample_bag": 0, "sample_goss": 0, "sample_mvs": 0}
 # the step's other launches, by kernel: GOSS's select passes (3 a call),
-# MVS's scores (1) and scan (2)
-STEP_LAUNCHES = {"goss_select": 0, "mvs_scores": 0, "mvs_scan": 0}
+# MVS's scores (1) and scan (2), and with K classes the class sum (1 a
+# call, writing gh or MVS's scores)
+STEP_LAUNCHES = {"goss_select": 0, "mvs_scores": 0, "mvs_scan": 0,
+                 "class_sum": 0}
 
 
 def _f32(x: float) -> float:
@@ -175,6 +183,54 @@ def bag_weights(words: torch.Tensor, n: int, frac: float, pos_frac: float,
     _rows(label_pos, torch.uint8, n, "label_pos")
     return _launch(_STRATIFIED, words, label_pos, None, None,
                    _f32(pos_frac), _f32(neg_frac), n, "sample_bag")
+
+
+# ---- K classes: the class sum ------------------------------------------
+
+def class_gh_plain(grad: torch.Tensor, hess: torch.Tensor) -> torch.Tensor:
+    """``gh`` (N,) float32 of (K, N) gradients: ``|g[0] * h[0]| + |g[1] *
+    h[1]| + ...``, each product rounded, added in class order from 0, as
+    the JAX package's CPU reduce sums ``jnp.abs(grad * hess)`` over its
+    leading axis."""
+    gh = (grad[0] * hess[0]).abs()
+    for k in range(1, grad.shape[0]):
+        gh = gh + (grad[k] * hess[k]).abs()
+    return gh
+
+
+def _class_sum(grad: torch.Tensor, hess: torch.Tensor, var_weight: float,
+               mode: int) -> torch.Tensor:
+    """One launch of kernel B's class sum: mode 0 ``gh``, mode 1 MVS's
+    scores of it."""
+    if grad.dtype != torch.float32 or hess.dtype != torch.float32 or \
+            grad.dim() != 2 or grad.shape != hess.shape or \
+            grad.stride(1) != 1 or hess.stride(1) != 1:
+        raise ValueError("grad and hess must be float32 (K, N) with "
+                         "contiguous rows")
+    if hess.device != grad.device:
+        raise ValueError("all inputs must be on one device")
+    K, n = grad.shape
+    if not 0 < n < 2 ** 31 or K < 1:
+        raise ValueError("kernel B sums 1 to 2^31 - 1 rows of K >= 1 "
+                         "classes")
+    dev = grad.device
+    lib = kernels.load()
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    rc = lib.ltt_class_sum(grad.data_ptr(), grad.stride(0), hess.data_ptr(),
+                           hess.stride(0), K, _f32(var_weight), mode,
+                           out.data_ptr(), n,
+                           sample_plan(n, kernels.sm_count(dev)), _stream(dev))
+    kernels.check(rc, "kernel B (ltt_class_sum)")
+    STEP_LAUNCHES["class_sum"] += 1
+    return out
+
+
+def class_gh(grad: torch.Tensor, hess: torch.Tensor) -> torch.Tensor:
+    """``gh`` (N,) of (K, N) float32 gradients and hessians: kernel B's
+    class sum on the card, :func:`class_gh_plain` on the CPU."""
+    if grad.device.type == "cpu":
+        return class_gh_plain(grad, hess)
+    return _class_sum(grad, hess, 0.0, 0)
 
 
 # ---- GOSS --------------------------------------------------------------
@@ -342,9 +398,7 @@ def mvs_step(words: torch.Tensor, gh: torch.Tensor, var_weight: float,
     plain versions."""
     n = gh.shape[0]
     if gh.device.type == "cpu":
-        s = mvs_scores(gh, var_weight)
-        mu = mvs_threshold(s, target)
-        return mvs_weights_plain(words, s, mu), s, mu
+        return _mvs_plain(words, mvs_scores(gh, var_weight), target)
     _rows(gh, torch.float32, n, "gh")
     if n >= 2 ** 31:
         raise ValueError("kernel B's scan takes at most 2^31 - 1 rows")
@@ -356,6 +410,33 @@ def mvs_step(words: torch.Tensor, gh: torch.Tensor, var_weight: float,
                             _stream(dev))
     kernels.check(rc, "kernel B (ltt_mvs_scores)")
     STEP_LAUNCHES["mvs_scores"] += 1
+    return _mvs_rest(words, s, target)
+
+
+def mvs_class_step(words: torch.Tensor, grad: torch.Tensor,
+                   hess: torch.Tensor, var_weight: float,
+                   target: float) -> tuple:
+    """MVS's sampling step on (K, N) float32 gradients and hessians ->
+    (weights, s, mu), :func:`mvs_step`'s on :func:`class_gh_plain`'s gh: on
+    the card kernel B's class sum writes the scores (one launch, in place
+    of the scores launch), then the sort, the scan and the draw."""
+    if grad.device.type == "cpu":
+        return _mvs_plain(words, mvs_scores(class_gh_plain(grad, hess),
+                                            var_weight), target)
+    return _mvs_rest(words, _class_sum(grad, hess, var_weight, 1), target)
+
+
+def _mvs_plain(words: torch.Tensor, s: torch.Tensor, target: float):
+    mu = mvs_threshold(s, target)
+    return mvs_weights_plain(words, s, mu), s, mu
+
+
+def _mvs_rest(words: torch.Tensor, s: torch.Tensor, target: float):
+    """MVS's step after its scores ``s`` on the card: PyTorch's sort,
+    kernel B's scan (2 launches) and its draw, which computes ``mu``."""
+    n = s.shape[0]
+    dev = s.device
+    lib = kernels.load()
     x = sort_scores(s)
     words_n = scan_words(n)
     scratch = torch.empty(words_n, dtype=torch.float32, device=dev)

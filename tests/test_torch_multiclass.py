@@ -43,8 +43,11 @@ The contract, and why:
   prediction, and training on gives the uninterrupted booster's model;
 - stratified ``cv`` on the four labels: the JAX package's folds, and each
   metric's mean and deviation within 1e-6 of its;
-- K > 1 with GOSS, MVS, DART or random forests raises
-  ``NotImplementedError``.
+- K > 1 trains under GOSS, MVS, DART and random forests: K trees an
+  iteration, and the training score within 1e-5 of the trees' prediction
+  (a forest's averaged).  Their contracts against the JAX package are in
+  ``tests/test_torch_multiclass_sampled.py`` (GOSS, MVS) and
+  ``tests/test_torch_multiclass_dart_rf.py`` (DART, random forests).
 
 ``tests/test_torch_multiclass_card.py`` holds the card's graphed
 multiclass training to its eager launches and to the CPU.
@@ -307,7 +310,13 @@ def test_stratified_cv_matches_jax():
     {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1}])
 @pytest.mark.parametrize("objective", ["multiclass", "multiclassova"])
 def test_single_tree_boosting_refuses_classes(objective, boosting):
+    """Once refused (hence the name), these boosting modes now train K
+    trees an iteration."""
     X, y = _data(500)
     p = dict(_params(objective), device_type="cpu", **boosting)
-    with pytest.raises(NotImplementedError, match="tree an iteration"):
-        ltt.train(p, ltt.Dataset(X, label=y, params=p), num_boost_round=1)
+    b = ltt.train(p, ltt.Dataset(X, label=y, params=p), num_boost_round=2)
+    assert b.num_trees() == 2 * K and b.num_tree_per_iteration == K
+    pred = b.predict(X, raw_score=True)
+    assert pred.shape == (len(y), K) and np.isfinite(pred).all()
+    np.testing.assert_allclose(b._gbdt.train_score().T, pred, rtol=0,
+                               atol=1e-5)

@@ -179,11 +179,11 @@ def test_cuda_default_raises_without_a_card():
 
 @pytest.mark.parametrize("params", [
     {"feature_contri": [0.5, 1, 1, 1, 1, 1]},
-    {"objective": "multiclass", "num_class": 3, "boosting": "goss"},
+    {"tree_learner": "voting"},
     {"speculative_tolerance": 0.1}, {"forcedsplits_filename": "forced.json"},
     {"tree_learner": "data"}, {"monotone_constraints": [1, 0, 0, 0, 0, 0]},
     {"categorical_feature": "0"},
-    {"objective": "multiclass", "num_class": 3, "boosting": "dart"},
+    {"categorical_feature": [0, 2]},
 ])
 def test_unimplemented_parameters_raise(params):
     X, y = _data(6, "binary", False, n=200)
