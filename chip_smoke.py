@@ -107,7 +107,7 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    (refine_shift 4), on the same data, in the same three modes: launches
    of M, V, R, V-lanes (one a wave), Q and L per tree, none of S, and
    holdout AUC no more than 0.02 below the exact path's;
-6. trains reduced copies (50k rows with missing values, 10 iterations:
+6. trains reduced copies (50k rows with missing values, 6 iterations:
    the exact path at 31 leaves, float waves, quantized two-column waves
    at 127 leaves, and both wave kinds with coarse-to-fine refinement; and
    with row sampling: stratified bagging on float waves, GOSS on the
@@ -118,7 +118,7 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    1 and 4, and requires
    identical trees card against CPU, and fused_iters=4 the same bits as
    fused_iters=1 on each device; then the objective zoo (20k rows, 5%
-   NaN, 5 iterations): the ten regression and cross-entropy objectives
+   NaN, 4 iterations): the ten regression and cross-entropy objectives
    on the exact loop at 31 leaves, L1 and MAPE also with bernoulli bagging
    and with GOSS, softmax and one-vs-all on the exact loop, float waves
    and two-column coarse-to-fine waves, identical trees card against CPU,
@@ -222,7 +222,26 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    the same generator as a grouped validation set, ndcg@1, 3, 5 and 10
    within 1e-9 of a numpy NDCG of the fetched score, the score within
    1e-5 of the trees' prediction, kernels U, T and L's float64 mode once
-   a tree.  Each phase prints its seconds.
+   a tree;
+14. (run after phase 13's fobj cell, on phase 3's data) bench.py's
+   missing + categorical Higgs row (``bench.py:2150-2214``): 10% NaN from
+   RandomState(29) in chunks of 1M rows; ``higgs-missing-wave255``
+   (numerical, wave255 as it ships, c2f on), then columns 0-3 as
+   ``floor(|nan_to_num(x)| * 4) % 12`` named categorical in the parameter
+   and the Dataset: ``higgs-missing-cat-wave255`` (bench.py's
+   base_params, wave_splits, use_quantized_grad: W=42 three-column waves
+   routed outside the pass, no two-column passes, no c2f) and
+   ``higgs-missing-cat-exact255`` (the exact loop), each graphed, eagerly
+   and at fused_iters=5 (the same trees and launches), its tiers, its
+   Dataset's seconds, kernel launches and replays a tree, categorical
+   splits (more than none), the training score within 1e-5 of the trees'
+   prediction on the first 500k rows and training AUC above 0.6; then
+   ``higgs-missing-cat-wave255-valid``, the 500k holdout under the same
+   transform as a validation set (phase 7's checks).  Phase 2 holds
+   kernel M at that wave's launch (W=42, three int8 columns, an int8
+   selector) and the merged split scan (kernel S and the categorical
+   scan) of its 84 children against the CPU's, bit for bit.  Each phase
+   prints its seconds.
 
 Every phase passes or the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
@@ -968,6 +987,103 @@ def measure_multi_root(torch, th, dev, bins, qv, B, shift, miss_bin, mode):
                 bound_by=b[1], library_ms=lib)
 
 
+def measure_multi_w42(torch, th, dev, g, bins, B):
+    """Kernel M at a categorical wave's launch (phase 14): W = 42 lanes,
+    three int8 columns, an int8 selector (the routing outside the pass
+    writes it: no narrowing launch), 256 padded bins — exact against its
+    plain version with a repeat launch bit for bit; its time, device
+    time, launches a call (2), plain and ``index_add_`` times and
+    bound."""
+    F, N = bins.shape
+    qv = torch.stack([
+        torch.randint(-120, 121, (N,), generator=g, device=dev,
+                      dtype=torch.int32),
+        torch.randint(0, 121, (N,), generator=g, device=dev,
+                      dtype=torch.int32),
+        torch.ones(N, device=dev, dtype=torch.int32)], -1).to(
+            torch.int8).contiguous()
+    sel = torch.randint(-1, 42, (N,), generator=g, device=dev,
+                        dtype=torch.int32).to(torch.int8)
+    err, _ = check_multi(torch, th, bins, qv, sel, 42, B, False, True,
+                         "W=42 three-column int8, int8 sel")
+
+    def call():
+        return th.multi_histogram(bins, qv, sel, B, 42, False)
+
+    ms = cuda_ms(call, reps=10)
+    dev_ms, n_launch = check_launches_a_call(torch, call, MULTI_NAMES, 2,
+                                             "M (W=42 three-column)")
+    plain = cuda_ms(lambda: th.multi_histogram_plain(bins, qv, sel, B, 42,
+                                                     False), reps=2)
+    lib = _index_add_ms(torch, dev, bins, qv, sel, 42, B)
+    n_sel = int((sel >= 0).sum())
+    # needs: the bins and values of the selected rows, every selector,
+    # the output; one integer add per (selected row, feature, column)
+    b = bound(n_sel * F + n_sel * 3 + N + 42 * F * B * 3 * 4,
+              n_sel * F * 3)
+    print(f"kernel M (W=42 three-column int8, int8 sel): exact, repeat "
+          f"launch bit for bit; {ms:.4f} ms, device {dev_ms:.4f} ms, "
+          f"{n_launch:g} launches a call (plain {plain:.3f}, index_add_ "
+          f"{lib:.3f}, bound {b[0]:.4f} by {b[1]}) at F={F} N={N} B={B}",
+          flush=True)
+    return dict(w42_3col_max_abs_err=err, w42_3col_ms=ms,
+                w42_3col_device_ms=dev_ms, w42_3col_launches_per_call=n_launch,
+                w42_3col_plain_ms=plain, w42_3col_index_add_ms=lib,
+                w42_3col_bound_ms=b[0], w42_3col_bound_by=b[1])
+
+
+def measure_categorical_scan(torch, ts, hist, parent, B):
+    """The merged scan of a categorical wave's 2W = 84 children (phase
+    14's shape; features 0-3 categorical with 12 value bins and no missing
+    bin, the rest numerical with a missing bin): kernel S on the
+    numerical features, the plain categorical scan on the rest, one merge
+    — the record of the plain merged scan on the CPU copies (feature,
+    kind, left mask and gain bit for bit), over every feature and over
+    the categorical ones alone; the merged call's time and the CUDA
+    kernels of one call (kernel S one of them)."""
+    dev = hist.device
+    F = hist.shape[1]
+    is_cat = torch.zeros(F, dtype=torch.bool, device=dev)
+    is_cat[:4] = True
+    nb = torch.where(is_cat, 12, B - 1).to(torch.int32)
+    mt = torch.where(is_cat, 0, 2).to(torch.int32)
+    p = ts.SplitParams(max_bin=B, min_data_in_leaf=0,
+                       min_sum_hessian_in_leaf=100.0, any_missing=True,
+                       any_cat=True)
+    hist = hist.contiguous()
+    parent = parent.contiguous()
+    n_cat = {}
+    for what, fm in (("every feature", torch.ones_like(is_cat)),
+                     ("categorical features", is_cat.clone())):
+        k = ts.find_best_split(hist, parent, nb, mt, fm, p, None, 0, is_cat)
+        q = ts.find_best_split_plain(
+            *(t.cpu() for t in (hist, parent, nb, mt, fm)), p,
+            is_cat=is_cat.cpu())
+        torch.cuda.synchronize()
+        for key in ("feature", "is_cat", "default_left", "left_mask",
+                    "gain"):
+            if not torch.equal(k[key].cpu(), q[key]):
+                fail(f"the merged scan's {key} on the card differs from "
+                     f"the CPU's ({what})")
+        n_cat[what] = int((k["is_cat"] & (k["gain"] > 0)).sum())
+    if n_cat["categorical features"] == 0:
+        fail("the categorical scan found no split on its test histograms")
+    fm = torch.ones_like(is_cat)
+
+    def call():
+        return ts.find_best_split(hist, parent, nb, mt, fm, p, None, 0,
+                                  is_cat)
+
+    ms = cuda_ms(call, reps=20)
+    dev_s, n_launch = profile_calls(call, 20, SPLIT_NAMES, whole=False)
+    print(f"merged scan (2W=84 children, 4 categorical features): the CPU's "
+          f"records bit for bit (categorical splits {n_cat}); {ms:.4f} ms a "
+          f"call (kernel S's device time {dev_s:.4f} ms, {n_launch:g} CUDA "
+          f"kernels a call)", flush=True)
+    return dict(ms=ms, kernel_s_device_ms=dev_s,
+                cuda_kernels_per_call=n_launch, categorical_splits=n_cat)
+
+
 def check_multi_float(torch, th, g, dev, bins, B, shift, miss_bin, mode):
     """Kernel M at W=21 on float values: N(0, 1) and U(0.05, 1.05), then
     wide-exponent ones, within rel 1e-5 of plain with a repeat launch bit
@@ -1174,6 +1290,8 @@ def phase_kernels_wave(torch, dev, th, ts, bins):
     out["multi_histogram"].update(w64_ms=ms_w, w64_plain_ms=plain_w,
                                   w64_index_add_ms=lib_w,
                                   w64_bound_ms=b_w[0])
+    out["multi_histogram"].update(measure_multi_w42(torch, th, dev, g,
+                                                    bins, B))
     ms_f, rel_f, rel_fw = check_multi_float(torch, th, g, dev, bins, B, 0,
                                             None, "full")
     out["multi_histogram"].update(float_w21_ms=ms_f,
@@ -1233,6 +1351,8 @@ def phase_kernels_wave(torch, dev, th, ts, bins):
     print(f"kernel S (2W=128 children, counts proxy): identical to plain; "
           f"{ms_s:.4f} ms, device {dev_s:.4f} ms, {n_launch:g} launch a call "
           f"(bound {b_s[0]:.5f} by {b_s[1]})", flush=True)
+    out["categorical_scan"] = measure_categorical_scan(torch, ts, ch[:84],
+                                                       par[:84], B)
     del ch
 
     # ---- kernel Q ---------------------------------------------------
@@ -2638,14 +2758,15 @@ def reduced_cells():
             float_waves, boosting="rf", bagging_fraction=0.632,
             bagging_freq=1, feature_fraction=0.8), (1,), (1,)),
     }
-    cells = {what: (X, y, dict(TRAIN_PARAMS, **extra), 10, card, cpu,
-                    4 if "c2f" in what else 0, [1, 4, 4, 1], {})
+    cells = {what: (X, y, dict(TRAIN_PARAMS, **extra), REDUCED_ITERS, card,
+                    cpu, 4 if "c2f" in what else 0, [1, 4, 1], {})
              for what, (extra, card, cpu) in base.items()}
     # a custom objective (a numpy log loss) on the exact loop
     cells["exact, fobj"] = (X, y, dict(TRAIN_PARAMS, num_leaves=31,
-                                       objective="none"), 10, (1,), (1,),
+                                       objective="none"), REDUCED_ITERS,
+                            (1,), (1,),
                             None, None, {"fobj": logloss_fobj})
-    # the objective zoo: 20k rows, 5% NaN, 5 iterations
+    # the objective zoo: 20k rows, 5% NaN, ZOO_ITERS iterations
     Xz, _ = make_higgs_shaped(ZOO_ROWS, N_FEATURES, seed=1)
     z = regression_label(Xz)
     Xm, ym, _, _ = make_multiclass(ZOO_ROWS, 0)
@@ -2658,7 +2779,7 @@ def reduced_cells():
         fuse = name not in ZOO_RENEW
         cells[name] = (Xz, labels[name], dict(exact, objective=name),
                        ZOO_ITERS, (1, 4) if fuse else (1,), (1,), None,
-                       [1, 4] if fuse else None, {})
+                       [1, 3] if fuse else None, {})
     for name in ("regression_l1", "mape"):
         for what, extra in (("bagging", {"bagging_fraction": 0.7,
                                          "bagging_freq": 1}),
@@ -2688,7 +2809,7 @@ def reduced_cells():
                                                       num_leaves=127))):
         cells[f"lambdarank, {loop}"] = (Xr, yr, dict(
             TRAIN_PARAMS, **extra, objective="lambdarank", metric="None"),
-            ZOO_ITERS, (1, 4), (1,), 4 if "c2f" in loop else None, [1, 4],
+            ZOO_ITERS, (1, 4), (1,), 4 if "c2f" in loop else None, [1, 3],
             {"group": cr})
     return cells
 
@@ -2765,8 +2886,11 @@ def phase_device_vs_cpu(ltt):
           flush=True)
 
 
-# phase 6's cells of the objective zoo: 20k rows, 5% NaN, 5 iterations
-ZOO_ROWS, ZOO_ITERS = 20_000, 5
+# phase 6's depth (cut from 10 and 5 iterations when phase 14 came, to keep
+# the script's time): the 50k-row cells, and the objective zoo's cells
+# (20k rows, 5% NaN)
+REDUCED_ITERS = 6
+ZOO_ROWS, ZOO_ITERS = 20_000, 4
 ZOO_OBJECTIVES = ("regression_l1", "quantile", "huber", "fair", "poisson",
                   "mape", "gamma", "tweedie", "cross_entropy",
                   "cross_entropy_lambda")
@@ -2788,7 +2912,7 @@ def zoo_label(name, z, rng):
 
 
 # phase 7: each path with the holdout as a validation set; trees a run
-VALID_TREES = {"exact": 3, "wave": 6, "c2f": 6}
+VALID_TREES = {"exact": 3, "wave": 6, "c2f": 6, "cat-wave": 6}
 VALID_METRICS = ("auc", "binary_logloss")
 
 
@@ -4218,6 +4342,145 @@ def phase_fobj(torch, ltt, data, builtin_s):
     return counts, out
 
 
+# phase 14: bench.py's missing + categorical Higgs row (bench.py:2150-2214)
+# on phase 3's data: 10% NaN from RandomState(29), injected in chunks of 1M
+# rows; for the categorical cells columns 0-3 become
+# floor(|nan_to_num(x)| * 4) % 12, named in the parameter and the Dataset
+# as bench.py passes both.  bench.py's base_params + wave_splits +
+# use_quantized_grad, and the same data on the exact loop
+MISSING_PARAMS = dict(TRAIN_PARAMS, **WAVE255_PARAMS, metric="None")
+CAT_COLUMNS = [0, 1, 2, 3]
+CAT_PARAMS = dict(MISSING_PARAMS, categorical_feature="0,1,2,3")
+CAT_EXACT_PARAMS = dict(TRAIN_PARAMS, min_data_in_leaf=0, metric="None",
+                        categorical_feature="0,1,2,3")
+CAT_CELLS = {
+    "higgs-missing-wave255": (
+        MISSING_PARAMS, False,
+        ("multi_histogram", "window_histogram", "routed_histogram",
+         "lanes_window_histogram", "leaf_stats", "leaf_lookup"),
+        (lambda gp: gp.wave and gp.two_col and gp.refine_shift == 4 and
+         gp.quantize > 0 and not gp.split.any_cat,
+         "two-column W=64 c2f waves")),
+    "higgs-missing-cat-wave255": (
+        CAT_PARAMS, True,
+        ("multi_histogram", "leaf_stats", "best_split", "leaf_lookup"),
+        (lambda gp: gp.wave and gp.quantize > 0 and not gp.two_col and
+         gp.refine_shift == 0 and gp.split.any_cat and gp.speculate == 42,
+         "three-column W=42 waves routed outside the pass")),
+    "higgs-missing-cat-exact255": (
+        CAT_EXACT_PARAMS, True, ("histogram", "best_split", "leaf_lookup"),
+        (lambda gp: not gp.wave and gp.split.any_cat,
+         "the exact loop with categorical scans")),
+}
+
+
+def missing_transform(X):
+    """bench.py's NaN injection, on a copy."""
+    rng = np.random.RandomState(29)
+    X = X.copy()
+    for lo in range(0, X.shape[0], 1_000_000):
+        hi = min(lo + 1_000_000, X.shape[0])
+        blk = rng.random_sample((hi - lo, X.shape[1]))
+        X[lo:hi][blk < 0.10] = np.nan
+    return X
+
+
+def categorical_transform(X):
+    """bench.py's categorical columns, in place: -> ``X``."""
+    for c in CAT_COLUMNS:
+        X[:, c] = np.floor(np.abs(np.nan_to_num(X[:, c])) * 4) % 12
+    return X
+
+
+def phase_categorical(torch, ltt, data, wave_s):
+    """Phase 14: the missing + categorical row.  Each cell in the three
+    modes of :func:`run_paths` (the same bits and kernel launches), its
+    tiers, its Dataset's construction seconds, its kernels' launches and
+    graph replays a tree, its trees' categorical splits (more than none on
+    the categorical cells), the training score within 1e-5 of the trees'
+    prediction on the first 500k rows and a training AUC above 0.6; then
+    the categorical wave cell with the holdout, under the same transform,
+    as a validation set (phase 7's checks)."""
+    ds0, Xh0, yh = data
+    y = ds0.get_label()
+    counts, e2e = {}, {}
+    t0 = time.perf_counter()
+    X = missing_transform(ds0.raw_mat)
+    gen_s = time.perf_counter() - t0
+    ds = built = None
+    for cell, (params, cat, names, tier) in CAT_CELLS.items():
+        if built != cat:
+            ds = built = None
+            if cat:
+                # the categorical cells: the NaN'd columns 0-3 remapped
+                t0 = time.perf_counter()
+                categorical_transform(X)
+                gen_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ds = ltt.Dataset(X, label=y,
+                             params=dict(params, device_type=DEVICE),
+                             categorical_feature=CAT_COLUMNS if cat
+                             else "auto").construct()
+            torch.cuda.synchronize()
+            ds_s = time.perf_counter() - t0
+            built = cat
+            torch.cuda.empty_cache()
+        cats = [i for i, m in enumerate(ds._constructed.mappers)
+                if m.bin_type]
+        print(f"{cell}: transform {gen_s:.2f} s, Dataset construction "
+              f"{ds_s:.2f} s (binned {tuple(ds._constructed.binned.shape)} "
+              f"{ds._constructed.binned.dtype}, categorical {cats})",
+              flush=True)
+        runs = run_paths(torch, ltt, ds, dict(params, device_type=DEVICE),
+                         cell)
+        main = runs["graphs"]
+        b, c = main["booster"], main["counts"]
+        gp = b._gbdt.grow_params
+        if not tier[0](gp):
+            fail(f"{cell} did not resolve to {tier[1]}: {gp}")
+        _check_launches(c, names, cell)
+        if cat and gp.wave and c.get("routed_histogram", 0):
+            fail(f"{cell}: kernel R ran on a categorical wave")
+        n_cat = sum(t.num_cat for t in b.models)
+        if cat and n_cat <= 0:
+            fail(f"{cell}: no categorical split in {b.num_trees()} trees")
+        diff = _train_score_vs_prediction(b, X, cell, atol=1e-5)
+        train_auc = np_auc(y[:TRAIN_SLICE],
+                           b._gbdt.train_score()[:TRAIN_SLICE])
+        if not 0.6 < train_auc <= 1.0:
+            fail(f"{cell}: training AUC {train_auc} is not that of a "
+                 f"trained model")
+        per_tree = {k: v / N_TREES for k, v in c.items() if v}
+        print(f"{cell}: tiers {tier[1]}; kernel launches a tree "
+              f"{per_tree}, graph replays a tree "
+              f"{main['replays'] / N_TREES:.1f}; categorical splits "
+              f"{n_cat} in {b.num_trees()} trees "
+              f"({[t.num_cat for t in b.models]}); training score within "
+              f"{diff:.3g} of the trees' prediction, training AUC "
+              f"{train_auc:.5f} on the first {TRAIN_SLICE} rows", flush=True)
+        counts[cell] = c
+        e2e[cell] = dict(
+            seconds_per_iteration=statistics.median(main["iter_s"]),
+            dataset_seconds=ds_s, transform_seconds=gen_s,
+            kernel_launches_per_tree=per_tree,
+            graph_replays_per_tree=main["replays"] / N_TREES,
+            categorical_splits=n_cat, train_auc=train_auc,
+            train_score_vs_prediction=diff, modes=_summary(runs))
+        del b, main["booster"]
+        torch.cuda.empty_cache()
+    Xh = categorical_transform(missing_transform(Xh0))
+    cell = "higgs-missing-cat-wave255-valid"
+    counts[cell], e2e[cell] = phase_valid(
+        torch, ltt, (ds, Xh, yh), "cat-wave", CAT_PARAMS,
+        CAT_CELLS["higgs-missing-cat-wave255"][2],
+        e2e["higgs-missing-cat-wave255"]["seconds_per_iteration"])
+    e2e["wave255_seconds_per_iteration"] = wave_s
+    del ds, X
+    torch.cuda.empty_cache()
+    return counts, e2e
+
+
 def _phase_done(name, t0):
     """Print a phase's seconds; the clock for the next."""
     print(f"{name}: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4312,6 +4575,10 @@ def main():
     fobj_counts, e2e_fobj = phase_fobj(torch, ltt, data,
                                        e2e_wave["seconds_per_iteration"])
     t_phase = _phase_done("phase 13 (higgs-wave255-noc2f-fobj)", t_phase)
+    # ---- phase 14: bench.py's missing + categorical Higgs row ---------
+    cat_counts, e2e_categorical = phase_categorical(
+        torch, ltt, data, e2e_c2f["seconds_per_iteration"])
+    t_phase = _phase_done("phase 14 (missing + categorical)", t_phase)
     del data
     torch.cuda.empty_cache()
     # ---- phase 11: multiclass at bench.py's shape --------------------
@@ -4438,6 +4705,12 @@ def main():
                 if v.get(name)}
         if more:
             row["launches_ranking_fobj"] = more
+        # phase 14's runs: launches a tree
+        more = {k: v[name] / (VALID_TREES["cat-wave"] if
+                              k.endswith("valid") else N_TREES)
+                for k, v in cat_counts.items() if v.get(name)}
+        if more:
+            row["launches_per_tree_categorical"] = more
         rows.append(row)
     print(json.dumps({"card": card, "e2e_exact": e2e, "e2e_wave": e2e_wave,
                       "e2e_c2f": e2e_c2f, "launches_exact": exact_counts,
@@ -4448,7 +4721,9 @@ def main():
                       "launches_valid": valid_counts, "cv": cv_result,
                       "e2e_multiclass": e2e_multiclass,
                       "e2e_regression": e2e_regression,
-                      "e2e_ranking": e2e_ranking, "e2e_fobj": e2e_fobj}),
+                      "e2e_ranking": e2e_ranking, "e2e_fobj": e2e_fobj,
+                      "e2e_categorical": e2e_categorical,
+                      "categorical_scan": stats["categorical_scan"]}),
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

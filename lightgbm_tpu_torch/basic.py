@@ -1,8 +1,11 @@
 """Public ``Dataset`` / ``Booster`` API.
 
 Counterpart of ``lightgbm_tpu/basic.py`` for this slice: a ``Dataset`` over a
-dense numerical matrix (an array, a pandas frame whose column names become the
-feature names, or a scipy sparse matrix, densified) with optional query groups
+dense matrix (an array, a pandas frame whose column names become the feature
+names and whose ``category`` columns become their codes and categorical
+features, or a scipy sparse matrix, densified), with categorical features named
+by ``categorical_feature`` (indices or names, or the parameter's ``"0,1,2"`` /
+``"name:c1,c2"``) and optional query groups
 (``group=``, per-query row counts; binned on the device at first use; a
 validation set, ``reference=`` or ``create_valid``, bins with its reference's
 mappers), and a ``Booster`` that trains (with the objective's gradients, or a
@@ -38,25 +41,52 @@ __all__ = ["Dataset", "Booster"]
 _NO_OBJECTIVE = ("none", "custom", "null", "na")
 
 
+def _resolve_cat_indices(spec, names) -> List[int]:
+    """Categorical features named by index or by column name -> column
+    indices (``lightgbm_tpu/basic.py:37-48``)."""
+    cat_idx = []
+    for c in spec:
+        if isinstance(c, str):
+            if not names or c not in names:
+                Log.fatal("categorical feature name %s not found", c)
+            cat_idx.append(names.index(c))
+        else:
+            cat_idx.append(int(c))
+    return cat_idx
+
+
+def _param_cat_spec(spec) -> list:
+    """The ``categorical_feature`` parameter (``"0,1,2"``, ``"name:c1,c2"``
+    or a list) as a list of indices and names
+    (``lightgbm_tpu/basic.py:127-140``)."""
+    if isinstance(spec, str):
+        spec = spec[5:] if spec.startswith("name:") else spec
+        spec = [s.strip() for s in spec.split(",") if s.strip()]
+        spec = [int(s) if s.lstrip("+-").isdigit() else s for s in spec]
+    return list(spec)
+
+
 def _to_matrix(data):
-    """(matrix, column names or None) of the JAX package's input types
-    (``lightgbm_tpu/basic.py:50-80``): a pandas frame's values with its
-    column names, a scipy sparse matrix (CSR, CSC, COO) densified, else an
-    array.  float32 stays narrow; anything else becomes float64.  A pandas
-    ``category`` column raises (categorical features are not ported yet),
-    an ``object`` column is fatal as in the JAX package."""
+    """(matrix, column names or None, categorical column indices) of the
+    JAX package's input types (``lightgbm_tpu/basic.py:50-80``): a pandas
+    frame's values with its column names, each ``category`` column
+    replaced by its codes (-1 for a missing value) and listed as
+    categorical, a scipy sparse matrix (CSR, CSC, COO) densified, else an
+    array.  float32 stays narrow; anything else becomes float64.  An
+    ``object`` column is fatal as in the JAX package."""
     names = None
+    cat_idx: List[int] = []
     if hasattr(data, "dtypes") and hasattr(data, "columns"):  # pandas
         names = [str(c) for c in data.columns]
-        for col in data.columns:
-            if str(data[col].dtype) == "category":
-                raise NotImplementedError(
-                    f"pandas category column {col}: categorical features "
-                    f"are not implemented by lightgbm_tpu_torch yet")
-            if data[col].dtype == object:
+        df = data.copy()
+        for i, col in enumerate(df.columns):
+            if str(df[col].dtype) == "category":
+                df[col] = df[col].cat.codes
+                cat_idx.append(i)
+            elif df[col].dtype == object:
                 Log.fatal("pandas object column %s is not supported; "
                           "use category dtype or numeric", col)
-        mat = data.values
+        mat = df.values
     elif hasattr(data, "toarray"):  # scipy sparse
         mat = np.asarray(data.toarray())
     else:
@@ -65,15 +95,19 @@ def _to_matrix(data):
         mat = np.asarray(mat, dtype=np.float64)
     if mat.ndim == 1:
         mat = mat.reshape(-1, 1)
-    return mat, names
+    return mat, names, cat_idx
 
 
 class Dataset:
     """Training or validation data: binned on the device at first use,
-    with the bin mappers of ``reference`` when one is given."""
+    with the bin mappers of ``reference`` when one is given.
+    ``categorical_feature``: column indices or names; ``"auto"`` takes
+    the ``categorical_feature`` parameter, and a pandas frame's
+    ``category`` columns, as the JAX package does."""
 
     def __init__(self, data, label=None, reference: "Dataset" = None,
                  weight=None, group=None, feature_name="auto",
+                 categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None, **kwargs):
         unsupported = sorted(k for k, v in kwargs.items()
                              if v is not None and not
@@ -88,6 +122,7 @@ class Dataset:
         self.weight = weight
         self.group = group
         self.feature_name = feature_name
+        self.categorical_feature = categorical_feature
         self.params = dict(params) if params else {}
         self._constructed: Optional[TorchDataset] = None
         self.raw_mat: Optional[np.ndarray] = None
@@ -98,9 +133,15 @@ class Dataset:
             return self
         cfg = Config(self.params)
         cfg.check_supported()
-        mat, names = _to_matrix(self.data)
+        if self.categorical_feature in ("auto", None) and \
+                cfg.categorical_feature:
+            self.categorical_feature = _param_cat_spec(
+                cfg.categorical_feature)
+        mat, names, cat_idx = _to_matrix(self.data)
         if self.feature_name not in ("auto", None):
             names = list(self.feature_name)
+        if self.categorical_feature not in ("auto", None):
+            cat_idx = _resolve_cat_indices(self.categorical_feature, names)
         label, weight = self.label, self.weight
         if self.used_indices is not None:
             mat = mat[self.used_indices]
@@ -116,7 +157,7 @@ class Dataset:
         self._constructed = TorchDataset.from_raw(
             mat, label, cfg, device or resolve_device(cfg.device_type),
             weight=weight, feature_names=names, mappers=mappers,
-            group=self.group)
+            group=self.group, categorical_features=cat_idx)
         self.raw_mat = mat
         return self
 
@@ -361,6 +402,16 @@ class Booster:
             feature_infos=self._feature_infos,
             num_iteration=self._num_iteration(num_iteration),
             parameters="", average_output=self.average_output)
+
+    def dump_model(self, num_iteration: Optional[int] = None) -> Dict:
+        """The model as JSON (``lightgbm_tpu/basic.py:720-734``)."""
+        return model_io.dump_model_json(
+            self.models, num_class=self.num_class,
+            num_tree_per_iteration=self.num_tree_per_iteration,
+            label_index=0, max_feature_idx=self._max_feature_idx,
+            objective_str=self._objective_string(),
+            feature_names=self._feature_names,
+            num_iteration=-1 if num_iteration is None else num_iteration)
 
     def save_model(self, filename: str,
                    num_iteration: Optional[int] = None) -> "Booster":

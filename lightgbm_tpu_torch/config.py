@@ -1153,8 +1153,6 @@ for _param in PARAMS:
 # bundles: it scans every feature's own bins, the search that EFB's
 # bundled scan stands in for.
 UNSUPPORTED: List[Tuple[str, Any, str]] = [
-    ("categorical_feature", lambda v: bool(v) and v != "auto",
-     "categorical features"),
     ("forcedsplits_filename", bool, "forced splits"),
     ("monotone_constraints", lambda v: any(float(x) != 0 for x in v),
      "monotone constraints"),

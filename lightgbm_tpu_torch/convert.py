@@ -12,7 +12,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 
 from .basic import Booster
-from .io.binning import BIN_NUMERICAL, BinMapper
+from .io.binning import BIN_CATEGORICAL, BinMapper
 from .models.tree import Tree
 
 __all__ = ["mapper_from_arrays", "tree_from_arrays", "from_jax_arrays"]
@@ -29,28 +29,35 @@ _LEAF_FIELDS = {"leaf_value": np.float64, "leaf_weight": np.float64,
 
 
 def mapper_from_arrays(d: Dict[str, Any]) -> BinMapper:
-    """A numerical :class:`BinMapper` from ``num_bin``, ``missing_type``,
+    """A :class:`BinMapper` from ``num_bin``, ``missing_type``,
     ``bin_type``, ``bin_upper_bound`` and ``default_bin`` (``min_val`` /
-    ``max_val`` optional, for the model text's feature infos)."""
-    if int(d["bin_type"]) != BIN_NUMERICAL:
-        raise NotImplementedError("categorical features are not implemented "
-                                  "by lightgbm_tpu_torch yet")
+    ``max_val`` optional, for the model text's feature infos); a
+    categorical one also from ``categorical_2_bin`` (code -> bin) and
+    ``bin_2_categorical`` (bin -> code, -1 for bin 0), and
+    ``is_trivial`` when given (a categorical mapper with one category is
+    trivial though it has two bins)."""
     m = BinMapper()
     m.num_bin = int(d["num_bin"])
+    m.bin_type = int(d["bin_type"])
     m.missing_type = int(d["missing_type"])
     m.bin_upper_bound = np.asarray(d["bin_upper_bound"], np.float64)
     m.default_bin = int(d["default_bin"])
     m.min_val = float(d.get("min_val", 0.0))
     m.max_val = float(d.get("max_val", 0.0))
-    m.is_trivial = m.num_bin <= 1
+    if m.bin_type == BIN_CATEGORICAL:
+        m.categorical_2_bin = {int(k): int(v) for k, v in
+                               dict(d["categorical_2_bin"]).items()}
+        m.bin_2_categorical = [int(c) for c in d["bin_2_categorical"]]
+    m.is_trivial = bool(d.get("is_trivial", m.num_bin <= 1))
     return m
 
 
 def tree_from_arrays(d: Dict[str, Any]) -> Tree:
     """A :class:`Tree` from its per-node and per-leaf arrays
     (``num_leaves``, ``split_feature``, ``threshold``, ``decision_type``,
-    ``left_child``, ``right_child``, ``leaf_value``; the other fields of
-    the model text are optional)."""
+    ``left_child``, ``right_child``, ``leaf_value``; with categorical
+    nodes ``num_cat``, ``cat_boundaries`` and ``cat_threshold``; the other
+    fields of the model text are optional)."""
     num_leaves = int(d["num_leaves"])
     tree = Tree(max(num_leaves, 2))
     tree.num_leaves = num_leaves
@@ -62,6 +69,10 @@ def tree_from_arrays(d: Dict[str, Any]) -> Tree:
         if key in d:
             getattr(tree, key)[:num_leaves] = \
                 np.asarray(d[key], dtype)[:num_leaves]
+    tree.num_cat = int(d.get("num_cat", 0))
+    if tree.num_cat:
+        tree.cat_boundaries = [int(x) for x in d["cat_boundaries"]]
+        tree.cat_threshold = [int(x) for x in d["cat_threshold"]]
     if n_in > 0:
         tree.threshold_bin[:n_in] = np.asarray(
             d.get("threshold_bin", tree.threshold[:n_in]), np.int32)[:n_in]

@@ -57,8 +57,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
     callback raises ``EarlyStopException``."""
     _not_ported(init_model=init_model, mesh=mesh, resume_from=resume_from)
     if categorical_feature != "auto":
-        raise NotImplementedError("categorical features are not "
-                                  "implemented by lightgbm_tpu_torch yet")
+        train_set.categorical_feature = categorical_feature
     params = dict(params)
     seen = [(a, params.pop(a)) for a in _ROUND_ALIASES if a in params]
     if seen:
@@ -261,8 +260,9 @@ def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
     (``lightgbm_tpu/engine.py:564``)."""
     _not_ported(init_model=init_model)
     if categorical_feature != "auto":
-        raise NotImplementedError("categorical features are not "
-                                  "implemented by lightgbm_tpu_torch yet")
+        # the JAX package's cv ignores the argument; here it names the
+        # categorical features as train's does
+        train_set.categorical_feature = categorical_feature
     params = dict(params)
     if metrics is not None:
         params["metric"] = metrics
@@ -286,7 +286,8 @@ def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
         tr = Dataset(raw[tr_idx], label=label[tr_idx],
                      weight=None if weight is None else weight[tr_idx],
                      group=subset_group(group, tr_idx, n),
-                     params=dict(train_set.params))
+                     params=dict(train_set.params),
+                     categorical_feature=train_set.categorical_feature)
         te = tr.create_valid(
             raw[te_idx], label=label[te_idx],
             weight=None if weight is None else weight[te_idx],

@@ -6,9 +6,11 @@ held feature-major, (F, N), on the chosen device: uint8 when every used
 feature has at most 256 bins, int16 above.  Labels and weights ride
 along as float32 device tensors, query boundaries as a host array.  Bin
 mappers come from the numpy copy of the JAX package's binning
-(``io/binning.py``), and rows are binned on the device with
-``torch.searchsorted``, the same left-side search the numpy path does,
-so the matrix is byte-identical to ``TpuDataset.binned.T``.
+(``io/binning.py``), and rows are binned on the device: a numerical
+column with ``torch.searchsorted``, the same left-side search the numpy
+path does, a categorical one by looking its codes up in the mapper's
+sorted categories, so the matrix is byte-identical to
+``TpuDataset.binned.T``.
 """
 from __future__ import annotations
 
@@ -18,15 +20,44 @@ import numpy as np
 import torch
 
 from ..utils.log import Log
-from .binning import KZERO, MISSING_NAN, MISSING_ZERO, BinMapper, \
-    find_bin_mappers
+from .binning import BIN_CATEGORICAL, KZERO, MISSING_NAN, MISSING_ZERO, \
+    BinMapper, find_bin_mappers
 
 __all__ = ["Metadata", "TorchDataset", "bin_rows", "group_ids",
            "subset_group"]
 
 
+def _category_to_bin(col: torch.Tensor, m: BinMapper) -> torch.Tensor:
+    """The categorical ``BinMapper.value_to_bin`` for one float64 column:
+    a finite value's code is the value truncated toward zero (numpy's
+    ``astype(int64)``), looked up among the mapper's categories; an unseen
+    or negative code and an infinite value go to bin 0; a non-finite
+    value (NaN, infinity) to the missing bin under ``MISSING_NAN``, and
+    zero too under ``MISSING_ZERO``."""
+    dev = col.device
+    cats = sorted(m.categorical_2_bin)
+    keys = torch.as_tensor(cats, dtype=torch.float64, device=dev)
+    bins = torch.as_tensor([m.categorical_2_bin[c] for c in cats],
+                           dtype=torch.int64, device=dev)
+    fin = torch.isfinite(col)
+    code = torch.where(fin, torch.trunc(col), torch.full_like(col, -1.0))
+    out = torch.zeros(col.shape, dtype=torch.int64, device=dev)
+    if len(cats):
+        pos = torch.searchsorted(keys, code).clamp(max=len(cats) - 1)
+        hit = keys[pos] == code
+        out = torch.where(hit, bins[pos], out)
+    if m.missing_type == MISSING_NAN:
+        out = out.masked_fill(~fin, m.num_bin - 1)
+    elif m.missing_type == MISSING_ZERO:
+        out = out.masked_fill(~fin | (torch.abs(col) <= KZERO),
+                              m.num_bin - 1)
+    return out
+
+
 def _value_to_bin(col: torch.Tensor, m: BinMapper) -> torch.Tensor:
     """``BinMapper.value_to_bin`` for one float64 column on the device."""
+    if m.bin_type == BIN_CATEGORICAL:
+        return _category_to_bin(col, m)
     ub = torch.as_tensor(m.bin_upper_bound, dtype=torch.float64,
                          device=col.device)
     nan = torch.isnan(col)
@@ -45,8 +76,8 @@ def _value_to_bin(col: torch.Tensor, m: BinMapper) -> torch.Tensor:
 
 def bin_rows(X: np.ndarray, mappers: List[BinMapper], used: Sequence[int],
              dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """Bin raw rows against fixed (numerical) mappers -> (len(used),
-    rows) on ``device``."""
+    """Bin raw rows against fixed mappers -> (len(used), rows) on
+    ``device``."""
     Xd = torch.as_tensor(np.ascontiguousarray(X), device=device)
     out = torch.empty(len(used), X.shape[0], dtype=dtype, device=device)
     for j, f in enumerate(used):
@@ -153,9 +184,11 @@ class TorchDataset:
     @classmethod
     def from_raw(cls, X: np.ndarray, label, config, device: torch.device,
                  weight=None, feature_names=None,
-                 mappers: Optional[List[BinMapper]] = None, group=None
+                 mappers: Optional[List[BinMapper]] = None, group=None,
+                 categorical_features: Sequence[int] = ()
                  ) -> "TorchDataset":
-        """Bin a raw dense matrix on ``device``.  Passing ``mappers``
+        """Bin a raw dense matrix on ``device``; the columns in
+        ``categorical_features`` are categorical.  Passing ``mappers``
         aligns this dataset with a reference (train) dataset."""
         X = np.ascontiguousarray(X)
         num_data = X.shape[0]
@@ -165,6 +198,7 @@ class TorchDataset:
                 min_data_in_bin=config.min_data_in_bin,
                 sample_cnt=config.bin_construct_sample_cnt,
                 seed=config.data_random_seed,
+                categorical_features=categorical_features,
                 use_missing=config.use_missing,
                 zero_as_missing=config.zero_as_missing)
         used = [i for i, m in enumerate(mappers) if not m.is_trivial]

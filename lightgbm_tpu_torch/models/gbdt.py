@@ -1,10 +1,12 @@
 """GBDT boosting loop.
 
 Counterpart of ``lightgbm_tpu/models/gbdt.py`` for the serial learner:
-``records_to_tree`` (:38-125, with the quantized renewal and the
-two-column count restore) is copied; the serial subset of the tier
-resolution (:381-418, :491-512: wave growth, two-column passes,
-coarse-to-fine refinement, quantized gradients, the lane width), one
+``records_to_tree`` (:38-125, with categorical splits, the quantized
+renewal and the two-column count restore) is copied; the serial subset of
+the tier resolution (:381-418, :491-512: wave growth, two-column passes,
+coarse-to-fine refinement, quantized gradients, the lane width, and the
+categorical gate: no two-column passes, no coarse-to-fine, no in-pass
+routing), one
 boosting iteration (:2245-2310: boost_from_average, gradients, tree build
 with the tree's quantization key, score update) and the fused super-step
 (``_fused_ok``, ``_fused_bias_pending``, ``_train_superstep``,
@@ -101,6 +103,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..io.binning import BIN_CATEGORICAL
 from ..io.dataset import TorchDataset
 from ..objectives import Objective
 from ..ops import sample
@@ -113,7 +116,7 @@ from ..ops.predict import flatten_forest, predict_raw
 from ..ops.split import SplitParams
 from ..utils import prng
 from ..utils.log import Log
-from .tree import Tree
+from .tree import Tree, cat_bitset
 
 __all__ = ["GBDT", "ValidSet", "records_to_tree", "host_records",
            "record_layout", "pack_records", "fetch_records"]
@@ -149,8 +152,11 @@ def _pad_bins(max_bin: int) -> int:
 
 def records_to_tree(rec, config, train_set, counts_proxy=False) -> Tree:
     """Materialize one host :class:`Tree` from a fetched split-record
-    dict (numerical splits).  With ``leaf_stats_exact`` (quantized
-    training) the leaf values are renewed from the full-precision sums;
+    dict.  A categorical record (``is_cat``) becomes a split on the
+    categories of its left mask's bins (bin 0 and the missing bin hold
+    none; ``[0]`` when no category is left).  With ``leaf_stats_exact``
+    (quantized training) the leaf values are renewed from the
+    full-precision sums;
     with ``counts_proxy`` (two-column passes, whose count slots hold hess
     sums) the leaf and internal counts are restored from them."""
     cfg = config
@@ -176,11 +182,21 @@ def records_to_tree(rec, config, train_set, counts_proxy=False) -> Tree:
         ls = rec["left_stats"][i]
         rs = rec["right_stats"][i]
         lv, rv = out(ls[0], ls[1]), out(rs[0], rs[1])
-        thr_bin = int(rec["threshold"][i])
-        tree.split(leaf, real_f, thr_bin, mapper.bin_to_value(thr_bin), lv,
-                   rv, float(ls[1]), float(rs[1]), int(round(ls[2])),
-                   int(round(rs[2])), float(rec["gain"][i]),
-                   mapper.missing_type, bool(rec["default_left"][i]))
+        if "is_cat" in rec and bool(rec["is_cat"][i]):
+            bins = np.nonzero(rec["left_mask"][i])[0]
+            cats = [mapper.bin_2_categorical[b] for b in bins
+                    if 0 < b < len(mapper.bin_2_categorical)] or [0]
+            tree.split_categorical(
+                leaf, real_f, cat_bitset(cats), lv, rv, float(ls[1]),
+                float(rs[1]), int(round(ls[2])), int(round(rs[2])),
+                float(rec["gain"][i]), mapper.missing_type)
+        else:
+            thr_bin = int(rec["threshold"][i])
+            tree.split(leaf, real_f, thr_bin, mapper.bin_to_value(thr_bin),
+                       lv, rv, float(ls[1]), float(rs[1]),
+                       int(round(ls[2])), int(round(rs[2])),
+                       float(rec["gain"][i]), mapper.missing_type,
+                       bool(rec["default_left"][i]))
         node = tree.num_leaves - 2
         tree.internal_value[node] = out(ls[0] + rs[0], ls[1] + rs[1])
     if "leaf_stats_exact" in rec:
@@ -209,10 +225,13 @@ def records_to_tree(rec, config, train_set, counts_proxy=False) -> Tree:
 
 def host_records(st: GrowState) -> dict:
     """The device records of the tree in ``st`` that the host reads: the
-    split records, the leaf count and, under quantization, the renewal
-    sums ``leaf_stats_exact``."""
+    split records (with categorical features also each split's kind and
+    left mask), the leaf count and, under quantization, the renewal sums
+    ``leaf_stats_exact``."""
     S = st.params.num_leaves - 1
-    rec = {k: st.rec[k][:S] for k in _HOST_RECORDS}
+    keys = _HOST_RECORDS + (("is_cat", "left_mask") if "is_cat" in st.rec
+                            else ())
+    rec = {k: st.rec[k][:S] for k in keys}
     rec["n_leaves"] = st.n_leaves
     if st.leaf_stats_exact is not None:
         rec["leaf_stats_exact"] = st.leaf_stats_exact
@@ -323,19 +342,26 @@ class GBDT:
         self._missing_type = torch.as_tensor(
             [m.missing_type for m in mappers], dtype=torch.int32, device=dev)
         any_missing = bool(any(m.missing_type != 0 for m in mappers))
+        self._is_cat = torch.as_tensor(
+            [m.bin_type == BIN_CATEGORICAL for m in mappers],
+            dtype=torch.bool, device=dev)
+        any_cat = bool(any(m.bin_type == BIN_CATEGORICAL for m in mappers))
         # tiers of the serial learner (lightgbm_tpu/models/gbdt.py:381-418,
         # :491-512).  Non-wave speculative arming grows the same trees as
         # the plain loop at speculative_tolerance=0, so it is not a tier
-        # here.
+        # here.  Categorical features turn off the two-column passes (their
+        # scans read real counts), coarse-to-fine and the in-pass routing
+        # (their splits need bin masks): :391-396, :410-418, :913-914
         wave_on = bool(config.wave_splits)
         two_col = bool(config.use_quantized_grad and wave_on and
-                       config.min_data_in_leaf <= 1 and
+                       not any_cat and config.min_data_in_leaf <= 1 and
                        config.min_sum_hessian_in_leaf > 0)
         self._counts_proxy = two_col
         # coarse-to-fine refinement: the JAX package's stream-size gate
         # (lightgbm_tpu/models/gbdt.py:410-418), unchanged
         refine_shift = 0
-        if (config.hist_refinement and wave_on and self.max_bin >= 48 and
+        if (config.hist_refinement and wave_on and not any_cat and
+                self.max_bin >= 48 and
                 F * _pad_bins(self.max_bin) >= 7000):
             refine_shift = 4 if self.max_bin > 64 else 3
         quantize = config.num_grad_quant_bins \
@@ -349,7 +375,13 @@ class GBDT:
                 min_sum_hessian_in_leaf=config.min_sum_hessian_in_leaf,
                 min_gain_to_split=config.min_gain_to_split,
                 max_delta_step=config.max_delta_step,
+                max_cat_to_onehot=config.max_cat_to_onehot,
+                max_cat_threshold=config.max_cat_threshold,
+                cat_l2=config.cat_l2,
+                cat_smooth=config.cat_smooth,
+                min_data_per_group=config.min_data_per_group,
                 any_missing=any_missing,
+                any_cat=any_cat,
                 counts_proxy=two_col),
             num_leaves=config.num_leaves,
             max_depth=config.max_depth,
@@ -398,7 +430,8 @@ class GBDT:
 
         # one tree's static buffers, its device epilogue and its runner
         self._state = st = GrowState(self._xt, self._mask, self._num_bins,
-                                     self._missing_type, self.grow_params)
+                                     self._missing_type, self.grow_params,
+                                     self._is_cat if any_cat else None)
         self._vals = torch.zeros(config.num_leaves, dtype=torch.float32,
                                  device=dev)
         self._lr = torch.full((), self.shrinkage_rate, dtype=torch.float32,

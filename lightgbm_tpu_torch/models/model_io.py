@@ -4,7 +4,9 @@ Capability parity with ``src/boosting/gbdt_model_text.cpp``: versioned
 text model (``SaveModelToString:244``), load (``LoadModelFromString:343``)
 and the feature importances it prints (``FeatureImportance:513``).  The format matches the reference's v2 text
 layout so models can be exchanged with the reference implementation and
-with the JAX package.  A copy of the text part of ``lightgbm_tpu/models/model_io.py``.
+with the JAX package; categorical features' infos list their categories
+and categorical nodes carry ``cat_boundaries`` / ``cat_threshold``.  A
+copy of the text and JSON parts of ``lightgbm_tpu/models/model_io.py``.
 """
 from __future__ import annotations
 
@@ -99,6 +101,23 @@ def load_model_from_string(text: str) -> Dict:
         "average_output": any(line.strip() == "average_output"
                               for line in header.splitlines()),
     }
+
+
+def dump_model_json(models: List[Tree], *, num_class: int,
+                    num_tree_per_iteration: int, label_index: int,
+                    max_feature_idx: int, objective_str: str,
+                    feature_names: List[str],
+                    num_iteration: int = -1) -> Dict:
+    """The model as JSON (``GBDT::DumpModel``)."""
+    k = num_tree_per_iteration
+    n_trees = len(models)
+    if num_iteration is not None and num_iteration > 0:
+        n_trees = min(n_trees, num_iteration * k)
+    return {"name": "tree", "version": "v2", "num_class": num_class,
+            "num_tree_per_iteration": k, "label_index": label_index,
+            "max_feature_idx": max_feature_idx, "objective": objective_str,
+            "feature_names": feature_names,
+            "tree_info": [models[i].to_json(i) for i in range(n_trees)]}
 
 
 def feature_importance(models: List[Tree], importance_type: str = "split",

@@ -6,9 +6,10 @@ split feature / bin & real thresholds / gain / decision flags and per-leaf
 outputs, shrinkage, and text serialization in the reference's model
 format (``src/boosting/gbdt_model_text.cpp``) so that models are
 interchangeable with the reference implementation.  A copy of the part of
-``lightgbm_tpu/models/tree.py`` this package uses: numerical splits are
-built here, categorical ones only read and written back from model text;
-prediction is on the device (``ops/predict.py``).
+``lightgbm_tpu/models/tree.py`` this package uses: numerical and
+categorical splits (a category bitset a node), model text and the JSON
+dump; prediction, and so the split decision, is on the device
+(``ops/predict.py``).
 
 Node encoding: internal nodes are numbered ``0 .. num_leaves-2``; child
 pointers that are negative encode leaves as ``~leaf_index`` (two's-complement
@@ -25,6 +26,7 @@ from typing import Dict, List
 
 import numpy as np
 
+_CAT_MASK = 1
 _DEFAULT_LEFT_MASK = 2
 
 
@@ -109,6 +111,32 @@ class Tree:
         self.leaf_depth[new_leaf] = depth
         self.num_leaves += 1
         return new_leaf
+
+    def split_categorical(self, leaf: int, feature: int, cat_bitset: List[int],
+                          left_value: float, right_value: float,
+                          left_weight: float, right_weight: float,
+                          left_count: int, right_count: int,
+                          gain: float, missing_type: int) -> int:
+        """Categorical split: left iff the category is in the bitset
+        (``Tree::SplitCategorical``, ``src/io/tree.cpp:72``); the node's
+        threshold is its index among the tree's categorical nodes."""
+        new_leaf = self.split(leaf, feature, 0, 0.0, left_value, right_value,
+                              left_weight, right_weight, left_count,
+                              right_count, gain, missing_type, False)
+        node = self.num_leaves - 2
+        self.decision_type[node] |= _CAT_MASK
+        self.threshold[node] = float(self.num_cat)
+        self.threshold_bin[node] = self.num_cat
+        self.cat_threshold.extend(cat_bitset)
+        self.cat_boundaries.append(len(self.cat_threshold))
+        self.num_cat += 1
+        return new_leaf
+
+    def cat_list(self, k: int) -> List[int]:
+        """The categories of categorical node ``k``'s bitset."""
+        lo, hi = self.cat_boundaries[k], self.cat_boundaries[k + 1]
+        return [(w - lo) * 32 + b for w in range(lo, hi) for b in range(32)
+                if (self.cat_threshold[w] >> b) & 1]
 
     def apply_shrinkage(self, rate: float) -> None:
         self.leaf_value[:self.num_leaves] *= rate
@@ -230,6 +258,50 @@ class Tree:
                 else:
                     depth[child] = depth[node] + 1
 
+    def to_json(self, index: int) -> Dict:
+        """The tree as ``dump_model`` gives it; a categorical node's
+        threshold is its category list."""
+        def node_json(node: int) -> Dict:
+            if node < 0:
+                leaf = ~node
+                return {"leaf_index": int(leaf),
+                        "leaf_value": float(self.leaf_value[leaf]),
+                        "leaf_weight": float(self.leaf_weight[leaf]),
+                        "leaf_count": int(self.leaf_count[leaf])}
+            dt = int(self.decision_type[node])
+            is_cat = bool(dt & _CAT_MASK)
+            return {"split_index": int(node),
+                    "split_feature": int(self.split_feature[node]),
+                    "split_gain": float(self.split_gain[node]),
+                    "threshold": (self.cat_list(self.threshold_bin[node])
+                                  if is_cat else float(self.threshold[node])),
+                    "decision_type": "==" if is_cat else "<=",
+                    "default_left": bool(dt & _DEFAULT_LEFT_MASK),
+                    "missing_type": ["None", "Zero", "NaN"][(dt >> 2) & 3],
+                    "internal_value": float(self.internal_value[node]),
+                    "internal_weight": float(self.internal_weight[node]),
+                    "internal_count": int(self.internal_count[node]),
+                    "left_child": node_json(int(self.left_child[node])),
+                    "right_child": node_json(int(self.right_child[node]))}
+
+        structure = {"leaf_value": float(self.leaf_value[0])} \
+            if self.num_leaves <= 1 else node_json(0)
+        return {"tree_index": int(index), "num_leaves": int(self.num_leaves),
+                "num_cat": int(self.num_cat),
+                "shrinkage": float(self.shrinkage),
+                "tree_structure": structure}
+
     def __repr__(self) -> str:
         return (f"Tree(num_leaves={self.num_leaves}, "
                 f"shrinkage={self.shrinkage})")
+
+
+def cat_bitset(categories) -> List[int]:
+    """32-bit words with bit ``c % 32`` of word ``c // 32`` set for each
+    category ``c`` (``Common::ConstructBitset``)."""
+    if len(categories) == 0:
+        return [0]
+    words = [0] * (int(max(categories)) // 32 + 1)
+    for c in categories:
+        words[int(c) // 32] |= 1 << (int(c) % 32)
+    return words

@@ -27,6 +27,12 @@ subtraction trick, where the larger child is parent minus smaller,
   ``find_best_split_c2f``, plain tensor code as in the JAX package).  The
   root is a coarse pass and one windowed pass (kernels M and V); no pass
   runs at full resolution.
+- with categorical features (``SplitParams.any_cat``) a wave is not
+  routed in the pass (:1497-1516; ``route_wave`` :1224-1290): each row in
+  the wave looks up its lane, reads its lane's split column and goes left
+  where its bin is in the lane's left mask (a category set), and the
+  smaller children's histograms come from the batched pass over that
+  selector (kernel M).  The leaf vector is then int32 (:892-895).
 
 With ``GrowParams.quantize`` the gradients are stochastically rounded to
 integers in ``[-quantize, quantize]`` first (:409-459); histograms sum the
@@ -187,7 +193,7 @@ class GrowState:
 
     def __init__(self, xt: torch.Tensor, sample_mask: torch.Tensor,
                  num_bins: torch.Tensor, missing_type: torch.Tensor,
-                 params: GrowParams):
+                 params: GrowParams, is_cat=None):
         p = params
         sp = p.split
         L = p.num_leaves
@@ -197,9 +203,14 @@ class GrowState:
         f32, i32, i64 = torch.float32, torch.int32, torch.int64
         self.xt, self.sample_mask = xt, sample_mask
         self.num_bins, self.missing_type = num_bins, missing_type
+        # (F,) bool: the categorical features (with split.any_cat)
+        self.is_cat = is_cat
+        if sp.any_cat and is_cat is None:
+            raise ValueError("split.any_cat needs is_cat")
         self.params = p
         self.wave = bool(p.wave and p.speculate > 1)
-        self.li_dtype = torch.uint8 if L <= 256 else torch.int32
+        self.li_dtype = torch.uint8 if L <= 256 and not (
+            self.wave and sp.any_cat) else torch.int32
 
         def zeros(shape, dtype=f32):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -250,7 +261,11 @@ class GrowState:
             "left_stats": zeros((rows, 3)),
             "left_mask": zeros((rows, B), torch.bool),
         }
-        self.rec = _records(L if self.wave else L - 1, B, dev)
+        if sp.any_cat:
+            self.best["is_cat"] = zeros(rows, torch.bool)
+            # a wave's lane of each leaf (-1: none), row L the dummy's
+            self.lane_of = zeros(rows, i64) if self.wave else None
+        self.rec = _records(L if self.wave else L - 1, B, dev, sp.any_cat)
         self.n_leaves = torch.ones((), dtype=i32, device=dev)
         self.leaf_values = zeros(L)
         self.leaf_values_final = zeros(L)
@@ -352,7 +367,7 @@ def _best_splits(hists, stats, depth, st: GrowState) -> dict:
     p = st.params
     return find_best_split(hists.contiguous(), stats.contiguous(),
                            st.num_bins, st.missing_type, st.feature_mask,
-                           p.split, depth, p.max_depth)
+                           p.split, depth, p.max_depth, st.is_cat)
 
 
 def _dequant(st: GrowState, h: torch.Tensor) -> torch.Tensor:
@@ -360,14 +375,19 @@ def _dequant(st: GrowState, h: torch.Tensor) -> torch.Tensor:
 
 
 def larger_child(parent: torch.Tensor, raw_small: torch.Tensor,
-                 hist_scale) -> torch.Tensor:
+                 hist_scale, fused: bool = True) -> torch.Tensor:
     """The subtraction trick: parent minus the smaller child.  A quantized
     child is dequantized inside the subtraction, ``parent - raw * scale``
     with one rounding (a fused multiply-add), as the reference's compiled
     loop computes it; the pool then holds the reference's values bit for
-    bit."""
+    bit.  ``fused=False``: the product rounded first, as the reference's
+    exact loop computes it when its categorical scan is compiled into the
+    loop (the product's second use, the smaller child, keeps the compile
+    from fusing it)."""
     if hist_scale is None:
         return parent - raw_small
+    if not fused:
+        return parent - raw_small * hist_scale
     return fma32(-raw_small, hist_scale.expand_as(raw_small), parent)
 
 
@@ -442,7 +462,8 @@ def serial_steps(st: GrowState) -> None:
         small_id = torch.where(small_is_left, _pick(ids32, l1), ids32[new])
         raw_small, hist_small = _masked_hist(st, small_id)
         hist_large = larger_child(_pick(st.pool, l1), raw_small,
-                                  st.hist_scale)
+                                  st.hist_scale,
+                                  fused=not st.params.split.any_cat)
         hist_l = torch.where(small_is_left, hist_small, hist_large)
         hist_r = torch.where(small_is_left, hist_large, hist_small)
         depth = _pick(st.leaf_depth, l1) + 1
@@ -460,8 +481,10 @@ def serial_steps(st: GrowState) -> None:
 
         rec["leaf"][t] = torch.where(valid, _pick(ids32, l1),
                                      torch.full_like(ids32[0], -1))
-        for k in ("feature", "threshold", "default_left", "left_mask"):
-            rec[k][t] = cand[k]
+        for k in ("feature", "threshold", "default_left", "left_mask",
+                  "is_cat"):
+            if k in rec:
+                rec[k][t] = cand[k]
         rec["gain"][t] = torch.where(valid, cand["gain"],
                                      torch.zeros_like(cand["gain"]))
         rec["left_stats"][t] = torch.where(valid, left_stats, zero3)
@@ -470,11 +493,11 @@ def serial_steps(st: GrowState) -> None:
         st.n_leaves.add_(valid.to(torch.int32))
 
 
-def _records(S: int, B: int, dev) -> dict:
+def _records(S: int, B: int, dev, any_cat: bool = False) -> dict:
     def per_split(shape, dtype):
         return torch.zeros((S,) + shape, dtype=dtype, device=dev)
 
-    return {
+    rec = {
         "leaf": per_split((), torch.int32),
         "feature": per_split((), torch.int32),
         "threshold": per_split((), torch.int32),
@@ -485,6 +508,9 @@ def _records(S: int, B: int, dev) -> dict:
         "left_mask": per_split((B,), torch.bool),
         "valid": per_split((), torch.bool),
     }
+    if any_cat:
+        rec["is_cat"] = per_split((), torch.bool)
+    return rec
 
 
 def _value_operand(grad, hess, mask, p: GrowParams) -> torch.Tensor:
@@ -588,14 +614,18 @@ def wave_body(st: GrowState, wide: bool = False) -> None:
     small_left_w = lstat_w[:, 2] <= rstat_w[:, 2]
     depth_w = st.leaf_depth.index_select(0, ids) + 1
 
-    rows = [ids_leaf, cw["feature"], cw["threshold"], new_ids, small_left_w]
-    if sp.any_missing:
-        rows.append(cw["default_left"])
-    tbl = torch.stack([r.to(i32) for r in rows])
-    hist_small, leaf_out, _ = routed_histogram(
-        st.xt, st.kvals, st.leaf_idx, tbl, st.Bp, W, p.two_col, st.miss_bin,
-        leaf_bound=st.leaf_bound, shift=shift)
-    st.leaf_idx.copy_(leaf_out)
+    if sp.any_cat:
+        hist_small = _route_wave(st, ids_leaf, cw, small_left_w, new_ids)
+    else:
+        rows = [ids_leaf, cw["feature"], cw["threshold"], new_ids,
+                small_left_w]
+        if sp.any_missing:
+            rows.append(cw["default_left"])
+        tbl = torch.stack([r.to(i32) for r in rows])
+        hist_small, leaf_out, _ = routed_histogram(
+            st.xt, st.kvals, st.leaf_idx, tbl, st.Bp, W, p.two_col,
+            st.miss_bin, leaf_bound=st.leaf_bound, shift=shift)
+        st.leaf_idx.copy_(leaf_out)
     hist_large = larger_child(st.pool.index_select(0, ids), hist_small,
                               st.hist_scale)
     hist_small = _dequant(st, hist_small)
@@ -647,10 +677,45 @@ def wave_body(st: GrowState, wide: bool = False) -> None:
                    ("default_left", cw["default_left"]),
                    ("gain", topg), ("left_stats", lstat_w),
                    ("right_stats", rstat_w),
-                   ("left_mask", cw["left_mask"]), ("valid", valid_w)):
-        rec[k].index_copy_(0, ids_rec, val.to(rec[k].dtype))
+                   ("left_mask", cw["left_mask"]), ("valid", valid_w),
+                   ("is_cat", cw.get("is_cat"))):
+        if k in rec:
+            rec[k].index_copy_(0, ids_rec, val.to(rec[k].dtype))
     st.n_leaves.add_(valid_w.sum().to(i32))
     _wave_head(st)
+
+
+def _route_wave(st: GrowState, ids_leaf, cw: dict, small_left_w,
+                new_ids) -> torch.Tensor:
+    """A wave's rows routed by their lanes' left masks, outside the pass
+    (the non-routed branch of ``wave_body``, :1497-1516): each row's lane
+    from the leaf -> lane table (-1 outside the wave), its bin in its
+    lane's split column, goes left where that bin is in the lane's mask;
+    the rows bound for the smaller child go to the batched pass (kernel M)
+    as their lane's subset, and the rows that go right move to the lane's
+    new leaf.  -> the smaller children's raw histograms (W, F, B, 3)."""
+    W = st.width
+    li = st.leaf_idx
+    lane_of = st.lane_of
+    lane_of.fill_(-1)
+    # invalid lanes write -1 to the dummy row L, which no row holds
+    lane_of.index_put_((ids_leaf,), torch.where(
+        st.valid_w, st.w_ar, torch.full_like(st.w_ar, -1)))
+    lane = lane_of.index_select(0, li.to(torch.int64))      # (N,)
+    in_wave = lane >= 0
+    w = lane.clamp(min=0)
+    feat = cw["feature"].to(torch.int64).index_select(0, w)
+    col = torch.gather(st.xt, 0, feat[None]).squeeze(0).to(torch.int64)
+    goes_left = in_wave & cw["left_mask"][w, col]
+    to_small = goes_left == small_left_w.index_select(0, w)
+    sel = torch.where(in_wave & to_small, lane,
+                      torch.full_like(lane, -1)).to(torch.int8)
+    hist = multi_histogram(st.xt, st.kvals, sel, st.Bp, W,
+                           st.params.two_col)
+    moved = in_wave & ~goes_left
+    st.leaf_idx.copy_(torch.where(moved, new_ids.index_select(0, w).to(
+        li.dtype), li))
+    return hist
 
 
 def tree_tail(st: GrowState) -> None:

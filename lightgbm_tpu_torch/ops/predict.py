@@ -1,16 +1,18 @@
 """Batch prediction over a forest on the device.
 
-Counterpart of ``lightgbm_tpu/ops/predict.py`` for numerical trees: the
-forest is flattened into padded per-tree node tables, every row walks
-all trees of a chunk at once (one gather per level, a fixed number of
-levels: the deepest leaf's depth, known on the host), and leaf values
-are summed in float64, per class for a multiclass forest (tree t is
-class t mod K).  Decisions follow the JAX package's
-``Tree._decide`` (``lightgbm_tpu/models/tree.py``): missing type None or
-Zero treats NaN as 0, a
-missing value takes the node's default direction, else ``value <=
-threshold`` goes left.  No kernel: plain tensor ops, as the JAX engine
-is XLA.
+Counterpart of ``lightgbm_tpu/ops/predict.py``: the forest is flattened
+into padded per-tree node tables, every row walks all trees of a chunk
+at once (one gather per level, a fixed number of levels: the deepest
+leaf's depth, known on the host), and leaf values are summed in float64,
+per class for a multiclass forest (tree t is class t mod K).  Decisions
+follow the JAX package's ``Tree._decide`` (``lightgbm_tpu/models/
+tree.py:152-196``): at a numerical node missing type None or Zero treats
+NaN as 0, a missing value takes the node's default direction, else
+``value <= threshold`` goes left; at a categorical node a value goes left
+when it is a non-negative integer whose bit is set in the node's category
+bitset (32-bit words, a table of them a forest), so NaN, infinite,
+negative and non-integer values, and codes past the bitset, go right.
+No kernel: plain tensor ops in float64, as the JAX engine is XLA.
 """
 from __future__ import annotations
 
@@ -42,6 +44,11 @@ class FlatForest:
         right = np.full((T, M), -1, np.int64)
         value = np.zeros((T, Lm), np.float64)
         root = np.zeros(T, np.int64)
+        # categorical nodes: their bitset's first word in ``words`` and its
+        # word count (0 at numerical nodes)
+        cat_lo = np.zeros((T, M), np.int64)
+        cat_nw = np.zeros((T, M), np.int64)
+        words: List[int] = []
         depth = 0
         for i, t in enumerate(trees):
             n_in = t.num_leaves - 1
@@ -49,10 +56,11 @@ class FlatForest:
             if n_in <= 0:
                 root[i] = -1          # ~0: leaf 0
                 continue
-            if np.any(t.decision_type[:n_in] & 1):
-                raise NotImplementedError(
-                    "categorical splits are not implemented by "
-                    "lightgbm_tpu_torch yet")
+            for nd in np.nonzero(t.decision_type[:n_in] & 1)[0]:
+                k = int(t.threshold_bin[nd])
+                lo, hi = t.cat_boundaries[k], t.cat_boundaries[k + 1]
+                cat_lo[i, nd], cat_nw[i, nd] = len(words), hi - lo
+                words.extend(int(w) for w in t.cat_threshold[lo:hi])
             feat[i, :n_in] = t.split_feature[:n_in]
             thr[i, :n_in] = t.threshold[:n_in]
             dtype[i, :n_in] = t.decision_type[:n_in]
@@ -66,6 +74,8 @@ class FlatForest:
         self.decision_type, self.left, self.right = (as_t(dtype), as_t(left),
                                                      as_t(right))
         self.leaf_value, self.root = as_t(value), as_t(root)
+        self.cat_lo, self.cat_nw = as_t(cat_lo), as_t(cat_nw)
+        self.cat_words = as_t(np.asarray(words or [0], np.int64))
 
 
 def flatten_forest(trees: List[Tree], device: torch.device) -> FlatForest:
@@ -85,6 +95,7 @@ def _leaves(ff: FlatForest, lo: int, hi: int, Xt: torch.Tensor
         v = torch.gather(Xt, 0, torch.gather(feat, 1, nd))
         t_node = torch.gather(thr, 1, nd)
         d = torch.gather(dt, 1, nd)
+        go_cat = _category_left(ff, lo, hi, nd, v)
         mt = (d >> 2) & 3
         default_left = (d & 2) != 0
         nan = torch.isnan(v)
@@ -93,10 +104,27 @@ def _leaves(ff: FlatForest, lo: int, hi: int, Xt: torch.Tensor
                            (mt == 1) & ((torch.abs(v) <= _KZERO) | nan))
         go_left = torch.where(miss, default_left,
                               ~torch.isnan(v) & (v <= t_node))
+        go_left = torch.where((d & 1) != 0, go_cat, go_left)
         nxt = torch.where(go_left, torch.gather(lc, 1, nd),
                           torch.gather(rc, 1, nd))
         node = torch.where(active, nxt, node)
     return ~node
+
+
+def _category_left(ff: FlatForest, lo: int, hi: int, nd: torch.Tensor,
+                   v: torch.Tensor) -> torch.Tensor:
+    """Whether each raw value ``v`` goes left at its categorical node ``nd``
+    of trees [lo, hi): a finite, non-negative integer code below the
+    bitset's ``32 * words``, whose bit is set (false at numerical nodes,
+    whose word count is 0)."""
+    nw = torch.gather(ff.cat_nw[lo:hi], 1, nd)
+    ok = torch.isfinite(v) & (v >= 0) & (v == torch.floor(v)) & \
+        (v < (nw * 32).to(v.dtype))
+    c = torch.where(ok, v, torch.zeros_like(v)).to(torch.int64)
+    at = torch.where(ok, torch.gather(ff.cat_lo[lo:hi], 1, nd) + (c >> 5),
+                     torch.zeros_like(c))
+    word = ff.cat_words.index_select(0, at.reshape(-1)).reshape(at.shape)
+    return ok & (((word >> (c & 31)) & 1) != 0)
 
 
 def predict_raw(ff: FlatForest, X, device: torch.device,

@@ -1,4 +1,4 @@
-"""Best numerical split over per-leaf histograms.
+"""Best split over per-leaf histograms.
 
 Counterpart of ``lightgbm_tpu/ops/split.py``: ``SplitParams`` and the
 gain helpers (:28-131) are copied; the numerical section of
@@ -6,16 +6,23 @@ gain helpers (:28-131) are copied; the numerical section of
 ``find_best_split_pallas`` (:899, with ``_scan_tile`` :599,
 ``_tile_best`` :676 and ``finish_split_partials`` :806) become
 :func:`find_best_split_plain`, a tensor transcription, and kernel S
-(``csrc/split.cu``), called through :func:`find_best_split`.
+(``csrc/split.cu``), called through :func:`find_best_split`.  The
+categorical scans of ``find_best_split`` (:206-302: one-vs-other, and
+sorted many-vs-many from both ends) are XLA in the JAX package, and
+plain tensor code here (:func:`categorical_split`) on every device.
 
-Numerical features only, with missing values (both default
-directions), min_data_in_leaf, min_sum_hessian_in_leaf, lambda_l1/l2,
-max_delta_step and min_gain_to_split.  Ties resolve first-max: lowest
-bin within a feature, then lowest feature.  The prefix sums are float32
-in the order of the reference's ``jnp.cumsum`` on the CPU
-(:func:`prefix_sum`) in both versions; every gain is then the same
-float32 expression as ``_split_gain`` compiled for the reference's CPU
-backend, which fuses one multiply-add (:func:`fma32`).  So a histogram
+Numerical features with missing values (both default directions),
+min_data_in_leaf, min_sum_hessian_in_leaf, lambda_l1/l2, max_delta_step
+and min_gain_to_split; categorical features with ``cat_l2``,
+``cat_smooth``, ``max_cat_to_onehot``, ``max_cat_threshold`` and
+``min_data_per_group``.  Ties resolve first-max: lowest bin within a
+feature, then lowest feature.  With categorical features the numerical
+scan (kernel S on the card) skips them and the categorical scan takes
+them; one merge keeps the first-max order (:func:`merge_records`).  The
+prefix sums are float32 in the order of the reference's ``jnp.cumsum``
+on the CPU (:func:`prefix_sum`) in both versions; every gain is then the
+same float32 expression as ``_split_gain`` compiled for the reference's
+CPU backend, which fuses one multiply-add (:func:`fma32`).  So a histogram
 the reference also holds bit for bit (quantized sums: integers times a
 scale) gives the same gains and the same choice, even where candidates
 tie in exact arithmetic.
@@ -30,7 +37,7 @@ from . import kernels
 
 __all__ = ["EPS", "NEG_INF", "SplitParams", "leaf_output", "leaf_gain",
            "lane_scalars", "prefix_sum", "find_best_split_plain",
-           "depth_limit",
+           "depth_limit", "categorical_split", "merge_records",
            "find_best_split", "choose_window", "find_best_split_c2f",
            "done_counters", "LAUNCHES"]
 
@@ -43,9 +50,11 @@ LAUNCHES = {"best_split": 0}
 
 @dataclasses.dataclass(frozen=True)
 class SplitParams:
-    """Split-finding parameters (the numerical subset of the JAX
-    package's ``SplitParams``).  ``any_missing`` is a dataset fact: with
-    no missing bin anywhere only the default-right scan runs.
+    """Split-finding parameters (the JAX package's ``SplitParams``
+    without monotone constraints and feature penalties).  ``any_missing``
+    and ``any_cat`` are dataset facts: with no missing bin anywhere only
+    the default-right scan runs, and with no categorical feature no
+    categorical scan.
     ``counts_proxy`` (``lightgbm_tpu/ops/split.py:57-62``): legal only
     when min_data_in_leaf <= 1 and min_sum_hessian_in_leaf > 0, where a
     side with hess >= msh > 0 holds a row, so no count is read; the
@@ -57,7 +66,13 @@ class SplitParams:
     min_sum_hessian_in_leaf: float = 1e-3
     min_gain_to_split: float = 0.0
     max_delta_step: float = 0.0
+    max_cat_to_onehot: int = 4
+    max_cat_threshold: int = 32
+    cat_l2: float = 10.0
+    cat_smooth: float = 10.0
+    min_data_per_group: int = 100
     any_missing: bool = True
+    any_cat: bool = False
     # the count channel holds a hess copy (two-column quantized passes):
     # feasibility is then the hessian test alone, with
     # msh = max(min_sum_hessian_in_leaf, EPS)
@@ -231,7 +246,8 @@ def done_counters(W: int, device, stream: int) -> torch.Tensor:
 def find_best_split_plain(hist: torch.Tensor, parent: torch.Tensor,
                           num_bins: torch.Tensor, missing_type: torch.Tensor,
                           feature_mask: torch.Tensor, p: SplitParams,
-                          depth=None, max_depth: int = 0) -> dict:
+                          depth=None, max_depth: int = 0,
+                          is_cat=None) -> dict:
     """Best split for a batch of W leaves — plain PyTorch.
 
     hist (W, F, B, 3) float32; parent (W, 3) float32; num_bins /
@@ -241,7 +257,24 @@ def find_best_split_plain(hist: torch.Tensor, parent: torch.Tensor,
     min_gain_to_split, <= 0 meaning "do not split".  With ``depth`` (W,)
     int32 (or (1,), one depth for all) and ``max_depth`` > 0, a lane whose
     depth has reached ``max_depth`` gets gain NEG_INF (the growth loop's
-    depth limit)."""
+    depth limit).  With ``p.any_cat``, ``is_cat`` (F,) bool names the
+    categorical features: the record also holds ``is_cat`` (W,) bool, and
+    a categorical split's left mask is its category set."""
+    if p.any_cat:
+        num = _numerical_split(hist, parent, num_bins, missing_type,
+                               feature_mask & ~is_cat, p)
+        rec = merge_records(num, categorical_split(
+            hist, parent, num_bins, missing_type, is_cat, feature_mask, p))
+    else:
+        rec = _numerical_split(hist, parent, num_bins, missing_type,
+                               feature_mask, p)
+    return depth_limit(rec, depth, max_depth)
+
+
+def _numerical_split(hist, parent, num_bins, missing_type, feature_mask,
+                     p: SplitParams) -> dict:
+    """The plain numerical scan: :func:`find_best_split_plain` over the
+    features of ``feature_mask``, no depth limit."""
     W, F, B, _ = hist.shape
     dev = hist.device
     lane = lane_scalars(parent, p)
@@ -261,9 +294,126 @@ def find_best_split_plain(hist: torch.Tensor, parent: torch.Tensor,
         no_miss = miss[..., 2] <= 0                          # (W, F)
     gain, L_win, dirl = _scan_both(cum, miss, no_miss, pst, gshift, cand_ok,
                                    p)
-    rec = _record(gain, L_win, dirl, jidx.expand(W, F, B), num_bins,
-                  has_missing, feature_mask, B)
-    return depth_limit(rec, depth, max_depth)
+    return _record(gain, L_win, dirl, jidx.expand(W, F, B), num_bins,
+                   has_missing, feature_mask, B)
+
+
+def categorical_split(hist: torch.Tensor, parent: torch.Tensor,
+                      num_bins: torch.Tensor, missing_type: torch.Tensor,
+                      is_cat: torch.Tensor, feature_mask: torch.Tensor,
+                      p: SplitParams) -> dict:
+    """The best categorical split of each of W leaves over the features of
+    ``is_cat & feature_mask`` (``find_best_split``, :206-302) -> the
+    record of :func:`find_best_split_plain` with ``is_cat`` true.
+
+    A feature with at most ``max_cat_to_onehot`` value bins splits one
+    category from the rest (``l2 + cat_l2``); a wider one sorts the bins
+    that hold rows by ``g / (h + cat_smooth)`` in float32, stably (equal
+    ratios keep bin order, as ``jnp.argsort`` does), and scans the
+    sorted prefixes from both ends, at most ``max_cat_threshold``
+    categories on the left and ``min_data_per_group`` rows on each side.
+    Bin 0, the "other" bin, never goes left; the missing bin is no
+    category.  The prefix sums are :func:`prefix_sum`'s, as every scan's
+    here.  The candidate index of a sorted split is its position in the
+    sort, as in the JAX package; the left mask holds its categories."""
+    W, F, B, _ = hist.shape
+    dev = hist.device
+    lane = lane_scalars(parent, p)
+    pst = lane[:, None, None, :3]
+    gshift = lane[:, 3][:, None, None]
+    l1, l2c, mds = p.lambda_l1, p.lambda_l2 + p.cat_l2, p.max_delta_step
+    nv, _ = _nv_missing(num_bins, missing_type, p)
+    jidx = torch.arange(B, device=dev)
+    in_value = jidx[None, :] < nv[:, None]                 # (F, B)
+    hv = hist * in_value[None, :, :, None].to(hist.dtype)
+    not_other = jidx > 0
+
+    # one-vs-other: the singleton {bin j}
+    onehot_ok = (is_cat & (nv <= p.max_cat_to_onehot))[:, None] & \
+        in_value & not_other
+    # many-vs-many: bins with rows, sorted by their ratio
+    valid = (hv[..., 2] > 0) & not_other & in_value        # (W, F, B)
+    ratio = torch.where(valid, hv[..., 0] / (hv[..., 1] + p.cat_smooth),
+                        torch.full_like(hv[..., 0], float("inf")))
+    order = torch.sort(ratio, dim=2, stable=True).indices
+    sorted_h = torch.gather(hv * valid[..., None].to(hv.dtype), 2,
+                            order[..., None].expand(W, F, B, 3))
+    n_valid = valid.sum(dim=2)                             # (W, F)
+    cum = prefix_sum(sorted_h, dim=2)
+    many_ok = (is_cat & (nv > p.max_cat_to_onehot))[None, :, None]
+    pos1 = jidx[None, None, :] + 1                         # left size
+    ok_lo = pos1 <= torch.clamp(n_valid - 1,
+                                max=p.max_cat_threshold)[..., None]
+    size = n_valid[..., None] - pos1
+    ok_hi = (size >= 1) & (size <= p.max_cat_threshold) & \
+        (pos1 < n_valid[..., None])
+    L_lo = cum
+    L_hi = cum[:, :, -1:, :] - cum
+    # the three scans' candidates in one batch (fewer, larger launches): a
+    # singleton, a sorted prefix on the left, a sorted suffix on the left;
+    # min_data_per_group binds the sorted ones (a count is never below 0)
+    L = torch.stack([hv, L_lo, L_hi])                       # (3, W, F, B, 3)
+    ok = torch.stack([onehot_ok[None].expand(W, F, B), ok_lo & many_ok,
+                      ok_hi & many_ok])
+    R = pst - L
+    g = _split_gain(L[..., 0], L[..., 1] + EPS, R[..., 0], R[..., 1] + EPS,
+                    l1, l2c, mds) - gshift
+    md = max(p.min_data_in_leaf, 1)
+    msh = p.min_sum_hessian_in_leaf
+    # (made on the device: a captured graph holds no host copy)
+    group = (torch.arange(3, device=dev) > 0).to(hist.dtype).view(
+        3, 1, 1, 1) * p.min_data_per_group
+    ok = ok & (torch.minimum(L[..., 2], R[..., 2]) >=
+               torch.clamp(group, min=md)) & \
+        (L[..., 1] >= msh) & (R[..., 1] >= msh)
+    cat1, g_lo, g_hi = torch.where(ok, g, torch.full_like(g, NEG_INF))
+    many = torch.maximum(g_lo, g_hi)
+    from_low = g_lo >= g_hi
+    gain = torch.maximum(cat1, many)
+    onehot = cat1 >= many
+    gain = torch.where((is_cat & feature_mask)[None, :, None], gain,
+                       torch.full_like(gain, NEG_INF))
+    best_pf, best_j = torch.max(gain, dim=2)               # first max
+    f_star = torch.argmax(best_pf, dim=1)                  # (W,)
+    w_idx = torch.arange(W, device=dev)
+    j_star = best_j[w_idx, f_star]
+    oh = onehot[w_idx, f_star, j_star]
+    lo = from_low[w_idx, f_star, j_star]
+    left_stats = torch.where(
+        oh[:, None], hv[w_idx, f_star, j_star],
+        torch.where(lo[:, None], L_lo[w_idx, f_star, j_star],
+                    L_hi[w_idx, f_star, j_star]))
+    # each bin's position in its leaf's sort
+    rank = torch.empty_like(order).scatter_(
+        2, order, jidx.expand(W, F, B).contiguous())
+    rank_f = rank[w_idx, f_star]                           # (W, B)
+    many_mask = torch.where(lo[:, None], rank_f <= j_star[:, None],
+                            rank_f > j_star[:, None]) & valid[w_idx, f_star]
+    left_mask = torch.where(oh[:, None], jidx[None, :] == j_star[:, None],
+                            many_mask)
+    return {
+        "gain": best_pf[w_idx, f_star],
+        "feature": f_star.to(torch.int32),
+        "threshold": j_star.to(torch.int32),
+        "default_left": torch.zeros(W, dtype=torch.bool, device=dev),
+        "left_stats": left_stats,
+        "left_mask": left_mask,
+    }
+
+
+def merge_records(num: dict, cat: dict) -> dict:
+    """One record from the numerical scan's and the categorical scan's,
+    in the JAX package's first-max order over all features: the larger
+    gain wins, an equal gain goes to the lower feature.  Adds ``is_cat``
+    (W,) bool."""
+    take = (cat["gain"] > num["gain"]) | \
+        ((cat["gain"] == num["gain"]) & (cat["feature"] < num["feature"]))
+    out = {}
+    for k, v in num.items():
+        t = take.reshape((-1,) + (1,) * (v.dim() - 1))
+        out[k] = torch.where(t, cat[k], v)
+    out["is_cat"] = take
+    return out
 
 
 def depth_limit(rec: dict, depth, max_depth: int) -> dict:
@@ -418,15 +568,35 @@ def find_best_split_c2f(coarse: torch.Tensor, win: torch.Tensor,
 def find_best_split(hist: torch.Tensor, parent: torch.Tensor,
                     num_bins: torch.Tensor, missing_type: torch.Tensor,
                     feature_mask: torch.Tensor, p: SplitParams,
-                    depth=None, max_depth: int = 0) -> dict:
+                    depth=None, max_depth: int = 0, is_cat=None) -> dict:
     """Best split for a batch of W leaves, as :func:`find_best_split_plain`.
     CUDA tensors go to kernel S: one launch for the batch, which computes
     the lane scalars and the depth limit itself, into one buffer (calls on
     one stream share its completion counters, and so run in stream
-    order); CPU tensors to the plain version."""
+    order); CPU tensors to the plain version.  With ``p.any_cat`` kernel S
+    scans the numerical features, :func:`categorical_split` the
+    categorical ones, and :func:`merge_records` joins them, then the
+    depth limit."""
     if hist.device.type == "cpu":
         return find_best_split_plain(hist, parent, num_bins, missing_type,
-                                     feature_mask, p, depth, max_depth)
+                                     feature_mask, p, depth, max_depth,
+                                     is_cat)
+    if p.any_cat:
+        if is_cat is None or is_cat.shape != feature_mask.shape or \
+                is_cat.dtype != torch.bool:
+            raise ValueError("any_cat needs is_cat, bool like feature_mask")
+        num = _best_split_kernel(hist, parent, num_bins, missing_type,
+                                 feature_mask & ~is_cat, p, None, 0)
+        rec = merge_records(num, categorical_split(
+            hist, parent, num_bins, missing_type, is_cat, feature_mask, p))
+        return depth_limit(rec, depth, max_depth)
+    return _best_split_kernel(hist, parent, num_bins, missing_type,
+                              feature_mask, p, depth, max_depth)
+
+
+def _best_split_kernel(hist, parent, num_bins, missing_type, feature_mask,
+                       p: SplitParams, depth, max_depth: int) -> dict:
+    """Kernel S's launch for :func:`find_best_split`."""
     W, F, B, C = hist.shape
     if C != 3 or hist.dtype != torch.float32 or not hist.is_contiguous():
         raise ValueError("hist must be contiguous float32 (W, F, B, 3)")

@@ -11,14 +11,20 @@ held within 1e-4 of their reach (``tests/test_torch_objectives.py``
 ``pred_atol``) and their split gains within rel 1e-3, not the slice's 1e-5 and
 1e-5: on these data, where 70% of the values are exact zeros, the predictions
 differ by up to 2.2e-5 and a child's gain by 7.9e-4 relative (126.0855 in the
-JAX package, 126.0751 in the port) though the splits agree.  The dense array
-gives the same gaps (the JAX package's sparse and dense model texts are equal),
-so they are not the input type's; the same generator without zeros gives 9e-6.
-Neither EFB (no bundles here) nor the input explains them: ``ROADMAP.md`` Queue
-3 item 10 keeps the question.  A pandas frame's column names become the feature
+JAX package, 126.0751 in the port) though the splits agree.  The gap is the JAX
+package's float32 order, not the port's error (``ROADMAP.md`` Queue 3 item 10,
+``test_zero_heavy_gap_is_the_jax_float32_sum``): bins, thresholds and leaf
+counts are identical, and the first quantity that differs is a histogram cell.
+The zero bin of feature 3 holds 1,021 of the 1,500 rows; the JAX package's CPU
+``segment_sum`` adds their hessians one at a time in float32 and ends at
+255.13708, 213 float32 ulps (2^-16 each) above the exact sum 255.13384, which
+the port's float64 sum rounds to once.  In the first tree the leaf hessian sums
+then differ by up to 0.0035 (a leaf of 601 rows), and the gains and leaf values
+with them.  The same generator without zeros gives 9e-6: no bin holds more
+than a few dozen rows.  A pandas frame's column names become the feature
 names, as the JAX package's ``feature_name()`` gives them; a ``category``
-column raises ``NotImplementedError`` (categorical features are not ported) and
-an ``object`` column is fatal in both packages.
+column becomes its codes and a categorical feature, binned and trained as in
+the JAX package; an ``object`` column is fatal in both packages.
 
 Refusals (``lightgbm_tpu_torch/config.py`` ``UNSUPPORTED`` and
 ``Config.check_histogram_pool``): each parameter the JAX package acts on
@@ -41,6 +47,7 @@ import lightgbm_tpu_torch as ltt  # noqa: E402
 from lightgbm_tpu_torch import LightGBMError  # noqa: E402
 from lightgbm_tpu_torch.config import Config as TConfig  # noqa: E402
 from test_torch_objectives import first_difference  # noqa: E402
+from test_torch_objectives import hold_to_jax  # noqa: E402
 from test_torch_objectives import pred_atol  # noqa: E402
 
 PARAMS = {"objective": "binary", "num_leaves": 15, "max_bin": 63,
@@ -125,19 +132,81 @@ def test_pandas_names_reach_the_model_text():
                        feature_name=other).feature_name() == other
 
 
-@pytest.mark.parametrize("kind", ["category", "object"])
+@pytest.mark.parametrize("kind", ["object"])
 def test_pandas_category_and_object_columns_refused(kind):
+    """An ``object`` column is fatal in both packages (a ``category``
+    column trains: ``test_pandas_category_column_trains_as_jax``)."""
     X, y = _sparse_data(n=200, F=3, seed=6)
     df = pd.DataFrame(X, columns=["a", "b", "c"])
-    df["b"] = pd.Series(np.where(X[:, 1] > 0, "hi", "lo"),
-                        dtype="category" if kind == "category" else object)
-    want = NotImplementedError if kind == "category" else LightGBMError
-    with pytest.raises(want, match="categorical features" if
-                       kind == "category" else "object column b"):
+    df["b"] = pd.Series(np.where(X[:, 1] > 0, "hi", "lo"), dtype=kind)
+    with pytest.raises(LightGBMError, match="object column b"):
         _train_port(df, y, rounds=1)
-    if kind == "object":
-        with pytest.raises(Exception, match="object column b"):
-            lgb.Dataset(df, label=y, params=PARAMS).construct()
+    with pytest.raises(Exception, match="object column b"):
+        lgb.Dataset(df, label=y, params=PARAMS).construct()
+
+
+@pytest.mark.parametrize("levels", [2, 9])
+def test_pandas_category_column_trains_as_jax(levels):
+    """A ``category`` column becomes its codes (-1 for a missing value)
+    and a categorical feature: the binned matrix byte-identical to the JAX
+    package's, its trees the JAX package's (``hold_to_jax``), and a frame
+    predicts as its codes do."""
+    X, y = _sparse_data(n=2000, F=3, seed=6)
+    df = pd.DataFrame(X, columns=["a", "b", "c"])
+    codes = np.floor(np.abs(X[:, 1]) * 5).astype(int) % levels
+    names = np.array([f"k{i}" for i in range(levels)], dtype=object)
+    col = names[codes]
+    col[::17] = None
+    df["b"] = pd.Series(col, dtype="category")
+    y = (X[:, 0] + (codes == 1) + 0.2 * np.random.RandomState(6).randn(
+        2000) > 0.3).astype(float)
+    p = dict(PARAMS, use_quantized_grad=True, min_data_per_group=20)
+    bj = lgb.train(p, lgb.Dataset(df, label=y, params=p), num_boost_round=2,
+                   verbose_eval=False)
+    bt = _train_port(df, y, extra={"use_quantized_grad": True,
+                                   "min_data_per_group": 20}, rounds=2)
+    dt = bt.train_set._constructed
+    assert [m.bin_type for m in dt.mappers] == [0, 1, 0]
+    np.testing.assert_array_equal(
+        dt.binned.numpy(), np.asarray(bj.train_set._constructed.binned).T)
+    assert sum(t.num_cat for t in bt.models) > 0
+    assert hold_to_jax(bj, bt, df.assign(b=df["b"].cat.codes).values, y) \
+        is None
+    np.testing.assert_array_equal(
+        bt.predict(df, raw_score=True),
+        bt.predict(df.assign(b=df["b"].cat.codes).values, raw_score=True))
+
+
+def test_zero_heavy_gap_is_the_jax_float32_sum():
+    """The zero-heavy gap's first differing quantity (module docstring):
+    identical bins, and a histogram cell the JAX package's CPU
+    ``segment_sum`` ends at its float32 row-order sum, where the port's
+    float64 sum rounds the exact value once."""
+    from lightgbm_tpu.ops.histogram import histogram_segsum
+    from lightgbm_tpu_torch.ops.histogram import histogram_plain
+    import jax.numpy as jnp
+    X, y = _sparse_data()
+    dj = lgb.Dataset(X, label=y, params=PARAMS).construct()._constructed
+    p = dict(PARAMS, device_type="cpu")
+    dt = ltt.Dataset(X, label=y, params=p).construct()._constructed
+    xt = dt.binned.numpy()
+    np.testing.assert_array_equal(xt, np.asarray(dj.binned).T)
+    # the first tree's hessians: one value a row, p (1 - p) at the prior
+    prior = np.float32(y.mean())
+    h = np.full(len(y), prior * (1 - prior), np.float32)
+    vals = np.stack([np.zeros_like(h), h, np.ones_like(h)], 1)
+    hj = np.asarray(histogram_segsum(jnp.asarray(xt), jnp.asarray(vals), 64))
+    ht = histogram_plain(torch.as_tensor(xt), torch.as_tensor(vals),
+                         64).numpy()
+    f, b = np.unravel_index(np.argmax(hj[..., 2]), hj[..., 2].shape)
+    rows = xt[f] == b
+    assert rows.sum() > 1000
+    seq = np.float32(0)
+    for v in h[rows]:
+        seq = np.float32(seq + v)
+    assert hj[f, b, 1] == seq
+    assert ht[f, b, 1] == np.float32(h[rows].astype(np.float64).sum())
+    assert abs(hj[f, b, 1] - ht[f, b, 1]) > 50 * np.spacing(ht[f, b, 1])
 
 
 REFUSED = {

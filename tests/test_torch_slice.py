@@ -182,8 +182,6 @@ def test_cuda_default_raises_without_a_card():
     {"tree_learner": "voting"},
     {"speculative_tolerance": 0.1}, {"forcedsplits_filename": "forced.json"},
     {"tree_learner": "data"}, {"monotone_constraints": [1, 0, 0, 0, 0, 0]},
-    {"categorical_feature": "0"},
-    {"categorical_feature": [0, 2]},
 ])
 def test_unimplemented_parameters_raise(params):
     X, y = _data(6, "binary", False, n=200)
@@ -191,6 +189,34 @@ def test_unimplemented_parameters_raise(params):
          **params}
     with pytest.raises(NotImplementedError):
         ltt.train(p, ltt.Dataset(X, label=y, params=p), num_boost_round=1)
+
+
+@pytest.mark.parametrize("params", [
+    {"categorical_feature": "0"},
+    {"categorical_feature": [0, 2]},
+])
+def test_categorical_parameter_trains_as_jax(params):
+    """The categorical parameter, which the port refused before it had
+    categorical features, bins and trains as in the JAX package: the
+    binned matrix byte-identical and one tree the JAX package's."""
+    X, y = _data(6, "binary", False, n=2000)
+    X[:, 0] = np.floor(np.abs(X[:, 0]) * 4) % 12
+    X[:, 2] = np.floor(np.abs(X[:, 2]) * 3) % 7
+    p = {"objective": "binary", "verbose": -1, "num_leaves": 15,
+         "max_bin": 63, "metric": "None", "min_data_per_group": 20,
+         "use_quantized_grad": True, **params}
+    bj = lgb.train(p, lgb.Dataset(X, label=y, params=p), num_boost_round=1,
+                   verbose_eval=False)
+    pt = dict(p, device_type="cpu")
+    bt = ltt.train(pt, ltt.Dataset(X, label=y, params=pt), num_boost_round=1)
+    np.testing.assert_array_equal(
+        bt.train_set._constructed.binned.numpy(),
+        np.asarray(bj.train_set._constructed.binned).T)
+    assert [m.bin_type for m in bt.train_set._constructed.mappers] == \
+        [m.bin_type for m in bj.train_set._constructed.mappers]
+    assert bt.models[0].num_cat > 0
+    from test_torch_objectives import hold_to_jax
+    assert hold_to_jax(bj, bt, X, y) is None
 
 
 def test_port_imports_nothing_of_jax():

@@ -369,9 +369,21 @@ def test_dataset_api():
         other._constructed)
     grouped = ltt.Dataset(X, label=y, group=[250, 250], params=p)
     np.testing.assert_array_equal(grouped.get_group(), [250, 250])
-    for kw in ({"init_score": np.zeros(500)}, {"categorical_feature": [0]}):
-        with pytest.raises(NotImplementedError):
-            ltt.Dataset(X, label=y, params=p, **kw)
+    with pytest.raises(NotImplementedError):
+        ltt.Dataset(X, label=y, params=p, init_score=np.zeros(500))
+    # a categorical feature bins as in the JAX package, and its validation
+    # set with the training mappers
+    Xc = X.copy()
+    Xc[:, 0] = np.floor(np.abs(Xc[:, 0]) * 3)
+    cat = ltt.Dataset(Xc, label=y, params=p, categorical_feature=[0])
+    catj = lgb.Dataset(Xc, label=y, params=p, categorical_feature=[0])
+    for t, j in ((cat, catj), (cat.create_valid(Xc[:50] + 1, label=y[:50]),
+                               catj.create_valid(Xc[:50] + 1,
+                                                 label=y[:50]))):
+        np.testing.assert_array_equal(
+            t.construct()._constructed.binned.numpy(),
+            np.asarray(j.construct()._constructed.binned).T)
+    assert cat._constructed.mappers[0].bin_type == 1
 
 
 @pytest.mark.parametrize("metric,objective", [
