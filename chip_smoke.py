@@ -118,7 +118,7 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    1 and 4, and requires
    identical trees card against CPU, and fused_iters=4 the same bits as
    fused_iters=1 on each device; then the objective zoo (20k rows, 5%
-   NaN, 4 iterations): the ten regression and cross-entropy objectives
+   NaN, 3 iterations): the ten regression and cross-entropy objectives
    on the exact loop at 31 leaves, L1 and MAPE also with bernoulli bagging
    and with GOSS, softmax and one-vs-all on the exact loop, float waves
    and two-column coarse-to-fine waves, identical trees card against CPU,
@@ -240,8 +240,28 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    transform as a validation set (phase 7's checks).  Phase 2 holds
    kernel M at that wave's launch (W=42, three int8 columns, an int8
    selector) and the merged split scan (kernel S and the categorical
-   scan) of its 84 children against the CPU's, bit for bit.  Each phase
-   prints its seconds.
+   scan) of its 84 children against the CPU's, bit for bit.
+15. (run after phase 14) bench.py's sparse one-hot row
+   (``bench.py:2282-2331``): RandomState(13), 1M rows, 40 columns of 8-24
+   levels one-hot encoded into 652 CSR float32 indicator columns, the
+   Dataset made from the CSR (its seconds and peak host bytes by
+   tracemalloc beside the float64 densify), exclusive feature bundling
+   (40 groups, committed width 25, the host's ``find_bundles`` the same
+   groups): ``allstate-exact255`` (bench.py's base_params, max_bin=63,
+   enable_bundle; the exact loop), ``allstate-wave255`` (+ wave_splits,
+   use_quantized_grad: W=42 three-column waves routed outside the pass)
+   and ``allstate-exact255-nobundle``, each graphed, eagerly and at
+   fused_iters=5, their device matrix bytes, launches a tree, training
+   score within 1e-5 of the prediction and training AUC above that of
+   the logit the labels are drawn from; ``allstate-wave255-valid`` with a
+   100,000-row holdout of the same generator as a validation set (phase
+   7's checks: kernel T on records translated onto bundle columns; the
+   holdout AUC within 0.01 of the logit's); and the card's trees equal to the
+   CPU's on the first 50,000 rows.  Phase 2 holds kernels H (40 x 1M, B =
+   25), M (W=42, three int8 columns), S (84 children expanded to 652
+   features) and T (translated records, against routing the indicator
+   columns) at those shapes and counts ``expand``'s CUDA kernels.  Each
+   phase prints its seconds.
 
 Every phase passes or the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
@@ -2779,7 +2799,7 @@ def reduced_cells():
         fuse = name not in ZOO_RENEW
         cells[name] = (Xz, labels[name], dict(exact, objective=name),
                        ZOO_ITERS, (1, 4) if fuse else (1,), (1,), None,
-                       [1, 3] if fuse else None, {})
+                       [1, ZOO_ITERS - 1] if fuse else None, {})
     for name in ("regression_l1", "mape"):
         for what, extra in (("bagging", {"bagging_fraction": 0.7,
                                          "bagging_freq": 1}),
@@ -2809,8 +2829,8 @@ def reduced_cells():
                                                       num_leaves=127))):
         cells[f"lambdarank, {loop}"] = (Xr, yr, dict(
             TRAIN_PARAMS, **extra, objective="lambdarank", metric="None"),
-            ZOO_ITERS, (1, 4), (1,), 4 if "c2f" in loop else None, [1, 3],
-            {"group": cr})
+            ZOO_ITERS, (1, 4), (1,), 4 if "c2f" in loop else None,
+            [1, ZOO_ITERS - 1], {"group": cr})
     return cells
 
 
@@ -2886,11 +2906,12 @@ def phase_device_vs_cpu(ltt):
           flush=True)
 
 
-# phase 6's depth (cut from 10 and 5 iterations when phase 14 came, to keep
-# the script's time): the 50k-row cells, and the objective zoo's cells
-# (20k rows, 5% NaN)
+# phase 6's depth (cut from 10 and 5 iterations when phase 14 came, and
+# the zoo's from 4 when phase 15 came, to keep the script's time): the
+# 50k-row cells, and the objective zoo's cells (20k rows, 5% NaN; at
+# fused_iters=4 the bias iteration and one block)
 REDUCED_ITERS = 6
-ZOO_ROWS, ZOO_ITERS = 20_000, 4
+ZOO_ROWS, ZOO_ITERS = 20_000, 3
 ZOO_OBJECTIVES = ("regression_l1", "quantile", "huber", "fair", "poisson",
                   "mape", "gamma", "tweedie", "cross_entropy",
                   "cross_entropy_lambda")
@@ -2912,7 +2933,8 @@ def zoo_label(name, z, rng):
 
 
 # phase 7: each path with the holdout as a validation set; trees a run
-VALID_TREES = {"exact": 3, "wave": 6, "c2f": 6, "cat-wave": 6}
+VALID_TREES = {"exact": 3, "wave": 6, "c2f": 6, "cat-wave": 6,
+               "allstate-wave": 6}
 VALID_METRICS = ("auc", "binary_logloss")
 
 
@@ -2949,7 +2971,7 @@ def _check_valid_score(b, Xh, yh, res, what, i=-1, score=None):
     if score is None:
         score = b._gbdt.valid_sets[0].score.cpu().numpy()
         want = b.predict(Xh, raw_score=True, num_iteration=-1)
-        if score.shape != (N_HOLDOUT,) or not np.all(np.isfinite(score)):
+        if score.shape != (len(yh),) or not np.all(np.isfinite(score)):
             fail(f"{what}: the holdout score is not finite of its shape")
         diff = float(np.max(np.abs(score - want)))
         if diff > 1e-5:
@@ -2970,9 +2992,13 @@ def scorer_parts_ms(torch, scorer):
     the holdout's bins, ids and score) and timed by CUDA events."""
     from lightgbm_tpu_torch.ops import lookup, route
     rec, nl = scorer.st.rec, scorer.st.params.num_leaves
+    feature, left_mask = rec["feature"], rec["left_mask"]
+    if scorer.bundles is not None:
+        # the records as the scorer hands them over: on bundle columns
+        feature, left_mask = scorer.bundles.translate(feature, left_mask)
     t_ms = cuda_ms(lambda: route.route_rows(
-        scorer.xt, rec["leaf"], rec["feature"], rec["left_mask"],
-        rec["valid"], nl, out=scorer.li), reps=20)
+        scorer.xt, rec["leaf"], feature, left_mask, rec["valid"], nl,
+        out=scorer.li), reps=20)
     score = scorer.score.clone()
     l_ms = cuda_ms(lambda: lookup.take_small_add(score, scorer.vals,
                                                  scorer.li), reps=20)
@@ -3121,7 +3147,7 @@ def phase_valid(torch, ltt, data, path, params, names, no_valid_s):
         kernel_launches_per_tree={k: v / n for k, v in counts.items()},
         graph_replays_per_tree=replays / n, fused_blocks=blocks,
         best_iteration=b.best_iteration, holdout=res["holdout"])
-    print(f"{path} with a 500k-row validation set: "
+    print(f"{path} with a {len(yh)}-row validation set: "
           f"{out['seconds_per_iteration']:.4f} s an iteration (without it "
           f"{no_valid_s:.4f}; runs {[round(x, 4) for x in iter_s]}), eval "
           f"{out['eval_host_ms']:.2f} ms of host time an iteration, the "
@@ -4481,6 +4507,394 @@ def phase_categorical(torch, ltt, data, wave_s):
     return counts, e2e
 
 
+# phase 15: bench.py's sparse one-hot row (bench.py:2282-2331, "Allstate
+# shape"): RandomState(13), 1M rows, 40 categorical columns of 8-24
+# levels one-hot encoded into 652 indicator columns, CSR float32, the label
+# from the first 40 indicator columns; bench.py's base_params
+# (:1882-1891) with max_bin=63 and enable_bundle=True, the Dataset made
+# from the CSR.  The row as it ships is the exact loop; -wave255 adds
+# bench.py's `fast` (:1895-1896)
+ALLSTATE_ROWS = 1_000_000
+ALLSTATE_HOLDOUT = 100_000
+ALLSTATE_CATS = 40
+ALLSTATE_CUT, ALLSTATE_CUT_TREES = 50_000, 3
+ALLSTATE_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
+                   "learning_rate": 0.1, "min_sum_hessian_in_leaf": 100.0,
+                   "min_data_in_leaf": 0, "verbose": -1, "metric": "None",
+                   "enable_bundle": True}
+ALLSTATE_WAVE = dict(ALLSTATE_PARAMS, wave_splits=True,
+                     use_quantized_grad=True)
+ALLSTATE_CELLS = {
+    "allstate-exact255": (
+        ALLSTATE_PARAMS, ("histogram", "best_split", "leaf_lookup"),
+        (lambda g: not g.grow_params.wave and g._bundles is not None,
+         "the exact loop on the bundle matrix")),
+    "allstate-wave255": (
+        ALLSTATE_WAVE,
+        ("multi_histogram", "best_split", "leaf_stats", "leaf_lookup"),
+        (lambda g: g._bundles is not None and g.grow_params.wave and
+         g.grow_params.quantize > 0 and not g.grow_params.two_col and
+         g.grow_params.refine_shift == 0 and g.grow_params.speculate == 42,
+         "three-column W=42 waves on the bundle matrix, routed outside "
+         "the pass")),
+    "allstate-exact255-nobundle": (
+        dict(ALLSTATE_PARAMS, enable_bundle=False),
+        ("histogram", "best_split", "leaf_lookup"),
+        (lambda g: not g.grow_params.wave and g._bundles is None,
+         "the exact loop on the 652 indicator columns")),
+}
+# the passes a bundled run must not launch (EFB turns them off)
+ALLSTATE_OFF_NAMES = ("routed_histogram", "window_histogram",
+                          "lanes_window_histogram")
+
+
+def allstate_levels():
+    """The 40 columns' level counts, bench.py's first draw."""
+    return np.random.RandomState(13).randint(8, 25, size=ALLSTATE_CATS)
+
+
+def make_allstate(n_rows, seed=13):
+    """bench.py's generator (bench.py:2291-2312), copied: ``seed`` 13
+    gives bench.py's rows; another seed draws other rows over the same
+    40 columns (their levels are seed 13's first draw) -> (CSR, label)."""
+    import scipy.sparse as sp_mod
+    rng = np.random.RandomState(13)
+    levels = rng.randint(8, 25, size=ALLSTATE_CATS)
+    if seed != 13:
+        rng = np.random.RandomState(seed)
+    cols, col0 = [], 0
+    for L in levels:
+        cols.append(col0 + rng.randint(0, L, size=n_rows))
+        col0 += L
+    ridx = np.tile(np.arange(n_rows), len(levels))
+    X = sp_mod.csr_matrix(
+        (np.ones(ridx.size, np.float32), (ridx, np.concatenate(cols))),
+        shape=(n_rows, int(col0)))
+    y = (rng.random_sample(n_rows) <
+         1 / (1 + np.exp(-(X[:, :40].toarray().sum(1).ravel() - 1)))
+         ).astype(np.float32)
+    return X, y
+
+
+def allstate_logit(X):
+    """The logit bench.py draws the row's label from (before its -1)."""
+    return np.asarray(X[:, :40].sum(1)).ravel()
+
+
+def allstate_bundles(torch, dev):
+    """The bundles EFB finds on the row (every column's indicators one
+    group, in column order): the layout, its device maps at the committed
+    width, and the width."""
+    from lightgbm_tpu_torch.io.bundle import FeatureBundles
+    levels = allstate_levels()
+    F, G = int(levels.sum()), len(levels)
+    group_id = np.repeat(np.arange(G), levels).astype(np.int32)
+    starts = np.concatenate([[0], np.cumsum(levels)[:-1]])
+    offsets = (1 + np.arange(F) - np.repeat(starts, levels)).astype(np.int32)
+    fb = FeatureBundles(
+        groups=[list(range(s, s + L)) for s, L in zip(starts, levels)],
+        group_id=group_id, offsets=offsets,
+        default_bin=np.zeros(F, np.int32),
+        group_num_bins=(levels + 1).astype(np.int32),
+        is_singleton=np.zeros(G, bool))
+    B = int(levels.max()) + 1
+    nb = np.full(F, 2, np.int32)
+    return fb, fb.device_maps(B, nb, dev), B
+
+
+def phase_kernels_efb(torch, dev):
+    """Phase 2, the kernels at phase 15's bundled shapes against their plain
+    versions: H on the (40, 1M) bundle matrix at B = 25 (float values at
+    the root and at 1/255 of the rows, integer values exact), M at W = 42
+    three int8 columns, S on the 2W = 84 children expanded to (84, 652,
+    25, 3), T on a tree's records translated onto bundle columns (its ids
+    equal to routing the 652 indicator columns with the records as they
+    are); and ``expand``'s time and CUDA kernels a call at the exact
+    loop's 2 children and the wave's 84 (a layer metric)."""
+    from lightgbm_tpu_torch.ops import histogram as th
+    from lightgbm_tpu_torch.ops import route as tr
+    from lightgbm_tpu_torch.ops import split as ts
+    from lightgbm_tpu_torch.ops.grow import expand
+    fb, maps, B = allstate_bundles(torch, dev)
+    G, F, N = fb.num_groups, len(fb.group_id), ALLSTATE_ROWS
+    g = torch.Generator(device=dev).manual_seed(19)
+    levels = torch.as_tensor(allstate_levels(), device=dev)
+    # each row one level a column: bundle bin 1 + level
+    bins = (1 + (torch.rand((G, N), generator=g, device=dev) *
+                 levels[:, None]).floor()).to(torch.uint8)
+    out = {}
+
+    # ---- kernel H -----------------------------------------------------
+    def h_args(parts, values, seed):
+        a = hist_inputs(torch, dev, G, N, B, parts, values, seed)
+        return (bins,) + a[1:]
+
+    for parts, vals in ((1, "integer"), (255, "float"), (255, "integer")):
+        check_histogram(th, torch, h_args(parts, vals, 40 + parts),
+                        f"bundled G={G} N={N} B={B} 1/{parts} {vals}",
+                        vals == "integer")
+    a = h_args(1, "float", 41)
+    err_h, rel_h = check_histogram(th, torch, a,
+                                   f"bundled G={G} N={N} B={B} root float",
+                                   False)
+    ms_h = cuda_ms(lambda: th.masked_histogram(*a), reps=10)
+    dev_h, _ = profile_calls(lambda: th.masked_histogram(*a), 10,
+                             KERNEL_H_NAMES)
+    (b_h, by_h), rows = hist_bound(torch, a)
+    plain_h = cuda_ms(lambda: th.masked_histogram_plain(*a), reps=3)
+    _, grad, hess, mask = a[:4]
+    flat_ids = (bins.to(torch.int64) +
+                torch.arange(G, device=dev)[:, None] * B).reshape(-1)
+    flat_vals = torch.stack([grad, hess, mask], -1).repeat(G, 1)
+    lib_out = torch.zeros(G * B, 3, device=dev)
+    lib_h = cuda_ms(lambda: lib_out.zero_().index_add_(0, flat_ids,
+                                                       flat_vals), reps=3)
+    del flat_ids, flat_vals, lib_out
+    out["histogram"] = dict(max_abs_err=err_h, ms=ms_h, device_ms=dev_h,
+                            plain_ms=plain_h, bound_ms=b_h, bound_by=by_h,
+                            library_ms=lib_h, rows=rows)
+    print(f"kernel H bundled root pass: max abs {err_h:.3g} max rel "
+          f"{rel_h:.3g}; {ms_h:.4f} ms, device {dev_h:.4f} ms (plain "
+          f"{plain_h:.3f}, index_add_ {lib_h:.3f}, bound {b_h:.4f} by "
+          f"{by_h}) at G={G} N={N} B={B}", flush=True)
+
+    # ---- kernel M: W = 42, three int8 columns -------------------------
+    m = measure_multi_w42(torch, th, dev, g, bins, B)
+    out["multi_histogram"] = {k[len("w42_3col_"):]: v for k, v in m.items()}
+    out["multi_histogram"]["library_ms"] = out["multi_histogram"].pop(
+        "index_add_ms")
+
+    # ---- kernel S on the 2W = 84 children, expanded -------------------
+    qv = torch.stack([
+        torch.randint(-120, 121, (N,), generator=g, device=dev,
+                      dtype=torch.int32),
+        torch.randint(0, 121, (N,), generator=g, device=dev,
+                      dtype=torch.int32),
+        torch.ones(N, device=dev, dtype=torch.int32)], -1).to(
+            torch.int8).contiguous()
+    halves = []
+    for _ in range(2):
+        sel = torch.randint(-1, 42, (N,), generator=g, device=dev,
+                            dtype=torch.int32).to(torch.int8)
+        halves.append(th.multi_histogram(bins, qv, sel, B, 42, False))
+    hist_b = torch.cat(halves).contiguous()                 # (84, G, B, 3)
+    stats = hist_b[:, 0].sum(dim=1).contiguous()            # each row once
+    hist = expand(hist_b, stats, maps).contiguous()         # (84, F, B, 3)
+    nb = torch.full((F,), 2, dtype=torch.int32, device=dev)
+    mt = torch.zeros(F, dtype=torch.int32, device=dev)
+    fm = torch.ones(F, dtype=torch.bool, device=dev)
+    p = ts.SplitParams(max_bin=B, min_data_in_leaf=0,
+                       min_sum_hessian_in_leaf=100.0)
+    err_s = check_split(torch, ts, hist, stats, nb, mt, fm, p,
+                        f"bundled 2W=84 F={F} B={B}")
+
+    def call_s():
+        return ts.find_best_split(hist, stats, nb, mt, fm, p)
+
+    dev_s, n_s = profile_calls(call_s, 20, SPLIT_NAMES)
+    if n_s != 1:
+        fail(f"kernel S made {n_s} CUDA launches in one call, not 1")
+    ms_s = cuda_ms(call_s, reps=20)
+    plain_s = cuda_ms(lambda: ts.find_best_split_plain(hist, stats, nb, mt,
+                                                       fm, p), reps=3)
+    b_s = split_bound(hist, B)
+    out["best_split"] = dict(max_abs_err=err_s, ms=ms_s, device_ms=dev_s,
+                             launches_per_call=n_s, plain_ms=plain_s,
+                             bound_ms=b_s[0], bound_by=b_s[1],
+                             library_ms=None)
+    print(f"kernel S bundled (84, {F}, {B}, 3): gains equal; {ms_s:.4f} ms, "
+          f"device {dev_s:.4f} ms, {n_s:g} launch a call (plain "
+          f"{plain_s:.3f}, bound {b_s[0]:.6f} by {b_s[1]})", flush=True)
+
+    # ---- expand, the layer metric -------------------------------------
+    for W in (2, 84):
+        hb, st = hist_b[:W].contiguous(), stats[:W].contiguous()
+        call = lambda: expand(hb, st, maps)  # noqa: E731
+        e_ms = cuda_ms(call, reps=20)
+        e_dev, e_n = profile_calls(call, 20, ("",), whole=False)
+        out[f"expand_w{W}"] = dict(ms=e_ms, device_ms=e_dev,
+                                   cuda_kernels_per_call=e_n)
+        print(f"expand at W={W} (G={G} -> F={F}, B={B}): {e_ms:.4f} ms a "
+              f"call, device {e_dev:.4f} ms, {e_n:g} CUDA kernels a call",
+              flush=True)
+    del hist, hist_b, halves, qv
+
+    # ---- kernel T on translated records --------------------------------
+    nh = ALLSTATE_HOLDOUT
+    rec = route_records(torch, dev, 255, B, F, 302, n_bins=2)
+    feat, mask = maps.translate(rec[1], rec[2])
+    xb = bins[:, :nh].contiguous()
+    # the indicator columns of those rows: feature f's bin from its bundle
+    xf = torch.gather(maps.from_bundle, 1, xb.index_select(
+        0, maps.group).to(torch.int64)).to(torch.uint8)
+    trec = (rec[0], feat, mask.contiguous(), rec[3])
+    k = check_route(torch, tr, xb, trec, 255, torch.uint8,
+                    f"translated records, G={G} N={nh}")
+    want = tr.route_rows_plain(xf, *rec, 255,
+                               out=torch.empty_like(k))
+    if not torch.equal(k, want):
+        fail(f"kernel T on translated records differs from routing the "
+             f"{F} indicator columns: {int((k != want).sum())} rows")
+    print(f"kernel T on records translated onto bundle columns: exact, the "
+          f"ids of the {F} indicator columns' routing", flush=True)
+    del bins, xb, xf
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cut_jobs(pool, X, y):
+    """The CPU's trainings of the row's first ``ALLSTATE_CUT`` rows (exact
+    and waves), started in ``pool`` while the card trains."""
+    Xc, yc = X[:ALLSTATE_CUT], y[:ALLSTATE_CUT]
+    return {what: pool.apply_async(_train_reduced, ((
+        Xc, yc, dict(p, device_type="cpu"), ALLSTATE_CUT_TREES, {}),))
+        for what, p in (("exact", ALLSTATE_PARAMS),
+                        ("wave", ALLSTATE_WAVE))}
+
+
+def phase_allstate(torch, ltt):
+    """Phase 15: the row's Dataset from the CSR (seconds, peak host bytes
+    by ``tracemalloc`` beside the float64 densify it no longer makes, the
+    binned matrix's device bytes); each cell of ``ALLSTATE_CELLS`` in the
+    three modes of :func:`run_paths` (the same bits and kernel launches),
+    its tiers, bundles (the groups the host's ``find_bundles`` finds on
+    the same sample, 40 of them, committed width 25), the bundle matrix's
+    device bytes, its kernels' launches and graph replays a tree, the
+    training score within 1e-5 of the trees' prediction and a training AUC
+    above that of the logit the labels were drawn from (0.556: bench.py's
+    label is noisy); then the wave cell with a 100,000-row holdout of the
+    same generator (another seed) as a validation set (phase 7's checks:
+    kernel T on translated records, L's float64 mode; the holdout AUC
+    within 0.01 of the logit's); and the card's trees against the CPU's
+    on the first 50,000 rows."""
+    import multiprocessing
+    import tracemalloc
+    from lightgbm_tpu_torch.io.bundle import find_bundles
+    t0 = time.perf_counter()
+    X, y = make_allstate(ALLSTATE_ROWS)
+    Xh, yh = make_allstate(ALLSTATE_HOLDOUT, seed=14)
+    gen_s = time.perf_counter() - t0
+    F = X.shape[1]
+    levels = allstate_levels()
+    if F != int(levels.sum()):
+        fail(f"the row has {F} columns, not {int(levels.sum())}")
+    # the AUC of the logit the labels were drawn from: bench.py's label is
+    # noisy (the first 40 indicator columns), so a trained model's
+    # training AUC must pass this, not a fixed 0.6
+    signal_auc = np_auc(y[:TRAIN_SLICE], allstate_logit(X[:TRAIN_SLICE]))
+    ctx = multiprocessing.get_context("spawn")
+    pool = ctx.Pool(2)
+    jobs = _cut_jobs(pool, X, y)
+    torch.cuda.synchronize()
+    tracemalloc.start()
+    t0 = time.perf_counter()
+    ds = ltt.Dataset(X, label=y, params=dict(ALLSTATE_PARAMS,
+                                             device_type=DEVICE)).construct()
+    torch.cuda.synchronize()
+    ds_s = time.perf_counter() - t0
+    peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    dense = X.shape[0] * F * 8
+    binned = ds._constructed.binned
+    plain_bytes = binned.numel() * binned.element_size()
+    if tuple(binned.shape) != (F, ALLSTATE_ROWS) or not \
+            isinstance(ds.raw_mat, type(X)):
+        fail(f"the CSR Dataset holds {tuple(binned.shape)} bins and a "
+             f"{type(ds.raw_mat).__name__} raw matrix")
+    print(f"allstate: generation {gen_s:.2f} s; Dataset from the CSR "
+          f"({X.nnz} non-zeros) {ds_s:.2f} s, peak host bytes "
+          f"{peak} by tracemalloc (the float64 densify: {dense}); binned "
+          f"{tuple(binned.shape)} {binned.dtype}, {plain_bytes} device "
+          f"bytes", flush=True)
+    counts, e2e = {}, {"generation_seconds": gen_s, "dataset_seconds": ds_s,
+                       "dataset_peak_host_bytes": peak,
+                       "float64_densify_bytes": dense,
+                       "unbundled_device_bytes": plain_bytes}
+    for cell, (params, names, tier) in ALLSTATE_CELLS.items():
+        runs = run_paths(torch, ltt, ds, dict(params, device_type=DEVICE),
+                         cell)
+        main = runs["graphs"]
+        b, c = main["booster"], main["counts"]
+        g = b._gbdt
+        if not tier[0](g):
+            fail(f"{cell} did not resolve to {tier[1]}: {g.grow_params}")
+        _check_launches(c, names, cell)
+        if any(c.get(k, 0) for k in ALLSTATE_OFF_NAMES):
+            fail(f"{cell}: a routed or windowed pass ran: {c}")
+        info = {}
+        if g._bundles is not None:
+            fb = g._bundles
+            nb = np.asarray([m.num_bin for m in ds._constructed.mappers],
+                            np.int32)
+            host = find_bundles(ds._constructed.binned.T.cpu().numpy(), nb,
+                                np.zeros(F, np.int32), 0.0, 63,
+                                seed=g.config.data_random_seed)
+            if host.groups != fb.groups or fb.num_groups != ALLSTATE_CATS \
+                    or g.max_bin != int(levels.max()) + 1:
+                fail(f"{cell}: {fb.num_groups} groups at width {g.max_bin} "
+                     f"(the host's find_bundles: {host.num_groups}; want "
+                     f"{ALLSTATE_CATS} at {int(levels.max()) + 1})")
+            info = dict(groups=fb.num_groups, width=g.max_bin,
+                        bundled_device_bytes=g._xt.numel() *
+                        g._xt.element_size())
+        diff = _train_score_vs_prediction(b, X, cell, atol=1e-5)
+        auc = np_auc(y[:TRAIN_SLICE], g.train_score()[:TRAIN_SLICE])
+        if not signal_auc < auc <= 1.0:
+            fail(f"{cell}: training AUC {auc} is not above the label's own "
+                 f"logit's {signal_auc}")
+        per_tree = {k: v / N_TREES for k, v in c.items() if v}
+        print(f"{cell}: tiers {tier[1]}; bundles {info or 'none'}; kernel "
+              f"launches a tree {per_tree}, graph replays a tree "
+              f"{main['replays'] / N_TREES:.1f}; training score within "
+              f"{diff:.3g} of the trees' prediction, training AUC "
+              f"{auc:.5f} on the first {TRAIN_SLICE} rows", flush=True)
+        counts[cell] = c
+        e2e[cell] = dict(
+            seconds_per_iteration=statistics.median(main["iter_s"]),
+            kernel_launches_per_tree=per_tree,
+            graph_replays_per_tree=main["replays"] / N_TREES,
+            train_auc=auc, train_score_vs_prediction=diff,
+            modes=_summary(runs), **info)
+        del b, g, main["booster"]
+        torch.cuda.empty_cache()
+    cell = "allstate-wave255-valid"
+    counts[cell], e2e[cell] = phase_valid(
+        torch, ltt, (ds, Xh, yh), "allstate-wave", ALLSTATE_WAVE,
+        ALLSTATE_CELLS["allstate-wave255"][1],
+        e2e["allstate-wave255"]["seconds_per_iteration"])
+    hold_auc = e2e[cell]["holdout"]["auc"][-1]
+    hold_signal = np_auc(yh, allstate_logit(Xh))
+    if not hold_auc > hold_signal - 0.01:
+        fail(f"{cell}: holdout AUC {hold_auc} is not within 0.01 of the "
+             f"label's own logit's {hold_signal}")
+    e2e[cell].update(signal_auc_holdout=hold_signal)
+    e2e["signal_auc_train"] = signal_auc
+    del ds
+    torch.cuda.empty_cache()
+    # the card against the CPU on the first rows
+    Xc, yc = X[:ALLSTATE_CUT], y[:ALLSTATE_CUT]
+    for what, p in (("exact", ALLSTATE_PARAMS), ("wave", ALLSTATE_WAVE)):
+        card = _train_reduced((Xc, yc, dict(p, device_type=DEVICE),
+                               ALLSTATE_CUT_TREES, {}))
+        cpu = jobs[what].get()
+        worst = _same_trees(card["models"], cpu["models"],
+                            f"allstate {what}, first {ALLSTATE_CUT} rows",
+                            ALLSTATE_CUT_TREES)
+        pdiff = float(np.max(np.abs(card["raw"] - cpu["raw"])))
+        if pdiff > 1e-5 * max(1.0, float(np.max(np.abs(cpu["raw"])))):
+            fail(f"allstate {what}: predictions differ between cuda and cpu "
+                 f"by {pdiff}")
+        print(f"allstate {what}, first {ALLSTATE_CUT} rows: "
+              f"{ALLSTATE_CUT_TREES} trees identical on the card and the "
+              f"CPU, max leaf value diff {worst:.3g}, max prediction diff "
+              f"{pdiff:.3g}", flush=True)
+    pool.close()
+    pool.join()
+    ratio = {k: e2e[k]["seconds_per_iteration"] for k in ALLSTATE_CELLS}
+    print(f"allstate seconds an iteration (graphed): {ratio}", flush=True)
+    return counts, e2e
+
+
 def _phase_done(name, t0):
     """Print a phase's seconds; the clock for the next."""
     print(f"{name}: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4530,6 +4944,7 @@ def main():
         stats[k] = b_stats[k]
     stats["class_sum"] = phase_kernels_class_sum(torch, dev)
     stats["route"] = phase_kernels_route(torch, dev)
+    stats["efb"] = phase_kernels_efb(torch, dev)
     t_phase = _phase_done("phase 2 (kernels H-T)", t_phase)
     # ---- phase 3: the exact path end to end at full width ------------
     data, exact_counts, e2e = phase_full_width(torch, ltt)
@@ -4581,6 +4996,9 @@ def main():
     t_phase = _phase_done("phase 14 (missing + categorical)", t_phase)
     del data
     torch.cuda.empty_cache()
+    # ---- phase 15: bench.py's sparse one-hot row, bundled -------------
+    efb_counts, e2e_allstate = phase_allstate(torch, ltt)
+    t_phase = _phase_done("phase 15 (allstate, EFB)", t_phase)
     # ---- phase 11: multiclass at bench.py's shape --------------------
     mc_counts, e2e_multiclass = phase_multiclass(torch, ltt)
     t_phase = _phase_done("phase 11", t_phase)
@@ -4711,6 +5129,15 @@ def main():
                 for k, v in cat_counts.items() if v.get(name)}
         if more:
             row["launches_per_tree_categorical"] = more
+        # phase 15's runs: launches a tree, and the kernel at the bundled
+        # shapes (phase 2)
+        more = {k: v[name] / (VALID_TREES["allstate-wave"] if
+                              k.endswith("valid") else N_TREES)
+                for k, v in efb_counts.items() if v.get(name)}
+        if more:
+            row["launches_per_tree_allstate"] = more
+        if name in stats["efb"]:
+            row["at_allstate_bundles"] = stats["efb"][name]
         rows.append(row)
     print(json.dumps({"card": card, "e2e_exact": e2e, "e2e_wave": e2e_wave,
                       "e2e_c2f": e2e_c2f, "launches_exact": exact_counts,
@@ -4723,6 +5150,9 @@ def main():
                       "e2e_regression": e2e_regression,
                       "e2e_ranking": e2e_ranking, "e2e_fobj": e2e_fobj,
                       "e2e_categorical": e2e_categorical,
+                      "e2e_allstate": e2e_allstate,
+                      "expand": {k: v for k, v in stats["efb"].items()
+                                 if k.startswith("expand")},
                       "categorical_scan": stats["categorical_scan"]}),
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,11 +1,13 @@
 """Public ``Dataset`` / ``Booster`` API.
 
 Counterpart of ``lightgbm_tpu/basic.py`` for this slice: a ``Dataset`` over a
-dense matrix (an array, a pandas frame whose column names become the feature
-names and whose ``category`` columns become their codes and categorical
-features, or a scipy sparse matrix, densified), with categorical features named
-by ``categorical_feature`` (indices or names, or the parameter's ``"0,1,2"`` /
-``"name:c1,c2"``) and optional query groups
+dense matrix (an array, or a pandas frame whose column names become the
+feature names and whose ``category`` columns become their codes and
+categorical features) or a scipy sparse matrix (binned from its columns,
+kept sparse, densified in bounded row chunks where rows are predicted),
+with categorical features named by ``categorical_feature`` (indices or
+names, or the parameter's ``"0,1,2"`` / ``"name:c1,c2"``) and optional
+query groups
 (``group=``, per-query row counts; binned on the device at first use; a
 validation set, ``reference=`` or ``create_valid``, bins with its reference's
 mappers), and a ``Booster`` that trains (with the objective's gradients, or a
@@ -29,7 +31,7 @@ from .models import model_io
 from .models.boosting import create_boosting
 from .models.gbdt import GBDT
 from .objectives import create_objective
-from .ops.predict import flatten_forest, predict_raw
+from .ops.predict import flatten_forest, is_sparse, predict_raw
 from .utils.device import resolve_device
 from .utils.log import Log
 
@@ -71,9 +73,12 @@ def _to_matrix(data):
     JAX package's input types (``lightgbm_tpu/basic.py:50-80``): a pandas
     frame's values with its column names, each ``category`` column
     replaced by its codes (-1 for a missing value) and listed as
-    categorical, a scipy sparse matrix (CSR, CSC, COO) densified, else an
-    array.  float32 stays narrow; anything else becomes float64.  An
-    ``object`` column is fatal as in the JAX package."""
+    categorical, a scipy sparse matrix (CSR, CSC, COO) as CSR, never
+    densified whole (``lightgbm_tpu/basic.py:225-245``), else an array.
+    float32 stays narrow; anything else becomes float64.  An ``object``
+    column is fatal as in the JAX package."""
+    if is_sparse(data):
+        return data.tocsr(), None, []
     names = None
     cat_idx: List[int] = []
     if hasattr(data, "dtypes") and hasattr(data, "columns"):  # pandas
@@ -87,8 +92,6 @@ def _to_matrix(data):
                 Log.fatal("pandas object column %s is not supported; "
                           "use category dtype or numeric", col)
         mat = df.values
-    elif hasattr(data, "toarray"):  # scipy sparse
-        mat = np.asarray(data.toarray())
     else:
         mat = np.asarray(data)
     if mat.dtype != np.float32:
@@ -154,7 +157,10 @@ class Dataset:
         if self.reference is not None:
             ref = self.reference.construct()._constructed
             mappers, device = ref.mappers, ref.device
-        self._constructed = TorchDataset.from_raw(
+        # scipy input is binned from its CSC columns and stays sparse
+        make = TorchDataset.from_sparse if is_sparse(mat) else \
+            TorchDataset.from_raw
+        self._constructed = make(
             mat, label, cfg, device or resolve_device(cfg.device_type),
             weight=weight, feature_names=names, mappers=mappers,
             group=self.group, categorical_features=cat_idx)

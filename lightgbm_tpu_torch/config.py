@@ -1148,10 +1148,9 @@ for _param in PARAMS:
 # Parameters whose non-default values ask for a part of the system this
 # package does not implement yet: (name, predicate on the resolved value
 # that is true when the value is unsupported, what is missing).
-# ``enable_bundle`` (EFB) is not listed: its default asks for bundling
-# only where features are mutually exclusive, and this package never
-# bundles: it scans every feature's own bins, the search that EFB's
-# bundled scan stands in for.
+# ``enable_bundle`` and ``max_conflict_rate`` (EFB) are not listed: the
+# serial learner bundles as the JAX package does (``models/gbdt.py``
+# ``GBDT._bundle``).
 UNSUPPORTED: List[Tuple[str, Any, str]] = [
     ("forcedsplits_filename", bool, "forced splits"),
     ("monotone_constraints", lambda v: any(float(x) != 0 for x in v),
@@ -1331,10 +1330,10 @@ class Config:
         ``histogram_pool_size`` MB, or 4 GB when that is not above 0.
         Without the pool the JAX package builds both children's histograms
         instead of subtracting, which changes float histograms' bits; the
-        port always subtracts.  ``max_bin`` is the padded bin count (a
-        power of two), ``num_features`` the used features (the JAX
-        package counts EFB's bundles where it bundles; the port never
-        bundles)."""
+        port always subtracts.  ``max_bin`` is the committed bin count (a
+        power of two, or the bundles' width), ``num_features`` the
+        histogram columns: the used features, or EFB's bundles where the
+        booster bundles, as the JAX package counts them."""
         pool = self.num_leaves * num_features * max_bin * 3 * 4
         cap = self.histogram_pool_size * 1e6 \
             if self.histogram_pool_size > 0 else 4e9

@@ -1,7 +1,8 @@
 """Constructed (binned) dataset + metadata, device-resident.
 
-Counterpart of ``lightgbm_tpu/io/dataset.py`` (``TpuDataset``,
-``Metadata`` with query boundaries, ``bin_rows``).  The binned matrix is
+Counterpart of ``lightgbm_tpu/io/dataset.py`` (``TpuDataset`` with its
+dense and sparse constructors, ``Metadata`` with query boundaries,
+``bin_rows``).  The binned matrix is
 held feature-major, (F, N), on the chosen device: uint8 when every used
 feature has at most 256 bins, int16 above.  Labels and weights ride
 along as float32 device tensors, query boundaries as a host array.  Bin
@@ -20,8 +21,8 @@ import numpy as np
 import torch
 
 from ..utils.log import Log
-from .binning import BIN_CATEGORICAL, KZERO, MISSING_NAN, MISSING_ZERO, \
-    BinMapper, find_bin_mappers
+from .binning import BIN_CATEGORICAL, BIN_NUMERICAL, KZERO, MISSING_NAN, \
+    MISSING_ZERO, BinMapper, find_bin_mappers, sample_rows
 
 __all__ = ["Metadata", "TorchDataset", "bin_rows", "group_ids",
            "subset_group"]
@@ -72,6 +73,14 @@ def _value_to_bin(col: torch.Tensor, m: BinMapper) -> torch.Tensor:
         return out.masked_fill(zero, m.num_bin - 1)
     out = torch.searchsorted(ub, torch.where(nan, 0.0, col))
     return torch.clamp(out, max=m.num_bin - 1)
+
+
+def _bin_dtype(mappers: List[BinMapper], used: Sequence[int]) -> torch.dtype:
+    """uint8 when every used feature has at most 256 bins, else int16."""
+    widest = max((mappers[i].num_bin for i in used), default=1)
+    if widest > 32767:
+        raise NotImplementedError("more than 32767 bins per feature")
+    return torch.uint8 if widest <= 256 else torch.int16
 
 
 def bin_rows(X: np.ndarray, mappers: List[BinMapper], used: Sequence[int],
@@ -202,11 +211,64 @@ class TorchDataset:
                 use_missing=config.use_missing,
                 zero_as_missing=config.zero_as_missing)
         used = [i for i, m in enumerate(mappers) if not m.is_trivial]
-        widest = max((mappers[i].num_bin for i in used), default=1)
-        if widest > 32767:
-            raise NotImplementedError("more than 32767 bins per feature")
-        dtype = torch.uint8 if widest <= 256 else torch.int16
+        dtype = _bin_dtype(mappers, used)
         binned = bin_rows(X, mappers, used, dtype, device)
+        meta = Metadata(num_data)
+        meta.set_label(label if label is not None else np.zeros(num_data))
+        meta.set_weight(weight)
+        meta.set_query(group)
+        return cls(mappers, binned, meta, device, feature_names)
+
+    @classmethod
+    def from_sparse(cls, X_sp, label, config, device: torch.device,
+                    weight=None, feature_names=None,
+                    mappers: Optional[List[BinMapper]] = None, group=None,
+                    categorical_features: Sequence[int] = ()
+                    ) -> "TorchDataset":
+        """Bin a scipy CSR, CSC or COO matrix without densifying it
+        (``lightgbm_tpu/io/dataset.py:198-250``): each column's mapper from
+        its sampled non-zeros, the zeros implied by the sample size (the
+        same row sample as the dense path's), or ``mappers`` of a reference
+        dataset; then the (F, N) matrix on ``device`` filled column by
+        column, every row at the column's bin of zero and its non-zeros
+        binned from the CSC slice.  Byte-identical to the JAX package's
+        ``TpuDataset.from_sparse`` (transposed).  Host memory: the CSC
+        copy and the bin-construction sample; the values go to the device
+        once."""
+        X = X_sp.tocsc()
+        num_data, num_feat = X.shape
+        cat = set(int(c) for c in categorical_features)
+        if mappers is None:
+            idx = sample_rows(num_data, min(config.bin_construct_sample_cnt,
+                                            num_data),
+                              config.data_random_seed)
+            Xs = X_sp.tocsr()[idx].tocsc()
+            mappers = []
+            for j in range(num_feat):
+                vals = np.asarray(Xs.data[Xs.indptr[j]:Xs.indptr[j + 1]],
+                                  np.float64)
+                m = BinMapper()
+                m.find_bin(vals, len(idx), config.max_bin,
+                           min_data_in_bin=config.min_data_in_bin,
+                           use_missing=config.use_missing,
+                           zero_as_missing=config.zero_as_missing,
+                           bin_type=BIN_CATEGORICAL if j in cat
+                           else BIN_NUMERICAL)
+                mappers.append(m)
+        used = [i for i, m in enumerate(mappers) if not m.is_trivial]
+        dtype = _bin_dtype(mappers, used)
+        binned = torch.empty(len(used), num_data, dtype=dtype, device=device)
+        data = torch.as_tensor(X.data, device=device)
+        rows = torch.as_tensor(X.indices, device=device)
+        zero = torch.zeros(1, dtype=torch.float64, device=device)
+        for jj, f in enumerate(used):
+            m = mappers[f]
+            binned[jj].fill_(int(_value_to_bin(zero, m)[0]))
+            lo, hi = int(X.indptr[f]), int(X.indptr[f + 1])
+            if hi > lo:
+                col = data[lo:hi].to(torch.float64)
+                binned[jj].index_put_((rows[lo:hi].to(torch.int64),),
+                                      _value_to_bin(col, m).to(dtype))
         meta = Metadata(num_data)
         meta.set_label(label if label is not None else np.zeros(num_data))
         meta.set_weight(weight)

@@ -104,6 +104,7 @@ import torch
 
 from ..config import Config
 from ..io.binning import BIN_CATEGORICAL
+from ..io.bundle import find_bundles
 from ..io.dataset import TorchDataset
 from ..objectives import Objective
 from ..ops import sample
@@ -271,16 +272,21 @@ def fetch_records(rows: torch.Tensor, layout: list) -> dict:
 
 
 class ValidSet:
-    """A validation set: its raw rows (host), labels and weights, its
-    binned matrix ``xt`` (F, N) and float64 score (N,) ((K, N) for K
-    classes) on the booster's device, and its scorer."""
+    """A validation set: its raw rows (host; a scipy matrix stays sparse),
+    labels and weights, its binned matrix ``xt`` (F, N), or the (G, N)
+    bundle matrix when the booster bundles (``bundles``, the
+    :class:`FeatureBundles`; ``lightgbm_tpu/models/gbdt.py:1047-1048``), and
+    float64 score (N,) ((K, N) for K classes) on the booster's device, and
+    its scorer."""
 
-    def __init__(self, name: str, raw: np.ndarray, data: TorchDataset,
-                 device: torch.device, num_class: int = 1):
+    def __init__(self, name: str, raw, data: TorchDataset,
+                 device: torch.device, num_class: int = 1, bundles=None):
         self.name = name
         self.raw = raw
         self.metadata = data.metadata
         self.xt = data.binned.to(device)
+        if bundles is not None:
+            self.xt = bundles.bundle_columns(self.xt)
         self.label = data.label.to(device=device, dtype=torch.float64)
         self.weight = None if data.weight is None else \
             data.weight.to(device=device, dtype=torch.float64)
@@ -335,8 +341,9 @@ class GBDT:
         mappers = [train_set.mappers[i] for i in train_set.used_features]
         self.max_bin = int(2 ** np.ceil(np.log2(max(
             train_set.max_bin_count, 2))))
-        config.check_histogram_pool(F, self.max_bin)
         dev = self.device
+        self._xt = self._bundle(config, train_set, mappers)
+        config.check_histogram_pool(self._xt.shape[0], self.max_bin)
         self._num_bins = torch.as_tensor([m.num_bin for m in mappers],
                                          dtype=torch.int32, device=dev)
         self._missing_type = torch.as_tensor(
@@ -349,18 +356,20 @@ class GBDT:
         # tiers of the serial learner (lightgbm_tpu/models/gbdt.py:381-418,
         # :491-512).  Non-wave speculative arming grows the same trees as
         # the plain loop at speculative_tolerance=0, so it is not a tier
-        # here.  Categorical features turn off the two-column passes (their
-        # scans read real counts), coarse-to-fine and the in-pass routing
-        # (their splits need bin masks): :391-396, :410-418, :913-914
+        # here.  Categorical features and bundles turn off the two-column
+        # passes (their scans and the default bins' rebuild read real
+        # counts), coarse-to-fine and the in-pass routing (their splits
+        # need bin masks): :391-396, :410-418, :911-914
         wave_on = bool(config.wave_splits)
+        plain_bins = not any_cat and self._bundles is None
         two_col = bool(config.use_quantized_grad and wave_on and
-                       not any_cat and config.min_data_in_leaf <= 1 and
+                       plain_bins and config.min_data_in_leaf <= 1 and
                        config.min_sum_hessian_in_leaf > 0)
         self._counts_proxy = two_col
         # coarse-to-fine refinement: the JAX package's stream-size gate
         # (lightgbm_tpu/models/gbdt.py:410-418), unchanged
         refine_shift = 0
-        if (config.hist_refinement and wave_on and not any_cat and
+        if (config.hist_refinement and wave_on and plain_bins and
                 self.max_bin >= 48 and
                 F * _pad_bins(self.max_bin) >= 7000):
             refine_shift = 4 if self.max_bin > 64 else 3
@@ -397,7 +406,6 @@ class GBDT:
             config.data_random_seed & 0x7FFFFFFF) if quantize else None
         self._trees_dispatched = 0
         self.last_waves = 0
-        self._xt = train_set.binned
         self._mask = torch.ones(self.num_data, dtype=torch.float32,
                                 device=dev)
         self._score = class_rows(C, self.num_data, torch.float32, dev)
@@ -431,7 +439,8 @@ class GBDT:
         # one tree's static buffers, its device epilogue and its runner
         self._state = st = GrowState(self._xt, self._mask, self._num_bins,
                                      self._missing_type, self.grow_params,
-                                     self._is_cat if any_cat else None)
+                                     self._is_cat if any_cat else None,
+                                     self._bundle_maps)
         self._vals = torch.zeros(config.num_leaves, dtype=torch.float32,
                                  device=dev)
         self._lr = torch.full((), self.shrinkage_rate, dtype=torch.float32,
@@ -454,6 +463,43 @@ class GBDT:
         # trees of each landed block, and its one records fetch
         self.block_sizes: List[int] = []
         self.records_fetches = 0
+
+    def _bundle(self, config: Config, train_set: TorchDataset,
+                mappers) -> torch.Tensor:
+        """Exclusive feature bundling (``lightgbm_tpu/models/gbdt.py:303-350``,
+        the reference's FindGroups / FastFeatureBundling): the JAX package's
+        groups, found on the same row sample, kept where the histogram
+        passes' cost model says they pay: ``G * pad(max(B, B_bun)) < 0.95 *
+        F * pad(B)`` (bins padded to a multiple of 8) with fewer groups than
+        features.  Then the committed width is ``max(B, B_bun)``, not
+        rounded to a power of two, and the device maps and the (G, N)
+        bundle matrix are made.  Categorical features take default bin 0.
+        -> the matrix growth reads ((F, N) unbundled).  ``_bundles`` is the
+        :class:`FeatureBundles` (None unbundled), ``_bundle_maps`` its
+        device maps."""
+        self._bundles = None
+        self._bundle_maps = None
+        F = len(mappers)
+        if not config.enable_bundle or F <= 1:
+            return train_set.binned
+        db = np.asarray([0 if m.bin_type == BIN_CATEGORICAL else m.default_bin
+                         for m in mappers], np.int32)
+        nb = np.asarray([m.num_bin for m in mappers], np.int32)
+        bundles = find_bundles(train_set.binned, nb, db,
+                               max_conflict_rate=config.max_conflict_rate,
+                               bin_budget=min(config.max_bin, 255),
+                               seed=config.data_random_seed)
+        B_bun = int(bundles.group_num_bins.max())
+        cost_bundled = bundles.num_groups * _pad_bins(max(self.max_bin, B_bun))
+        if bundles.num_groups >= F or \
+                cost_bundled >= 0.95 * F * _pad_bins(self.max_bin):
+            return train_set.binned
+        self._bundles = bundles
+        self.max_bin = max(self.max_bin, B_bun)
+        self._bundle_maps = bundles.device_maps(self.max_bin, nb, self.device)
+        Log.info("EFB: bundled %d features into %d groups", F,
+                 bundles.num_groups)
+        return bundles.bundle_columns(train_set.binned)
 
     # ---- one tree on the device ---------------------------------------
 
@@ -1026,12 +1072,12 @@ class GBDT:
         served so far are added to its score from ``raw``
         (``lightgbm_tpu/models/gbdt.py:1020-1054``)."""
         vs = ValidSet(name, raw, data, self.device,
-                      self.num_tree_per_iteration)
+                      self.num_tree_per_iteration, self._bundles)
         if self.models:
             self._replay_valid(vs)
         vs.scorer = ValidScorer(self._state, vs.xt,
                                 None if self._per_tree_host else self._vals,
-                                vs.score)
+                                vs.score, self._bundle_maps)
         self.valid_sets.append(vs)
 
     def _replay_valid(self, vs: ValidSet) -> None:

@@ -226,12 +226,17 @@ class ValidScorer:
     float64 mode on the card).  With ``vals=None`` it only routes: the
     booster adds the host trees' values once an iteration lands (DART,
     random forests, leaf renewal), from each class's row of ``li``
-    (:meth:`leaf_ids`).  It reads only device buffers, so it runs eagerly
-    until ``runner`` holds its tree graphs and from then on as replays of
-    one graph a class."""
+    (:meth:`leaf_ids`).  With ``bundles`` (``io/bundle.py`` ``BundleMaps``)
+    ``xt`` is the (G, N) bundle matrix, and the records' features and left
+    masks are translated onto bundle columns and bins before the route
+    (``lightgbm_tpu/ops/grow.py:1850-1860``), inside the graph.  It reads
+    only device buffers, so it runs eagerly until ``runner`` holds its tree
+    graphs and from then on as replays of one graph a class."""
 
-    def __init__(self, st: GrowState, xt: torch.Tensor, vals, score):
+    def __init__(self, st: GrowState, xt: torch.Tensor, vals, score,
+                 bundles=None):
         self.st, self.xt, self.vals, self.score = st, xt, vals, score
+        self.bundles = bundles
         n = xt.shape[1]
         if score.dim() == 1:
             self.li = torch.zeros(n, dtype=st.li_dtype, device=xt.device)
@@ -254,8 +259,11 @@ class ValidScorer:
     def _score(self, k: int = 0) -> None:
         rec = self.st.rec
         li = self.leaf_ids(k)
-        route_rows(self.xt, rec["leaf"], rec["feature"], rec["left_mask"],
-                   rec["valid"], self.st.params.num_leaves, out=li)
+        feature, left_mask = rec["feature"], rec["left_mask"]
+        if self.bundles is not None:
+            feature, left_mask = self.bundles.translate(feature, left_mask)
+        route_rows(self.xt, rec["leaf"], feature, left_mask, rec["valid"],
+                   self.st.params.num_leaves, out=li)
         if self.vals is not None:
             row = self.score if self.score.dim() == 1 else self.score[k]
             lookup.take_small_add(row, self.vals, li)

@@ -27,12 +27,21 @@ subtraction trick, where the larger child is parent minus smaller,
   ``find_best_split_c2f``, plain tensor code as in the JAX package).  The
   root is a coarse pass and one windowed pass (kernels M and V); no pass
   runs at full resolution.
-- with categorical features (``SplitParams.any_cat``) a wave is not
-  routed in the pass (:1497-1516; ``route_wave`` :1224-1290): each row in
-  the wave looks up its lane, reads its lane's split column and goes left
-  where its bin is in the lane's left mask (a category set), and the
+- with categorical features (``SplitParams.any_cat``) or bundled
+  features a wave is not routed in the pass (:1497-1516; ``route_wave``
+  :1224-1290): each row in the wave looks up its lane, reads its lane's
+  split column and goes left where its bin is in the lane's left mask (a
+  category set, or a bin mask translated onto the bundle's bins), and the
   smaller children's histograms come from the batched pass over that
   selector (kernel M).  The leaf vector is then int32 (:892-895).
+
+With exclusive feature bundling (``GrowState(bundles=...)``, EFB, :339-364)
+``xt`` is the (G, N) bundle matrix: the histogram passes and the pool hold
+bundle columns, the subtraction trick runs on them, and :func:`expand`
+turns a batch of bundle histograms into logical features' before every
+scan (:507-517), so kernel S, the categorical scan and the records see
+features.  A split routes rows through its feature's bundle column and its
+mask translated by ``from_bundle`` (``goes_left_of``, :857-871).
 
 With ``GrowParams.quantize`` the gradients are stochastically rounded to
 integers in ``[-quantize, quantize]`` first (:409-459); histograms sum the
@@ -76,7 +85,8 @@ from .split import (NEG_INF, SplitParams, choose_window, depth_limit,
 
 __all__ = ["GrowParams", "GrowState", "build_tree", "tree_head",
            "serial_steps", "wave_loop", "wave_body", "read_flags",
-           "tree_tail", "quantize_gradients", "key_words", "row_uniform"]
+           "tree_tail", "quantize_gradients", "key_words", "row_uniform",
+           "expand", "bin_sum"]
 
 _M32 = 0xFFFFFFFF
 
@@ -185,7 +195,8 @@ class GrowState:
     values.  On the wave loop the per-leaf state has a dummy row L, the
     target of invalid lanes, the records a dummy slot L-1, and the next
     wave's lanes and flags (``topg``, ``ids``, ``valid_w``, ``t0``,
-    ``flags``) live here too.
+    ``flags``) live here too.  With ``bundles`` (:class:`BundleMaps`) ``xt``
+    is the (G, N) bundle matrix and the pool holds bundle columns.
 
     Allocated once; :func:`tree_head` resets everything a tree reads
     before it writes it, so one state serves every tree of a booster, and
@@ -193,13 +204,20 @@ class GrowState:
 
     def __init__(self, xt: torch.Tensor, sample_mask: torch.Tensor,
                  num_bins: torch.Tensor, missing_type: torch.Tensor,
-                 params: GrowParams, is_cat=None):
+                 params: GrowParams, is_cat=None, bundles=None):
         p = params
         sp = p.split
         L = p.num_leaves
         B = sp.max_bin
-        F, N = xt.shape
+        G, N = xt.shape
+        F = num_bins.shape[0]
         dev = xt.device
+        # the bundle maps (io/bundle.py BundleMaps), or None
+        self.bundles = bundles
+        if bundles is not None and (bundles.num_groups != G or
+                                    p.refine_shift or p.two_col):
+            raise ValueError("bundled growth takes the (G, N) bundle matrix "
+                             "and no two-column or coarse-to-fine passes")
         f32, i32, i64 = torch.float32, torch.int32, torch.int64
         self.xt, self.sample_mask = xt, sample_mask
         self.num_bins, self.missing_type = num_bins, missing_type
@@ -209,8 +227,11 @@ class GrowState:
             raise ValueError("split.any_cat needs is_cat")
         self.params = p
         self.wave = bool(p.wave and p.speculate > 1)
-        self.li_dtype = torch.uint8 if L <= 256 and not (
-            self.wave and sp.any_cat) else torch.int32
+        # a wave routed outside the pass (categorical or bundled features)
+        self.route_outside = self.wave and (sp.any_cat or
+                                            bundles is not None)
+        self.li_dtype = torch.uint8 if L <= 256 and not \
+            self.route_outside else torch.int32
 
         def zeros(shape, dtype=f32):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -230,7 +251,7 @@ class GrowState:
             self.miss_bin = torch.where(
                 missing_type != 0, num_bins - 1,
                 torch.full_like(num_bins, -1)).to(i32) \
-                if sp.any_missing else None
+                if sp.any_missing and bundles is None else None
             self.leaf_bound = 256 if self.li_dtype == torch.uint8 else L + 1
             if p.refine_shift:
                 # the last coarse slot is reserved for the missing bin,
@@ -250,8 +271,8 @@ class GrowState:
             self.grad = zeros(N) if p.quantize else self.grad_raw
             self.hess = zeros(N) if p.quantize else self.hess_raw
         rows = L + 1 if self.wave else L
-        # coarse under c2f (:973-985)
-        self.pool = zeros((rows, F, self.Bp, 3))
+        # coarse under c2f (:973-985); bundle columns under EFB
+        self.pool = zeros((rows, G, self.Bp, 3))
         self.leaf_stats = zeros((rows, 3))
         self.leaf_depth = zeros(rows, i32)
         self.best = {
@@ -263,8 +284,8 @@ class GrowState:
         }
         if sp.any_cat:
             self.best["is_cat"] = zeros(rows, torch.bool)
-            # a wave's lane of each leaf (-1: none), row L the dummy's
-            self.lane_of = zeros(rows, i64) if self.wave else None
+        # a wave's lane of each leaf (-1: none), row L the dummy's
+        self.lane_of = zeros(rows, i64) if self.route_outside else None
         self.rec = _records(L if self.wave else L - 1, B, dev, sp.any_cat)
         self.n_leaves = torch.ones((), dtype=i32, device=dev)
         self.leaf_values = zeros(L)
@@ -295,10 +316,12 @@ class GrowState:
 def build_tree(xt: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                sample_mask: torch.Tensor, feature_mask: torch.Tensor,
                num_bins: torch.Tensor, missing_type: torch.Tensor,
-               params: GrowParams, quant_key=None) -> dict:
+               params: GrowParams, quant_key=None, is_cat=None,
+               bundles=None) -> dict:
     """Grow one tree, eagerly, over a state of its own.
 
-    xt: (F, N) binned features (uint8/int16); grad/hess/sample_mask:
+    xt: (F, N) binned features (uint8/int16), or with ``bundles`` the
+    (G, N) bundle matrix; grad/hess/sample_mask:
     (N,) float32 (the mask 0/1 under quantization); feature_mask: (F,)
     bool; num_bins/missing_type: (F,) int32.  All on one device.
     ``quant_key``: the tree's (2,) uint32 key for quantization
@@ -307,7 +330,8 @@ def build_tree(xt: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     per-leaf values and the realized leaf count, as device tensors; with
     quantization also ``leaf_stats_exact``, the full-precision per-leaf
     sums the values were renewed from."""
-    st = GrowState(xt, sample_mask, num_bins, missing_type, params)
+    st = GrowState(xt, sample_mask, num_bins, missing_type, params, is_cat,
+                   bundles)
     st.feature_mask.copy_(feature_mask)
     if params.quantize:
         key = prng.prng_key(0) if quant_key is None else quant_key
@@ -360,14 +384,69 @@ def tree_head(st: GrowState, grad: torch.Tensor, hess: torch.Tensor) -> None:
         _serial_root(st)
 
 
+_XLA_WINDOW = 32
+
+
+def _sequential_sum(x: torch.Tensor) -> torch.Tensor:
+    """Float32 sum over axis -2, one element at a time from the first."""
+    s = x[..., 0, :]
+    for i in range(1, x.shape[-2]):
+        s = s + x[..., i, :]
+    return s
+
+
+def bin_sum(hf: torch.Tensor) -> torch.Tensor:
+    """Float32 sum over the bins axis of (..., B, 3) in the order of XLA's
+    ``jnp.sum`` on the CPU, which the JAX package's ``expand`` runs
+    (``lightgbm_tpu/ops/grow.py:515``): up to 32 bins one at a time;
+    above, the bins padded with zeros to ``c = ceil(B / 32)`` windows of
+    32 (half the padding, rounded down, in front), each window summed one
+    at a time, then the window sums one at a time: bit for bit against
+    the JAX package at every B from 2 to 299 (20 of them held in
+    ``tests/test_torch_efb_bundles.py``).  Each add is one elementwise
+    launch on the card."""
+    B = hf.shape[-2]
+    c = -(-B // _XLA_WINDOW)
+    if c == 1:
+        return _sequential_sum(hf)
+    pad = c * _XLA_WINDOW - B
+    lead = hf.shape[:-2]
+    hf = torch.cat([hf.new_zeros(lead + (pad // 2, 3)), hf,
+                    hf.new_zeros(lead + (pad - pad // 2, 3))], dim=-2)
+    win = _sequential_sum(hf.reshape(lead + (c, _XLA_WINDOW, 3)))
+    return _sequential_sum(win)
+
+
+def expand(hist: torch.Tensor, stats: torch.Tensor, bundles) -> torch.Tensor:
+    """Bundle histograms (W, G, B, 3) -> logical features' (W, F, B, 3)
+    (the JAX package's ``expand``, :507-517): each feature's slot range
+    gathered through ``to_bundle``, its -1 slots zeroed, and its skipped
+    default bin rebuilt as the leaf's ``stats`` (W, 3) minus the sum of
+    its other bins (:func:`bin_sum`) on the ``fix`` row.  The identity
+    without ``bundles``."""
+    if bundles is None:
+        return hist
+    W, _, B, _ = hist.shape
+    F = bundles.group.shape[0]
+    hf = hist.index_select(1, bundles.group)                 # (W, F, B, 3)
+    idx = bundles.to_bundle.clamp(min=0)
+    hf = torch.gather(hf, 2, idx[None, :, :, None].expand(W, F, B, 3))
+    hf = hf * (bundles.to_bundle >= 0).to(hf.dtype)[None, :, :, None]
+    rem = stats[:, None, :] - bin_sum(hf)                    # (W, F, 3)
+    return hf + bundles.fix[None, :, :, None] * rem[:, :, None, :]
+
+
 def _best_splits(hists, stats, depth, st: GrowState) -> dict:
     """Best split of each of a batch of leaves, no split where the children
     would pass ``max_depth``: one kernel-S launch on the card, which
-    applies the depth limit itself."""
+    applies the depth limit itself.  Bundle histograms are expanded to
+    features first."""
     p = st.params
-    return find_best_split(hists.contiguous(), stats.contiguous(),
-                           st.num_bins, st.missing_type, st.feature_mask,
-                           p.split, depth, p.max_depth, st.is_cat)
+    stats = stats.contiguous()
+    return find_best_split(expand(hists, stats, st.bundles).contiguous(),
+                           stats, st.num_bins, st.missing_type,
+                           st.feature_mask, p.split, depth, p.max_depth,
+                           st.is_cat)
 
 
 def _dequant(st: GrowState, h: torch.Tensor) -> torch.Tensor:
@@ -448,8 +527,14 @@ def serial_steps(st: GrowState) -> None:
         valid = cand["gain"] > 0
 
         # row routing: rows of leaf l that go right move to leaf `new`
-        col = _pick(xt, cand["feature"].to(torch.int64).reshape(1))
-        goes_left = cand["left_mask"][col.to(torch.int32)]
+        feat = cand["feature"].to(torch.int64).reshape(1)
+        mask = cand["left_mask"]
+        if st.bundles is not None:
+            # the feature's bundle column, its mask on the bundle's bins
+            mask = mask.index_select(0, _pick(st.bundles.from_bundle, feat))
+            feat = st.bundles.group.index_select(0, feat)
+        col = _pick(xt, feat)
+        goes_left = mask[col.to(torch.int32)]
         mine = st.leaf_idx == _pick(ids32, l1).to(st.li_dtype)
         st.leaf_idx.masked_fill_(mine & ~goes_left & valid, new)
 
@@ -614,7 +699,7 @@ def wave_body(st: GrowState, wide: bool = False) -> None:
     small_left_w = lstat_w[:, 2] <= rstat_w[:, 2]
     depth_w = st.leaf_depth.index_select(0, ids) + 1
 
-    if sp.any_cat:
+    if st.route_outside:
         hist_small = _route_wave(st, ids_leaf, cw, small_left_w, new_ids)
     else:
         rows = [ids_leaf, cw["feature"], cw["threshold"], new_ids,
@@ -690,10 +775,12 @@ def _route_wave(st: GrowState, ids_leaf, cw: dict, small_left_w,
     """A wave's rows routed by their lanes' left masks, outside the pass
     (the non-routed branch of ``wave_body``, :1497-1516): each row's lane
     from the leaf -> lane table (-1 outside the wave), its bin in its
-    lane's split column, goes left where that bin is in the lane's mask;
-    the rows bound for the smaller child go to the batched pass (kernel M)
-    as their lane's subset, and the rows that go right move to the lane's
-    new leaf.  -> the smaller children's raw histograms (W, F, B, 3)."""
+    lane's split column, goes left where that bin is in the lane's mask
+    (bundled: the split feature's bundle column and its mask translated
+    onto the bundle's bins, ``col_of_lane`` and ``lane_mask``); the rows
+    bound for the smaller child go to the batched pass (kernel M) as their
+    lane's subset, and the rows that go right move to the lane's new leaf.
+    -> the smaller children's raw histograms (W, G, B, 3)."""
     W = st.width
     li = st.leaf_idx
     lane_of = st.lane_of
@@ -704,9 +791,15 @@ def _route_wave(st: GrowState, ids_leaf, cw: dict, small_left_w,
     lane = lane_of.index_select(0, li.to(torch.int64))      # (N,)
     in_wave = lane >= 0
     w = lane.clamp(min=0)
-    feat = cw["feature"].to(torch.int64).index_select(0, w)
+    col_of_lane = cw["feature"].to(torch.int64)
+    lane_mask = cw["left_mask"]
+    if st.bundles is not None:
+        lane_mask = torch.gather(lane_mask, 1, st.bundles.from_bundle
+                                 .index_select(0, col_of_lane))
+        col_of_lane = st.bundles.group.index_select(0, col_of_lane)
+    feat = col_of_lane.index_select(0, w)
     col = torch.gather(st.xt, 0, feat[None]).squeeze(0).to(torch.int64)
-    goes_left = in_wave & cw["left_mask"][w, col]
+    goes_left = in_wave & lane_mask[w, col]
     to_small = goes_left == small_left_w.index_select(0, w)
     sel = torch.where(in_wave & to_small, lane,
                       torch.full_like(lane, -1)).to(torch.int8)

@@ -23,10 +23,12 @@ import torch
 
 from ..models.tree import Tree
 
-__all__ = ["FlatForest", "flatten_forest", "predict_raw"]
+__all__ = ["FlatForest", "flatten_forest", "predict_raw", "is_sparse"]
 
 _KZERO = 1e-35
 _TREES_PER_CHUNK = 64
+# the most bytes of float64 rows a sparse input is densified into at once
+DENSE_CHUNK_BYTES = 1 << 26
 
 
 class FlatForest:
@@ -127,10 +129,23 @@ def _category_left(ff: FlatForest, lo: int, hi: int, nd: torch.Tensor,
     return ok & (((word >> (c & 31)) & 1) != 0)
 
 
+def is_sparse(X) -> bool:
+    """Whether ``X`` is a scipy sparse matrix (CSR, CSC, COO, ...)."""
+    return hasattr(X, "tocsr") and hasattr(X, "nnz")
+
+
 def predict_raw(ff: FlatForest, X, device: torch.device,
                 num_class: int = 1) -> torch.Tensor:
     """(N,) float64 raw scores: the sum of every tree's leaf value; with
-    ``num_class`` K > 1, (K, N): class k sums trees k, k + K, ..."""
+    ``num_class`` K > 1, (K, N): class k sums trees k, k + K, ...  ``X``
+    is an array or a scipy sparse matrix, densified in chunks of rows of
+    at most :data:`DENSE_CHUNK_BYTES` as float64."""
+    if is_sparse(X) and X.shape[0]:
+        X = X.tocsr()
+        step = max(1, DENSE_CHUNK_BYTES // (8 * max(X.shape[1], 1)))
+        return torch.cat([predict_raw(ff, X[lo:lo + step].toarray(), device,
+                                      num_class)
+                          for lo in range(0, X.shape[0], step)], dim=-1)
     Xt = torch.as_tensor(np.asarray(X), device=device).to(
         torch.float64).T.contiguous()
     N = Xt.shape[1]
