@@ -260,14 +260,38 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    CPU's on the first 50,000 rows.  Phase 2 holds kernels H (40 x 1M, B =
    25), M (W=42, three int8 columns), S (84 children expanded to 652
    features) and T (translated records, against routing the indicator
-   columns) at those shapes and counts ``expand``'s CUDA kernels.  Each
-   phase prints its seconds.
+   columns) at those shapes and counts ``expand``'s CUDA kernels.
+16. (run after phase 14, on phase 3's data) monotone constraints and the
+   feature penalty: ``monotone_constraints`` +1 on features 2-4 and -1 on
+   5 (the signs of the generator's weights), ``feature_contri`` 0.5 on
+   6-9, on ``higgs-mono-exact255`` (exact255's parameters: H, kernel S's
+   constrained mode, L), ``higgs-mono-wave255-noc2f`` (M, R, the
+   constrained S over 2W children, Q, L) and ``higgs-mono-wave255`` (c2f:
+   M and R coarse, V, V-lanes, the plain c2f scans with bounds, Q, L),
+   each graphed, eagerly and at fused_iters=5 with the same bits and
+   launches: seconds an iteration, idle share and launches a tree beside
+   the unconstrained cells' of phases 3-5, training AUC above 0.6, the
+   exact cell's predictions monotone over every bin threshold of each
+   constrained feature for 64 rows (1e-10), the quantized cells' trees
+   before the renewal monotone and the renewed trees' breaks counted, the
+   splits on features 6-9 against the unconstrained cells'; then the
+   card's trees against the CPU's with the constraints on 50,000 rows (the
+   exact loop, float waves, quantized waves without and with c2f,
+   categorical waves on phase 14's transform with the constraints on
+   features 4-7, phase 15's generator bundled with constraints on its
+   first 4 columns, K = 5 softmax).  Phase 2 holds kernel S's
+   constrained mode (random directions, multipliers in [0.5, 1.5], finite
+   bounds a lane) against its plain version bit for bit at W = 2, 2W =
+   128 and the bundled (84, 652, 25, 3), each at the three fusion sites,
+   with its times beside the unconstrained rows.  Each phase prints its
+   seconds.
 
 Every phase passes or the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
 JSON record.  Without a card, or without the rest of the repository, it
 exits non-zero and prints no result.
 """
+import dataclasses
 import json
 import os
 import statistics
@@ -464,15 +488,87 @@ def bound(nbytes, flops):
                                                            "operations")
 
 
-def split_bound(hist, B):
+def split_bound(hist, B, constrained=False):
     """Kernel S's bound: reads the histograms, the parents, the depths
     and per-feature descriptors (9 bytes); writes the record.  Per (lane,
     feature, bin): 3 scan adds, and per default direction the right-side
     stats (3), two leaf outputs (4 each) and gains given output (6 each),
-    their sum and the gain shift (2): 3 + 2 * 25."""
+    their sum and the gain shift (2): 3 + 2 * 25.  ``constrained``: the
+    constrained mode reads a direction and a multiplier a feature (5
+    bytes) and two bounds a lane (8 bytes) more."""
     W, F = hist.shape[:2]
+    extra = F * 5 + W * 8 if constrained else 0
     return bound(hist.numel() * 4 + W * (3 * 4 + 4) + F * 9 +
-                 W * (4 * 3 + 1 + 12 + B), hist.numel() // 3 * 53)
+                 W * (4 * 3 + 1 + 12 + B) + extra, hist.numel() // 3 * 53)
+
+
+def constraint_operands(torch, parent, F, seed):
+    """Kernel S's constrained operands for ``parent`` (W, 3): random
+    directions in {-1, 0, 1} (int32), multipliers in [0.5, 1.5] and finite
+    bounds a lane around the lane's own output, which bind on its
+    children -> {"monotone", "penalty", "bounds"}."""
+    dev = parent.device
+    W = parent.shape[0]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mono = torch.randint(-1, 2, (F,), generator=g, device=dev,
+                         dtype=torch.int32)
+    pen = torch.rand(F, generator=g, device=dev) + 0.5
+    out = -parent[:, 0] / (parent[:, 1] + 1e-15)
+    width = (out.abs() + 1e-3) * (0.2 + torch.rand(W, 2, generator=g,
+                                                   device=dev).T)
+    bounds = torch.stack([out - width[0], out + width[1]], 1).contiguous()
+    return {"monotone": mono, "penalty": pen, "bounds": bounds}
+
+
+def measure_split_constrained(torch, ts, hist, parent, nb, mt, fm, p, site,
+                              ctx, seed, depth=None, max_depth=0):
+    """Kernel S's constrained mode against its plain version at one shape:
+    the record bit for bit at every fusion site with every operand (the
+    penalty alone, the directions with the bounds, all three), a repeat
+    launch the same bits; then, with all three at ``site``, one CUDA
+    launch a call, its ms back to back, device ms, plain ms and bound
+    (:func:`split_bound`)."""
+    F = hist.shape[1]
+    ops = constraint_operands(torch, parent, F, seed)
+    cp = dataclasses.replace(p, monotone=tuple(ops["monotone"].tolist()),
+                             penalty=tuple(ops["penalty"].tolist()))
+    args = (hist, parent, nb, mt, fm, cp, depth, max_depth)
+    for s in (ts.ROOT, ts.LOOP, ts.WAVE):
+        for keys in (("penalty",), ("monotone", "bounds"),
+                     ("monotone", "penalty", "bounds")):
+            cons = {k: ops[k] for k in keys}
+            k = ts.find_best_split(*args, site=s, **cons)
+            k2 = ts.find_best_split(*args, site=s, **cons)
+            q = ts.find_best_split_plain(*args, site=s, **cons)
+            torch.cuda.synchronize()
+            what = f"{ctx}, constrained ({'+'.join(keys)}, {s})"
+            same_record(torch, k, q, what)
+            for key in k:
+                if not torch.equal(k[key], k2[key]):
+                    fail(f"kernel S gave other bits on a repeat launch "
+                         f"({what}: {key})")
+
+    def call():
+        return ts.find_best_split(*args, site=site, **ops)
+
+    dev_ms, n_launch = profile_calls(call, 20, SPLIT_NAMES)
+    if n_launch != 1:
+        fail(f"kernel S made {n_launch} CUDA launches in one constrained "
+             f"call, not 1 ({ctx})")
+    ms = cuda_ms(call, reps=50)
+    plain_ms = cuda_ms(lambda: ts.find_best_split_plain(
+        *args, site=site, **ops), reps=5)
+    b_ms, b_by = split_bound(hist, hist.shape[2], constrained=True)
+    W = hist.shape[0]
+    print(f"kernel S constrained ({ctx}, site {site}): the plain version's "
+          f"records bit for bit at 3 sites x 3 operand sets, repeats the "
+          f"same bits; {ms:.4f} ms a call back to back, device "
+          f"{dev_ms:.4f} ms, {n_launch:g} launch a call (plain "
+          f"{plain_ms:.3f}, bound {b_ms:.6f} by {b_by}) at W={W} F={F} "
+          f"B={hist.shape[2]}", flush=True)
+    return dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms,
+                launches_per_call=n_launch, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, site=site)
 
 
 def wide_values(torch, g, dev, N):
@@ -882,6 +978,9 @@ def phase_kernels(torch, dev):
           f"back to back, device {dev_s:.4f} ms, {n_launch:g} launch a call "
           f"(plain {plain_s:.3f}, bound {b_s[0]:.6f} by {b_s[1]}) at W=2 "
           f"F={F} B={B}", flush=True)
+    # the constrained mode at the exact loop's call, the depth limit on
+    out["best_split_constrained"] = measure_split_constrained(
+        torch, ts, hist, parent, nb, mt, fm, p, ts.LOOP, "W=2", 61, dep, 4)
 
     # ---- kernel L ---------------------------------------------------
     # ragged lengths (not multiples of 16, shorter than a warp's tile) and
@@ -1371,6 +1470,9 @@ def phase_kernels_wave(torch, dev, th, ts, bins):
     print(f"kernel S (2W=128 children, counts proxy): identical to plain; "
           f"{ms_s:.4f} ms, device {dev_s:.4f} ms, {n_launch:g} launch a call "
           f"(bound {b_s[0]:.5f} by {b_s[1]})", flush=True)
+    out["best_split_constrained_2w"] = measure_split_constrained(
+        torch, ts, ch, par, nb, mt, fm, pw, ts.WAVE, "2W=128 counts proxy",
+        62, dep, 6)
     out["categorical_scan"] = measure_categorical_scan(torch, ts, ch[:84],
                                                        par[:84], B)
     del ch
@@ -2402,6 +2504,14 @@ def profile_iteration(torch, booster):
             "graph_replays": replays1 - replays0}
 
 
+def feature_splits(booster):
+    """The splits on each feature over the booster's trees."""
+    counts = np.zeros(N_FEATURES, np.int64)
+    for t in booster.models:
+        np.add.at(counts, np.asarray(t.split_feature[:t.num_leaves - 1]), 1)
+    return counts.tolist()
+
+
 def _identical_trees(a, b, what):
     """The first ``N_TREES`` trees of two boosters the same bits (their
     model text prints every value in full), or fail."""
@@ -2507,11 +2617,13 @@ def phase_full_width(torch, ltt):
                     "exact")
     if not 0.6 < score <= 1.0:
         fail(f"holdout AUC {score} is not that of a trained model")
+    splits = feature_splits(booster)
     del booster, main["booster"]
     return (ds, Xh, yh), counts, dict(
         seconds_per_iteration=statistics.median(main["iter_s"]),
         modes=_summary(runs), dataset_seconds=ds_s,
-        predict_seconds=predict_s, holdout_auc=score)
+        predict_seconds=predict_s, holdout_auc=score,
+        splits_by_feature=splits)
 
 
 def _wave_phase(torch, ltt, data, exact_auc, params, path, names, tier):
@@ -2540,10 +2652,12 @@ def _wave_phase(torch, ltt, data, exact_auc, params, path, names, tier):
     if score < exact_auc - 0.02:
         fail(f"{path} holdout AUC {score} is more than 0.02 below the exact "
              f"path's {exact_auc}")
+    splits = feature_splits(booster)
     del booster, main["booster"]
     return counts, waves, dict(
         seconds_per_iteration=statistics.median(main["iter_s"]),
-        waves_per_tree=waves, modes=_summary(runs), holdout_auc=score)
+        waves_per_tree=waves, modes=_summary(runs), holdout_auc=score,
+        splits_by_feature=splits)
 
 
 def phase_wave(torch, ltt, data, exact_auc):
@@ -2834,7 +2948,7 @@ def reduced_cells():
     return cells
 
 
-def phase_device_vs_cpu(ltt):
+def phase_device_vs_cpu(ltt, cells=None, phase="phase 6"):
     """Phase 6: reduced configurations on the card and on the CPU
     (``reduced_cells``): the exact path at 31 leaves, float waves, and
     quantized two-column waves at 127 leaves (W = 64), each wave kind
@@ -2847,9 +2961,10 @@ def phase_device_vs_cpu(ltt):
     and one-vs-all on three loops).  Identical trees card against CPU
     (the CPU's runs in a pool of spawned processes while the card
     trains), and fused_iters=4 the same bits as fused_iters=1 on the card
-    and, for the five unsampled cells, on the CPU."""
+    and, for the five unsampled cells, on the CPU.  ``cells``: another set
+    of cells in ``reduced_cells``' form, for ``phase``."""
     import multiprocessing
-    cells = reduced_cells()
+    cells = reduced_cells() if cells is None else cells
     workers = max(1, min(6, (os.cpu_count() or 2) - 2))
     ctx = multiprocessing.get_context("spawn")
     t_start = time.perf_counter()
@@ -2901,7 +3016,7 @@ def phase_device_vs_cpu(ltt):
                   f"max leaf value diff {worst:.3g}, max prediction diff "
                   f"{pdiff:.3g} (raw {rdiff:.3g}){note}; the card's runs "
                   f"{card_s:.2f} s", flush=True)
-    print(f"phase 6: {len(cells)} cells in "
+    print(f"{phase}: {len(cells)} cells in "
           f"{time.perf_counter() - t_start:.1f} s ({workers} CPU workers)",
           flush=True)
 
@@ -4705,6 +4820,9 @@ def phase_kernels_efb(torch, dev):
     print(f"kernel S bundled (84, {F}, {B}, 3): gains equal; {ms_s:.4f} ms, "
           f"device {dev_s:.4f} ms, {n_s:g} launch a call (plain "
           f"{plain_s:.3f}, bound {b_s[0]:.6f} by {b_s[1]})", flush=True)
+    out["best_split_constrained"] = measure_split_constrained(
+        torch, ts, hist, stats, nb, mt, fm, p, ts.WAVE,
+        f"bundled (84, {F}, {B}, 3)", 63)
 
     # ---- expand, the layer metric -------------------------------------
     for W in (2, 84):
@@ -4895,6 +5013,208 @@ def phase_allstate(torch, ltt):
     return counts, e2e
 
 
+# ---- phase 16: monotone constraints and the feature penalty ------------
+# +1 on features 2-4 and -1 on 5, the signs of the generator's weights
+# RandomState(0).randn(28) there (features 0-1 carry the interaction term
+# and stay free); the penalty 0.5 on features 6-9
+MONO_SIGNS = {2: 1, 3: 1, 4: 1, 5: -1}
+MONO_PARAMS = {
+    "monotone_constraints": [MONO_SIGNS.get(f, 0) for f in range(N_FEATURES)],
+    "feature_contri": [0.5 if 6 <= f <= 9 else 1.0
+                       for f in range(N_FEATURES)]}
+# (the unconstrained path it stands beside, params, the kernels it must
+# launch)
+MONO_CELLS = {
+    "higgs-mono-exact255": (
+        "exact", dict(TRAIN_PARAMS, **MONO_PARAMS),
+        ("histogram", "best_split_constrained", "leaf_lookup")),
+    "higgs-mono-wave255-noc2f": (
+        "wave", dict(TRAIN_PARAMS, **WAVE_PARAMS, **MONO_PARAMS),
+        ("multi_histogram", "routed_histogram", "leaf_stats",
+         "best_split_constrained", "leaf_lookup")),
+    "higgs-mono-wave255": (
+        "c2f", dict(TRAIN_PARAMS, **WAVE255_PARAMS, **MONO_PARAMS),
+        ("multi_histogram", "window_histogram", "routed_histogram",
+         "lanes_window_histogram", "leaf_stats", "leaf_lookup")),
+}
+MONO_SWEEP_ROWS = 64
+
+
+def monotone_sweep(ds, X, predict):
+    """(steps that break a constraint, the largest break) of ``predict``
+    (rows -> raw scores) when each feature of ``MONO_SIGNS`` sweeps its
+    bin thresholds (its bins' finite upper bounds, and one value past the
+    last) with the other features of ``MONO_SWEEP_ROWS`` rows of ``X``
+    fixed."""
+    mappers = ds._constructed.mappers
+    base = X[:MONO_SWEEP_ROWS]
+    bad, worst = 0, 0.0
+    for f, sign in MONO_SIGNS.items():
+        ub = np.asarray(mappers[f].bin_upper_bound, np.float64)
+        ub = ub[np.isfinite(ub)]
+        grid = np.concatenate([ub, [ub.max() + 1.0]]).astype(np.float32)
+        M = np.repeat(base, len(grid), axis=0)
+        M[:, f] = np.tile(grid, len(base))
+        pred = np.asarray(predict(M)).reshape(len(base), len(grid))
+        step = np.diff(pred.astype(np.float64), axis=1) * sign
+        bad += int(np.sum(step < -1e-10))
+        worst = max(worst, float(max(0.0, -step.min())))
+    return bad, worst
+
+
+def _pre_renewal_trees(booster, recs):
+    """The trees of ``recs`` (a run's fetched records) with the loop's
+    clipped leaf values, before the quantized renewal."""
+    from lightgbm_tpu_torch.models import gbdt as tg
+    g = booster._gbdt
+    return [tg.records_to_tree({k: v for k, v in r.items()
+                                if k != "leaf_stats_exact"}, g.config,
+                               g.train_set)
+            for r in recs]
+
+
+def phase_monotone(torch, ltt, data, unconstrained):
+    """Phase 16 on phase 3's data: ``MONO_CELLS`` in the three modes of
+    :func:`run_paths`, each beside the unconstrained path's numbers
+    ``unconstrained[path]`` (phases 3-5, this run), then the card against
+    the CPU on the reduced cells (:func:`monotone_reduced_cells`).  ->
+    (launches of each cell's graphed run, its numbers)."""
+    from lightgbm_tpu_torch.models import gbdt as tg
+    from lightgbm_tpu_torch.ops.predict import flatten_forest, predict_raw
+    ds, Xh, _ = data
+    y = ds._constructed.label.cpu().numpy()
+    dev = torch.device(DEVICE, 0)
+    counts_by_cell, e2e = {}, {}
+    for cell, (path, params, names) in MONO_CELLS.items():
+        recs = []
+        make_tree = tg.records_to_tree
+
+        def keep(rec, *a, **k):
+            recs.append(rec)
+            return make_tree(rec, *a, **k)
+
+        tg.records_to_tree = keep
+        try:
+            runs = run_paths(torch, ltt, ds, dict(params, device_type=DEVICE),
+                             cell)
+        finally:
+            tg.records_to_tree = make_tree
+        main = runs["graphs"]
+        booster, counts = main["booster"], main["counts"]
+        sp = booster._gbdt.grow_params.split
+        if not (sp.has_monotone and sp.has_penalty):
+            fail(f"{cell}: the constraints did not reach the split scans")
+        _check_launches(counts, names, cell)
+        if counts.get("best_split", 0):
+            fail(f"{cell}: kernel S ran {counts['best_split']} times "
+                 f"unconstrained")
+        if path == "c2f" and counts.get("best_split_constrained", 0):
+            fail(f"{cell}: kernel S ran on the c2f path, whose scans are "
+                 f"plain tensor code")
+        score = booster._gbdt.train_score()
+        if score.shape != y.shape or not np.all(np.isfinite(score)):
+            fail(f"{cell}: the training score is not finite of the "
+                 f"expected shape")
+        auc = np_auc(y, score)
+        if not 0.6 < auc <= 1.0:
+            fail(f"{cell}: training AUC {auc} is not that of a trained model")
+        served = monotone_sweep(ds, Xh, lambda M: booster.predict(
+            M, raw_score=True))
+        gp = booster._gbdt.grow_params
+        pre = None
+        if gp.quantize:
+            trees = _pre_renewal_trees(booster, recs[:N_TREES])
+            ff = flatten_forest(trees, dev)
+            pre = monotone_sweep(ds, Xh, lambda M: predict_raw(
+                ff, M, dev, 1).cpu().numpy())
+            if pre[0]:
+                fail(f"{cell}: the trees before the renewal break the "
+                     f"constraints in {pre[0]} steps (largest {pre[1]:.3g})")
+        elif served[0]:
+            fail(f"{cell}: predictions break the constraints in "
+                 f"{served[0]} steps (largest {served[1]:.3g})")
+        free = unconstrained[path]
+        splits = feature_splits(booster)
+        pen_splits = sum(splits[6:10])
+        free_pen = sum(free["splits_by_feature"][6:10])
+        summ = _summary(runs)
+        g_free = free["modes"]["graphs"]
+        print(f"{cell}: {statistics.median(main['iter_s']):.4f} s an "
+              f"iteration graphed (unconstrained {path} "
+              f"{free['seconds_per_iteration']:.4f}), idle share "
+              f"{summ['graphs'].get('idle_share_of_iteration')} (unconstrained "
+              f"{g_free.get('idle_share_of_iteration')}), kernel launches a "
+              f"tree {summ['graphs']['kernel_launches_per_tree']:.1f} "
+              f"(unconstrained {g_free['kernel_launches_per_tree']:.1f}); "
+              f"training AUC {auc:.5f}; splits on features 6-9 "
+              f"{pen_splits} (unconstrained {free_pen}) of "
+              f"{sum(splits)}", flush=True)
+        if pre is None:
+            print(f"{cell}: predictions monotone over every bin threshold of "
+                  f"features {sorted(MONO_SIGNS)} for {MONO_SWEEP_ROWS} rows "
+                  f"(1e-10)", flush=True)
+        else:
+            print(f"{cell}: the trees before the renewal monotone over every "
+                  f"bin threshold for {MONO_SWEEP_ROWS} rows (1e-10); the "
+                  f"renewed trees break {served[0]} steps, the largest by "
+                  f"{served[1]:.3g}", flush=True)
+        counts_by_cell[cell] = counts
+        e2e[cell] = dict(seconds_per_iteration=statistics.median(
+            main["iter_s"]), modes=summ, training_auc=auc,
+            launches_per_tree={k: v / N_TREES for k, v in counts.items()},
+            splits_on_penalized=pen_splits,
+            splits_on_penalized_unconstrained=free_pen,
+            renewed_breaks=served if pre is not None else None,
+            unconstrained_seconds_per_iteration=free[
+                "seconds_per_iteration"])
+        del booster, main["booster"], recs
+        torch.cuda.empty_cache()
+    phase_device_vs_cpu(ltt, monotone_reduced_cells(), "phase 16 card vs cpu")
+    return counts_by_cell, e2e
+
+
+def monotone_reduced_cells():
+    """Phase 16's card-against-CPU cells in ``reduced_cells``' form: phase
+    6's 50,000 rows with the constraints on the exact loop, float waves,
+    quantized two-column waves without and with c2f; categorical waves on
+    phase 14's transform of columns 0-3 with the constraints moved to
+    features 4-7; phase 15's generator at 50,000 rows, bundled, with
+    constraints on its first 4 columns; softmax at K = 5 on phase 11's
+    generator (3 iterations)."""
+    X, y = make_higgs_shaped(50_000, N_FEATURES, seed=1)
+    rng = np.random.RandomState(2)
+    X[rng.rand(len(X)) < 0.05, 5] = np.nan
+    exact = dict(TRAIN_PARAMS, num_leaves=31, **MONO_PARAMS)
+    cells = {
+        "monotone, exact": (X, y, exact, REDUCED_ITERS, (1, 4), (1,), 0,
+                            [1, 4, 1], {}),
+        "monotone, float waves": (X, y, dict(
+            exact, wave_splits=True, hist_refinement=False), REDUCED_ITERS,
+            (1,), (1,), 0, None, {}),
+        "monotone, quantized two-column waves": (X, y, dict(
+            TRAIN_PARAMS, **WAVE_PARAMS, **MONO_PARAMS, num_leaves=127),
+            REDUCED_ITERS, (1,), (1,), 0, None, {}),
+        "monotone, quantized two-column c2f waves": (X, y, dict(
+            TRAIN_PARAMS, **WAVE255_PARAMS, **MONO_PARAMS, num_leaves=127),
+            REDUCED_ITERS, (1,), (1,), 4, None, {})}
+    Xc = categorical_transform(X.copy())
+    cat_mono = dict(MONO_PARAMS, monotone_constraints=[
+        0, 0, 0, 0, 1, -1, 1, -1] + [0] * (N_FEATURES - 8))
+    cells["monotone, categorical waves"] = (Xc, y, dict(
+        TRAIN_PARAMS, **WAVE255_PARAMS, **cat_mono, num_leaves=127,
+        categorical_feature="0,1,2,3"), REDUCED_ITERS, (1,), (1,), 0, None,
+        {})
+    Xa, ya = make_allstate(ALLSTATE_CUT)
+    cells["monotone, bundled exact"] = (Xa, ya, dict(
+        ALLSTATE_PARAMS, monotone_constraints=[1, -1, 1, -1],
+        feature_contri=[1.0, 1.0, 0.5, 1.0]), ALLSTATE_CUT_TREES, (1,), (1,),
+        None, None, {})
+    Xm, ym, _, _ = make_multiclass(ALLSTATE_CUT, 0)
+    cells["monotone, softmax K=5"] = (Xm, ym, dict(MC_PARAMS, **MONO_PARAMS),
+                                      ZOO_ITERS, (1,), (1,), None, None, {})
+    return cells
+
+
 def _phase_done(name, t0):
     """Print a phase's seconds; the clock for the next."""
     print(f"{name}: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4994,6 +5314,11 @@ def main():
     cat_counts, e2e_categorical = phase_categorical(
         torch, ltt, data, e2e_c2f["seconds_per_iteration"])
     t_phase = _phase_done("phase 14 (missing + categorical)", t_phase)
+    # ---- phase 16: monotone constraints and the feature penalty --------
+    mono_counts, e2e_monotone = phase_monotone(
+        torch, ltt, data, {"exact": e2e, "wave": e2e_wave, "c2f": e2e_c2f})
+    t_phase = _phase_done("phase 16 (monotone constraints, penalty)",
+                          t_phase)
     del data
     torch.cuda.empty_cache()
     # ---- phase 15: bench.py's sparse one-hot row, bundled -------------
@@ -5029,6 +5354,14 @@ def main():
                       "lightgbm_tpu/ops/histogram.py:238", exact_counts),
         "best_split": ("lightgbm_tpu_torch/csrc/split.cu",
                        "lightgbm_tpu/ops/split.py:899", wave_counts),
+        # its constrained mode (the TPU kernel's mono, pen and lane bounds),
+        # on phase 16's exact and no-c2f cells
+        "best_split_constrained": (
+            "lightgbm_tpu_torch/csrc/split.cu",
+            "lightgbm_tpu/ops/split.py:899",
+            {"best_split_constrained": sum(
+                c.get("best_split_constrained", 0)
+                for c in mono_counts.values())}),
         "leaf_lookup": ("lightgbm_tpu_torch/csrc/lookup.cu",
                         "lightgbm_tpu/ops/lookup.py:35", c2f_counts),
         # the valid scorer's add (lightgbm_tpu/models/gbdt.py:2629)
@@ -5102,6 +5435,10 @@ def main():
                                       **stats[name]}
         if name == "best_split":
             row["at_2w128"] = stats["best_split_2w"]
+        if name == "best_split_constrained":
+            row["at_2w128"] = stats["best_split_constrained_2w"]
+            row["launches_by_cell"] = {
+                k: v.get(name, 0) for k, v in mono_counts.items()}
         if name == "leaf_lookup_f64":
             row["launches_by_path"] = {k: v[name]
                                        for k, v in valid_counts.items()}
@@ -5151,6 +5488,7 @@ def main():
                       "e2e_ranking": e2e_ranking, "e2e_fobj": e2e_fobj,
                       "e2e_categorical": e2e_categorical,
                       "e2e_allstate": e2e_allstate,
+                      "e2e_monotone": e2e_monotone,
                       "expand": {k: v for k, v in stats["efb"].items()
                                  if k.startswith("expand")},
                       "categorical_scan": stats["categorical_scan"]}),

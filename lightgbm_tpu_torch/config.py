@@ -1150,13 +1150,10 @@ for _param in PARAMS:
 # that is true when the value is unsupported, what is missing).
 # ``enable_bundle`` and ``max_conflict_rate`` (EFB) are not listed: the
 # serial learner bundles as the JAX package does (``models/gbdt.py``
-# ``GBDT._bundle``).
+# ``GBDT._bundle``); nor are ``monotone_constraints`` and ``feature_contri``
+# (``GBDT._constraint_tuples``).
 UNSUPPORTED: List[Tuple[str, Any, str]] = [
     ("forcedsplits_filename", bool, "forced splits"),
-    ("monotone_constraints", lambda v: any(float(x) != 0 for x in v),
-     "monotone constraints"),
-    ("feature_contri", lambda v: any(float(x) != 1.0 for x in v),
-     "feature penalty"),
     ("speculative_tolerance", lambda v: v > 0,
      "near-tie preference for armed leaves (speculative arming)"),
     ("tree_learner", lambda v: v not in ("serial", ""),

@@ -28,6 +28,24 @@
 //   contracted and the gains match the plain PyTorch expression bit for
 //   bit.  The feature's first maximum (lowest bin on ties) goes to a
 //   scratch slot.
+// - Constrained mode (monotone_constraints, feature_contri): three
+//   optional operands, each with a flag in the kernel's template, so the
+//   unconstrained launch runs the code it ran before them.  With the lane
+//   bounds (W, 2) [mn, mx] each child output is clipped to them before
+//   its gain given output, and the products fused follow the site's
+//   operand `fuse`, as the reference's compile of each unit fuses under
+//   the clip (ops/split.py `_CLIP_FUSION`): 0 the root's (default right
+//   its first product, default left its second, as unconstrained), 1 the
+//   exact loop's (both the first), 2 a wave's children's (both the
+//   second);
+//   with the directions mono (F,) a candidate whose clipped outputs break
+//   its feature's direction gets NEG_INF before the gain shift; with the
+//   multipliers pen (F,) a real gain is scaled by its feature's after the
+//   directions' max and before the feature mask (the TPU kernel's
+//   `has_mono`, `has_pen` and `has_bounds`, ops/split.py:599-673,
+//   :856-897).  A block loads its feature's direction and multiplier and
+//   its lane's bounds once: 5 bytes a feature and 8 a lane on top of the
+//   unconstrained call's.
 // - Record.  The lane's last block to finish (a per-lane counter, which
 //   that block resets to 0 for the next launch) takes the first maximum
 //   over the features' slots (lowest feature on ties) and writes the
@@ -104,13 +122,32 @@ __device__ __forceinline__ float gain_given_output(float g, float h, float out,
   return -fma32((h + c.l2) * out, out, (2.0f * sg) * out);
 }
 
+// Constrained-mode flags of the kernel's template
+constexpr int kBounds = 1;  // lane bounds: clip both child outputs
+constexpr int kMono = 2;    // feature directions: drop violating candidates
+constexpr int kPen = 4;     // feature gain multipliers
+
+// The lane's bounds and the feature's direction (read where kMode has them)
+struct Cons {
+  float mn, mx;
+  int mono;
+};
+
+template <int kMode>
 __device__ __forceinline__ float split_gain(float gl, float hl, float gr,
                                             float hr, const SplitCfg& c,
-                                            bool fuse_first) {
-  const float lo = leaf_output(gl, hl, c);
-  const float ro = leaf_output(gr, hr, c);
-  return gain_given_output(gl, hl, lo, c, fuse_first) +
-         gain_given_output(gr, hr, ro, c, fuse_first);
+                                            bool fuse_first, const Cons& k) {
+  float lo = leaf_output(gl, hl, c);
+  float ro = leaf_output(gr, hr, c);
+  if (kMode & kBounds) {
+    lo = fminf(fmaxf(lo, k.mn), k.mx);
+    ro = fminf(fmaxf(ro, k.mn), k.mx);
+  }
+  const float g = gain_given_output(gl, hl, lo, c, fuse_first) +
+                  gain_given_output(gr, hr, ro, c, fuse_first);
+  if ((kMode & kMono) && ((k.mono > 0 && lo > ro) || (k.mono < 0 && lo < ro)))
+    return kNegInf;
+  return g;
 }
 
 // Inclusive prefix sums of a[0..n), n <= kChunk^2, by one thread in the
@@ -184,13 +221,17 @@ __host__ __device__ inline int smem_floats(int B) {
 // Lg, Lh, Lc] (bin and direction as float values, exact below 2^24).
 constexpr int kPart = 8;
 
+template <int kMode, int kFuse>
 __global__ void best_split_kernel(const float* __restrict__ hist,
                                   const float* __restrict__ parent,
                                   const int32_t* __restrict__ num_bins,
                                   const int32_t* __restrict__ missing_type,
                                   const uint8_t* __restrict__ feature_mask,
                                   const int32_t* __restrict__ depth,
-                                  int depth_stride, int max_depth, int F,
+                                  int depth_stride, int max_depth,
+                                  const int32_t* __restrict__ mono,
+                                  const float* __restrict__ pen,
+                                  const float* __restrict__ bounds, int F,
                                   int B, SplitCfg cfg,
                                   float* __restrict__ part,
                                   unsigned* __restrict__ done,
@@ -249,6 +290,16 @@ __global__ void best_split_kernel(const float* __restrict__ hist,
   __syncthreads();
 
   const bool fm = feature_mask[f] != 0;
+  Cons k{0.0f, 0.0f, 0};
+  if (kMode & kBounds) {
+    k.mn = bounds[w * 2];
+    k.mx = bounds[w * 2 + 1];
+  }
+  if (kMode & kMono) k.mono = mono[f];
+  const float pf = (kMode & kPen) ? pen[f] : 1.0f;
+  // the products fused under the clip (kFuse), else as unconstrained
+  const bool right_first = !(kMode & kBounds) || kFuse != 2;
+  const bool left_first = (kMode & kBounds) && kFuse == 1;
   Cand mine{-INFINITY, B, false, 0.f, 0.f, 0.f};
   for (int j = t; j < B; j += blockDim.x) {
     const int c = j / kChunk;
@@ -260,7 +311,9 @@ __global__ void best_split_kernel(const float* __restrict__ hist,
     }
     const bool cand = j <= nv - 2;
     const float Rg = pg - Lg, Rh = ph - Lh, Rc = pc - Lc;
-    float g_r = split_gain(Lg, Lh + kEps, Rg, Rh + kEps, cfg, true) - gshift;
+    float g_r =
+        split_gain<kMode>(Lg, Lh + kEps, Rg, Rh + kEps, cfg, right_first, k) -
+        gshift;
     const bool ok_r = cand && feasible(Lc, Lh, Rc, Rh, cfg);
     g_r = ok_r ? g_r : kNegInf;
     float gain = g_r;
@@ -269,8 +322,9 @@ __global__ void best_split_kernel(const float* __restrict__ hist,
     if (cfg.any_missing) {
       const float Llg = Lg + mg, Llh = Lh + mh, Llc = Lc + mc;
       const float Rlg = pg - Llg, Rlh = ph - Llh, Rlc = pc - Llc;
-      float g_l =
-          split_gain(Llg, Llh + kEps, Rlg, Rlh + kEps, cfg, false) - gshift;
+      float g_l = split_gain<kMode>(Llg, Llh + kEps, Rlg, Rlh + kEps, cfg,
+                                    left_first, k) -
+                  gshift;
       const bool ok_l = cand && feasible(Llc, Llh, Rlc, Rlh, cfg);
       g_l = ok_l ? g_l : kNegInf;
       if (mc <= 0.0f) g_l = kNegInf;
@@ -282,6 +336,7 @@ __global__ void best_split_kernel(const float* __restrict__ hist,
         wc = Llc;
       }
     }
+    if ((kMode & kPen) && gain > 0.5f * kNegInf) gain = gain * pf;
     if (!fm) gain = kNegInf;
     // a thread's bins ascend: a later one wins only when better
     if (mine.j == B || gain > mine.gain) mine = Cand{gain, j, dl, wg, wh, wc};
@@ -350,6 +405,10 @@ __global__ void best_split_kernel(const float* __restrict__ hist,
 // hist (W, F, B, 3) float32; parent (W, 3) float32; num_bins /
 // missing_type (F,) int32; feature_mask (F,) uint8; depth int32 or null,
 // lane w's at depth[w * depth_stride] (stride 0: one depth for all).
+// The constrained mode's operands, each null where absent: mono (F,)
+// int32 directions, pen (F,) float32 multipliers, bounds (W, 2) float32
+// [mn, mx] a lane; `fuse` the site's fused products under the clip (0, 1
+// or 2, above).
 // `part` is W x F x 8 float32 scratch; `done` W uint32 counters, zero
 // before the launch and zero again after it (the kernel resets
 // them), so launches that share them must be ordered on one stream.  The
@@ -358,7 +417,9 @@ __global__ void best_split_kernel(const float* __restrict__ hist,
 extern "C" int ltt_best_split(const void* hist, const void* parent,
                               const void* num_bins, const void* missing_type,
                               const void* feature_mask, const void* depth,
-                              int depth_stride, int max_depth, int W, int F,
+                              int depth_stride, int max_depth,
+                              const void* mono, const void* pen,
+                              const void* bounds, int fuse, int W, int F,
                               int B, float l1,
                               float l2, float mds, float min_data,
                               float min_hess, float min_gain, int any_missing,
@@ -373,12 +434,31 @@ extern "C" int ltt_best_split(const void* hist, const void* parent,
   if (threads > kThreads) threads = kThreads;
   SplitCfg cfg{l1, l2, mds, min_data, min_hess, min_gain, any_missing,
                counts_proxy};
-  best_split_kernel<<<dim3(F, W), threads, smem_floats(B) * sizeof(float),
-                      stream>>>(
-      (const float*)hist, (const float*)parent, (const int32_t*)num_bins,
-      (const int32_t*)missing_type, (const uint8_t*)feature_mask,
-      (const int32_t*)depth, depth_stride, max_depth, F, B, cfg, (float*)part,
-      (unsigned*)done, (float*)gain, (float*)left_stats, (int32_t*)feature,
-      (int32_t*)threshold, (uint8_t*)default_left, (uint8_t*)left_mask);
+  const int mode = (bounds ? kBounds : 0) | (mono ? kMono : 0) |
+                   (pen ? kPen : 0);
+  const dim3 grid(F, W);
+  const size_t smem = smem_floats(B) * sizeof(float);
+#define LTT_SPLIT_LAUNCH(M, U)                                               \
+  best_split_kernel<M, U><<<grid, threads, smem, stream>>>(                  \
+      (const float*)hist, (const float*)parent, (const int32_t*)num_bins,    \
+      (const int32_t*)missing_type, (const uint8_t*)feature_mask,            \
+      (const int32_t*)depth, depth_stride, max_depth, (const int32_t*)mono,  \
+      (const float*)pen, (const float*)bounds, F, B, cfg, (float*)part,      \
+      (unsigned*)done, (float*)gain, (float*)left_stats, (int32_t*)feature,  \
+      (int32_t*)threshold, (uint8_t*)default_left, (uint8_t*)left_mask)
+  constexpr int kClip = kBounds | kMono;
+  if (fuse < 0 || fuse > 2) return (int)cudaErrorInvalidValue;
+  switch (mode * 4 + (mode & kBounds ? fuse : 0)) {
+    case 0: LTT_SPLIT_LAUNCH(0, 0); break;
+    case kPen * 4: LTT_SPLIT_LAUNCH(kPen, 0); break;
+    case kClip * 4: LTT_SPLIT_LAUNCH(kClip, 0); break;
+    case kClip * 4 + 1: LTT_SPLIT_LAUNCH(kClip, 1); break;
+    case kClip * 4 + 2: LTT_SPLIT_LAUNCH(kClip, 2); break;
+    case (kClip | kPen) * 4: LTT_SPLIT_LAUNCH(kClip | kPen, 0); break;
+    case (kClip | kPen) * 4 + 1: LTT_SPLIT_LAUNCH(kClip | kPen, 1); break;
+    case (kClip | kPen) * 4 + 2: LTT_SPLIT_LAUNCH(kClip | kPen, 2); break;
+    default: return (int)cudaErrorInvalidValue;  // bounds come with mono
+  }
+#undef LTT_SPLIT_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
 """GBDT boosting loop.
 
 Counterpart of ``lightgbm_tpu/models/gbdt.py`` for the serial learner:
-``records_to_tree`` (:38-125, with categorical splits, the quantized
-renewal and the two-column count restore) is copied; the serial subset of
+``records_to_tree`` (:38-125, with categorical splits, the monotone
+bounds' clip, the quantized renewal and the two-column count restore) and
+``_constraint_tuples`` (:788-809) are copied; the serial subset of
 the tier resolution (:381-418, :491-512: wave growth, two-column passes,
 coarse-to-fine refinement, quantized gradients, the lane width, and the
 categorical gate: no two-column passes, no coarse-to-fine, no in-pass
@@ -109,8 +110,8 @@ from ..io.dataset import TorchDataset
 from ..objectives import Objective
 from ..ops import sample
 from ..ops.graphs import TreeRunner, ValidScorer
-from ..ops.grow import (GrowParams, GrowState, key_words, tree_head,
-                        tree_tail)
+from ..ops.grow import (BOUND_RECORDS, GrowParams, GrowState, key_words,
+                        tree_head, tree_tail)
 from ..ops.histogram import multi_width
 from ..ops.lookup import take_small_add
 from ..ops.predict import flatten_forest, predict_raw
@@ -157,9 +158,12 @@ def records_to_tree(rec, config, train_set, counts_proxy=False) -> Tree:
     categories of its left mask's bins (bin 0 and the missing bin hold
     none; ``[0]`` when no category is left).  With ``leaf_stats_exact``
     (quantized training) the leaf values are renewed from the
-    full-precision sums;
+    full-precision sums, without the monotone clip, as the JAX package
+    renews them (:98-104);
     with ``counts_proxy`` (two-column passes, whose count slots hold hess
-    sums) the leaf and internal counts are restored from them."""
+    sums) the leaf and internal counts are restored from them.  With the
+    children's monotone bounds (``left_min`` ...) each split's child
+    values are clipped to them (:69-75)."""
     cfg = config
     ds = train_set
     tree = Tree(cfg.num_leaves)
@@ -183,6 +187,11 @@ def records_to_tree(rec, config, train_set, counts_proxy=False) -> Tree:
         ls = rec["left_stats"][i]
         rs = rec["right_stats"][i]
         lv, rv = out(ls[0], ls[1]), out(rs[0], rs[1])
+        if "left_min" in rec:
+            # the monotone bounds, which the device loop clipped to as well
+            lv = float(np.clip(lv, rec["left_min"][i], rec["left_max"][i]))
+            rv = float(np.clip(rv, rec["right_min"][i],
+                               rec["right_max"][i]))
         if "is_cat" in rec and bool(rec["is_cat"][i]):
             bins = np.nonzero(rec["left_mask"][i])[0]
             cats = [mapper.bin_2_categorical[b] for b in bins
@@ -227,11 +236,13 @@ def records_to_tree(rec, config, train_set, counts_proxy=False) -> Tree:
 def host_records(st: GrowState) -> dict:
     """The device records of the tree in ``st`` that the host reads: the
     split records (with categorical features also each split's kind and
-    left mask), the leaf count and, under quantization, the renewal sums
+    left mask; with monotone constraints its children's bounds), the leaf
+    count and, under quantization, the renewal sums
     ``leaf_stats_exact``."""
     S = st.params.num_leaves - 1
     keys = _HOST_RECORDS + (("is_cat", "left_mask") if "is_cat" in st.rec
-                            else ())
+                            else ()) + tuple(k for k in BOUND_RECORDS
+                                             if k in st.rec)
     rec = {k: st.rec[k][:S] for k in keys}
     rec["n_leaves"] = st.n_leaves
     if st.leaf_stats_exact is not None:
@@ -391,7 +402,8 @@ class GBDT:
                 min_data_per_group=config.min_data_per_group,
                 any_missing=any_missing,
                 any_cat=any_cat,
-                counts_proxy=two_col),
+                counts_proxy=two_col,
+                **self._constraint_tuples(config, train_set)),
             num_leaves=config.num_leaves,
             max_depth=config.max_depth,
             quantize=quantize,
@@ -463,6 +475,29 @@ class GBDT:
         # trees of each landed block, and its one records fetch
         self.block_sizes: List[int] = []
         self.records_fetches = 0
+
+    @staticmethod
+    def _constraint_tuples(config: Config, train_set: TorchDataset) -> dict:
+        """``monotone`` and ``penalty`` of the split parameters
+        (``lightgbm_tpu/models/gbdt.py:788-809``): the config's lists are
+        indexed by original column, remapped through ``used_features``
+        (missing entries neutral: 0 and 1.0); a tuple stays empty where
+        all of it is neutral, so the unconstrained scans run.  With EFB
+        they stay over logical features."""
+        used = train_set.used_features
+        mono = ()
+        if config.monotone_constraints:
+            mc = list(config.monotone_constraints)
+            vals = [int(mc[i]) if i < len(mc) else 0 for i in used]
+            if any(vals):
+                mono = tuple(vals)
+        pen = ()
+        if config.feature_contri:
+            fc = list(config.feature_contri)
+            vals = [float(fc[i]) if i < len(fc) else 1.0 for i in used]
+            if any(v != 1.0 for v in vals):
+                pen = tuple(vals)
+        return {"monotone": mono, "penalty": pen}
 
     def _bundle(self, config: Config, train_set: TorchDataset,
                 mappers) -> torch.Tensor:

@@ -43,6 +43,12 @@ scan (:507-517), so kernel S, the categorical scan and the records see
 features.  A split routes rows through its feature's bundle column and its
 mask translated by ``from_bundle`` (``goes_left_of``, :857-871).
 
+With monotone constraints (``SplitParams.monotone``) each leaf carries output
+bounds: a split's children get theirs from :func:`child_bounds` before
+their scans (:1139-1170, :1461-1466, :1658-1663), every scan clips to
+them, and the leaf values are clipped to them at the end (:1742-1744),
+before the quantized renewal, which does not clip (:1771-1798).
+
 With ``GrowParams.quantize`` the gradients are stochastically rounded to
 integers in ``[-quantize, quantize]`` first (:409-459); histograms sum the
 integers exactly and are dequantized by ``hist_scale``, and the leaf
@@ -80,15 +86,17 @@ from ..utils import prng
 from .histogram import (lanes_window_histogram, leaf_stats,
                         masked_histogram, multi_histogram, routed_histogram,
                         window_histogram)
-from .split import (NEG_INF, SplitParams, choose_window, depth_limit,
-                    find_best_split, find_best_split_c2f, fma32, leaf_output)
+from .split import (LOOP, NEG_INF, ROOT, WAVE, SplitParams, choose_window,
+                    depth_limit, find_best_split, find_best_split_c2f, fma32,
+                    leaf_output)
 
 __all__ = ["GrowParams", "GrowState", "build_tree", "tree_head",
            "serial_steps", "wave_loop", "wave_body", "read_flags",
            "tree_tail", "quantize_gradients", "key_words", "row_uniform",
-           "expand", "bin_sum"]
+           "expand", "bin_sum", "child_bounds", "BOUND_RECORDS"]
 
 _M32 = 0xFFFFFFFF
+_INF = float("inf")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,7 +204,12 @@ class GrowState:
     target of invalid lanes, the records a dummy slot L-1, and the next
     wave's lanes and flags (``topg``, ``ids``, ``valid_w``, ``t0``,
     ``flags``) live here too.  With ``bundles`` (:class:`BundleMaps`) ``xt``
-    is the (G, N) bundle matrix and the pool holds bundle columns.
+    is the (G, N) bundle matrix and the pool holds bundle columns.  With
+    monotone constraints the per-feature directions ``mono``, the
+    per-leaf output bounds ``leaf_min``/``leaf_max`` and the records'
+    children's bounds (``left_min``, ``left_max``, ``right_min``,
+    ``right_max``, :994-1002) live here too; with a feature penalty its
+    multipliers ``pen``.
 
     Allocated once; :func:`tree_head` resets everything a tree reads
     before it writes it, so one state serves every tree of a booster, and
@@ -286,7 +299,19 @@ class GrowState:
             self.best["is_cat"] = zeros(rows, torch.bool)
         # a wave's lane of each leaf (-1: none), row L the dummy's
         self.lane_of = zeros(rows, i64) if self.route_outside else None
-        self.rec = _records(L if self.wave else L - 1, B, dev, sp.any_cat)
+        # monotone constraints and the feature penalty (per logical feature)
+        self.mono = torch.tensor(sp.monotone, dtype=i32, device=dev) \
+            if sp.has_monotone else None
+        self.pen = torch.tensor(sp.penalty, dtype=f32, device=dev) \
+            if sp.has_penalty else None
+        # the root's (1, 2) output bounds (:906-907), None unconstrained
+        self.root_bounds = None
+        if self.mono is not None:
+            self.leaf_min = zeros(rows)
+            self.leaf_max = zeros(rows)
+            self.root_bounds = torch.tensor([[-_INF, _INF]], device=dev)
+        self.rec = _records(L if self.wave else L - 1, B, dev, sp.any_cat,
+                            self.mono is not None)
         self.n_leaves = torch.ones((), dtype=i32, device=dev)
         self.leaf_values = zeros(L)
         self.leaf_values_final = zeros(L)
@@ -436,17 +461,46 @@ def expand(hist: torch.Tensor, stats: torch.Tensor, bundles) -> torch.Tensor:
     return hf + bundles.fix[None, :, :, None] * rem[:, :, None, :]
 
 
-def _best_splits(hists, stats, depth, st: GrowState) -> dict:
+def _best_splits(hists, stats, depth, st: GrowState, bounds=None,
+                 site: str = ROOT) -> dict:
     """Best split of each of a batch of leaves, no split where the children
     would pass ``max_depth``: one kernel-S launch on the card, which
-    applies the depth limit itself.  Bundle histograms are expanded to
-    features first."""
+    applies the depth limit itself, under the monotone constraints (each
+    leaf's output bounds ``bounds`` (W, 2)) and the feature penalty;
+    ``site``: the scan's place in the loop (``ops/split.py``).  Bundle
+    histograms are expanded to features first."""
     p = st.params
     stats = stats.contiguous()
     return find_best_split(expand(hists, stats, st.bundles).contiguous(),
                            stats, st.num_bins, st.missing_type,
                            st.feature_mask, p.split, depth, p.max_depth,
-                           st.is_cat)
+                           st.is_cat, st.mono, st.pen, bounds, site)
+
+
+def child_bounds(ls, rs, mn_p, mx_p, feat, cat_flag, mono,
+                 sp: SplitParams) -> tuple:
+    """The children's output bounds of splits (``child_bounds``,
+    :838-855; serial_tree_learner.cpp:767-777): a numerical split on a
+    monotone feature pins its children on either side of ``mid``, the
+    mean of the two child outputs clipped to the parent's ``[mn_p,
+    mx_p]``; a categorical split (``cat_flag``, or None without
+    categorical features) or a free feature passes the parent's bounds
+    on.  Elementwise, so the exact loop's one split and a wave's W share
+    it: ``ls``/``rs`` (..., 3) stats, ``feat`` the split features ->
+    (l_min, l_max, r_min, r_max)."""
+    l1, l2, mds = sp.lambda_l1, sp.lambda_l2, sp.max_delta_step
+    lo = torch.minimum(torch.maximum(
+        leaf_output(ls[..., 0], ls[..., 1], l1, l2, mds), mn_p), mx_p)
+    ro = torch.minimum(torch.maximum(
+        leaf_output(rs[..., 0], rs[..., 1], l1, l2, mds), mn_p), mx_p)
+    mid = 0.5 * (lo + ro)
+    mono_f = mono.index_select(0, feat.reshape(-1).to(torch.int64)) \
+        .reshape(feat.shape)
+    up, dn = mono_f > 0, mono_f < 0
+    if cat_flag is not None:
+        up, dn = up & ~cat_flag, dn & ~cat_flag
+    return (torch.where(dn, mid, mn_p), torch.where(up, mid, mx_p),
+            torch.where(up, mid, mn_p), torch.where(dn, mid, mx_p))
 
 
 def _dequant(st: GrowState, h: torch.Tensor) -> torch.Tensor:
@@ -491,9 +545,18 @@ def _reset_leaves(st: GrowState, hist0, stats0, best0) -> None:
     for k, arr in st.best.items():
         arr.fill_(NEG_INF if k == "gain" else 0)
         arr[0] = best0[k][0]
-    for arr in st.rec.values():
-        arr.zero_()
+    for k, arr in st.rec.items():
+        arr.fill_(_BOUND_FILL.get(k, 0))
+    if st.mono is not None:
+        st.leaf_min.fill_(-_INF)
+        st.leaf_max.fill_(_INF)
     st.n_leaves.fill_(1)
+
+
+# the records of each split's children's monotone bounds, which start open
+# (:999-1002)
+BOUND_RECORDS = ("left_min", "left_max", "right_min", "right_max")
+_BOUND_FILL = dict(zip(BOUND_RECORDS, (-_INF, _INF, -_INF, _INF)))
 
 
 def _masked_hist(st: GrowState, leaf_id) -> tuple:
@@ -510,7 +573,8 @@ def _serial_root(st: GrowState) -> None:
     root_hist = _masked_hist(st, st.ids32[0])[1]
     root_best = _best_splits(root_hist[None], root_stats[None],
                              torch.zeros(1, dtype=torch.int32,
-                                         device=st.xt.device), st)
+                                         device=st.xt.device), st,
+                             st.root_bounds)
     _reset_leaves(st, root_hist, root_stats, root_best)
 
 
@@ -546,15 +610,28 @@ def serial_steps(st: GrowState) -> None:
         small_is_left = left_stats[2] <= right_stats[2]
         small_id = torch.where(small_is_left, _pick(ids32, l1), ids32[new])
         raw_small, hist_small = _masked_hist(st, small_id)
+        # the reference's compile of the step fuses the subtraction unless
+        # it also holds the categorical scan, and then still under the
+        # monotone clip (probed as ops/split.py's fusion sites)
+        sp = st.params.split
         hist_large = larger_child(_pick(st.pool, l1), raw_small,
                                   st.hist_scale,
-                                  fused=not st.params.split.any_cat)
+                                  fused=not sp.any_cat or sp.has_monotone)
         hist_l = torch.where(small_is_left, hist_small, hist_large)
         hist_r = torch.where(small_is_left, hist_large, hist_small)
         depth = _pick(st.leaf_depth, l1) + 1
+        bounds = None
+        if st.mono is not None:
+            # the children's bounds before their scans (:1139-1147)
+            l_min, l_max, r_min, r_max = child_bounds(
+                left_stats, right_stats, _pick(st.leaf_min, l1),
+                _pick(st.leaf_max, l1), cand["feature"], cand.get("is_cat"),
+                st.mono, sp)
+            bounds = torch.stack([torch.stack([l_min, l_max]),
+                                  torch.stack([r_min, r_max])])
         children = _best_splits(torch.stack([hist_l, hist_r]),
                                 torch.stack([left_stats, right_stats]),
-                                depth.reshape(1), st)
+                                depth.reshape(1), st, bounds, LOOP)
 
         pair = torch.cat([l1, st.ids64[new].reshape(1)])
         _put(st.pool, pair, torch.stack([hist_l, hist_r]), valid)
@@ -563,6 +640,12 @@ def serial_steps(st: GrowState) -> None:
         _put(st.leaf_depth, pair, depth.expand(2), valid)
         for k, arr in best.items():
             _put(arr, pair, children[k], valid)
+        if bounds is not None:
+            _put(st.leaf_min, pair, bounds[:, 0], valid)
+            _put(st.leaf_max, pair, bounds[:, 1], valid)
+            for k, v in (("left_min", l_min), ("left_max", l_max),
+                         ("right_min", r_min), ("right_max", r_max)):
+                rec[k][t] = torch.where(valid, v, rec[k][t])
 
         rec["leaf"][t] = torch.where(valid, _pick(ids32, l1),
                                      torch.full_like(ids32[0], -1))
@@ -578,7 +661,8 @@ def serial_steps(st: GrowState) -> None:
         st.n_leaves.add_(valid.to(torch.int32))
 
 
-def _records(S: int, B: int, dev, any_cat: bool = False) -> dict:
+def _records(S: int, B: int, dev, any_cat: bool = False,
+             bounds: bool = False) -> dict:
     def per_split(shape, dtype):
         return torch.zeros((S,) + shape, dtype=dtype, device=dev)
 
@@ -595,6 +679,9 @@ def _records(S: int, B: int, dev, any_cat: bool = False) -> dict:
     }
     if any_cat:
         rec["is_cat"] = per_split((), torch.bool)
+    if bounds:
+        for k in BOUND_RECORDS:
+            rec[k] = per_split((), torch.float32)
     return rec
 
 
@@ -608,17 +695,19 @@ def _value_operand(grad, hess, mask, p: GrowParams) -> torch.Tensor:
     return vals.contiguous()
 
 
-def _scan_c2f(st: GrowState, coarse, win, lo, stats, depth) -> dict:
+def _scan_c2f(st: GrowState, coarse, win, lo, stats, depth, bounds=None,
+              site: str = ROOT) -> dict:
     p = st.params
     b = find_best_split_c2f(coarse, win, lo, stats, st.num_bins,
                             st.missing_type, st.feature_mask, p.split,
-                            p.refine_shift)
+                            p.refine_shift, st.mono, st.pen, bounds, site)
     return depth_limit(b, depth, p.max_depth)
 
 
-def _window(st: GrowState, coarse, stats) -> torch.Tensor:
+def _window(st: GrowState, coarse, stats, bounds=None) -> torch.Tensor:
     return choose_window(coarse, stats, st.num_bins, st.missing_type,
-                         st.params.split, st.params.refine_shift)
+                         st.params.split, st.params.refine_shift, st.mono,
+                         bounds)
 
 
 def _wave_root(st: GrowState, g, h) -> None:
@@ -634,14 +723,15 @@ def _wave_root(st: GrowState, g, h) -> None:
     sel0 = torch.zeros(st.xt.shape[1], dtype=torch.int8, device=dev)
     root_hist = _dequant(st, multi_histogram(
         st.xt, st.kvals, sel0, st.Bp, 1, p.two_col, shift, st.miss_bin))
+    rb = st.root_bounds
     if shift:
-        lo0 = _window(st, root_hist, root_stats[None])
+        lo0 = _window(st, root_hist, root_stats[None], rb)
         root_win = _dequant(st, window_histogram(
             st.xt, st.kvals, sel0, lo0, st.R, 1, p.two_col, st.miss_bin))
         root_best = _scan_c2f(st, root_hist, root_win, lo0,
-                              root_stats[None], zero1)
+                              root_stats[None], zero1, rb)
     else:
-        root_best = _best_splits(root_hist, root_stats[None], zero1, st)
+        root_best = _best_splits(root_hist, root_stats[None], zero1, st, rb)
     _reset_leaves(st, root_hist[0], root_stats, root_best)
 
 
@@ -698,6 +788,12 @@ def wave_body(st: GrowState, wide: bool = False) -> None:
     rstat_w = st.leaf_stats.index_select(0, ids) - lstat_w
     small_left_w = lstat_w[:, 2] <= rstat_w[:, 2]
     depth_w = st.leaf_depth.index_select(0, ids) + 1
+    if st.mono is not None:
+        # the children's output bounds (:1461-1466, :1658-1663)
+        l_min, l_max, r_min, r_max = child_bounds(
+            lstat_w, rstat_w, st.leaf_min.index_select(0, ids),
+            st.leaf_max.index_select(0, ids), cw["feature"], cw.get("is_cat"),
+            st.mono, sp)
 
     if st.route_outside:
         hist_small = _route_wave(st, ids_leaf, cw, small_left_w, new_ids)
@@ -731,7 +827,9 @@ def wave_body(st: GrowState, wide: bool = False) -> None:
         ch_hist = pair(hist_l, hist_r)
         ch_stats = pair(lstat_w, rstat_w)
         ch_depth = pair(depth_w, depth_w)
-        win_lo = _window(st, ch_hist, ch_stats)                 # (2W, F)
+        ch_bounds = None if st.mono is None else torch.stack(
+            [pair(l_min, r_min), pair(l_max, r_max)], 1)        # (2W, 2)
+        win_lo = _window(st, ch_hist, ch_stats, ch_bounds)      # (2W, F)
         lane_ids = ch_ids.to(i32)
         if wide:
             win = lanes_window_histogram(
@@ -743,20 +841,31 @@ def wave_body(st: GrowState, wide: bool = False) -> None:
                 W, p.two_col, st.miss_bin, st.leaf_bound)
             win = torch.cat([win, torch.zeros_like(win)])
         win = _dequant(st, win)
-        bests = _scan_c2f(st, ch_hist, win, win_lo, ch_stats, ch_depth)
+        bests = _scan_c2f(st, ch_hist, win, win_lo, ch_stats, ch_depth,
+                          ch_bounds, WAVE)
     else:
         ch_ids = torch.cat([ids_leaf, new_leaf])
         ch_hist = torch.cat([hist_l, hist_r])
         ch_stats = torch.cat([lstat_w, rstat_w])
         ch_depth = torch.cat([depth_w, depth_w])
+        ch_bounds = None if st.mono is None else torch.stack(
+            [torch.cat([l_min, r_min]), torch.cat([l_max, r_max])], 1)
         # all 2W children's best splits in one batched scan
-        bests = _best_splits(ch_hist, ch_stats, ch_depth, st)
+        bests = _best_splits(ch_hist, ch_stats, ch_depth, st, ch_bounds,
+                             WAVE)
 
     st.pool.index_copy_(0, ch_ids, ch_hist)
     st.leaf_stats.index_copy_(0, ch_ids, ch_stats)
     st.leaf_depth.index_copy_(0, ch_ids, ch_depth)
     for k, arr in best.items():
         arr.index_copy_(0, ch_ids, bests[k].to(arr.dtype))
+    if ch_bounds is not None:
+        # commit_wave's bounds (:1309-1322)
+        st.leaf_min.index_copy_(0, ch_ids, ch_bounds[:, 0].contiguous())
+        st.leaf_max.index_copy_(0, ch_ids, ch_bounds[:, 1].contiguous())
+        for k, val in (("left_min", l_min), ("left_max", l_max),
+                       ("right_min", r_min), ("right_max", r_max)):
+            rec[k].index_copy_(0, ids_rec, val)
     for k, val in (("leaf", ids), ("feature", cw["feature"]),
                    ("threshold", cw["threshold"]),
                    ("default_left", cw["default_left"]),
@@ -812,16 +921,21 @@ def _route_wave(st: GrowState, ids_leaf, cw: dict, small_left_w,
 
 
 def tree_tail(st: GrowState) -> None:
-    """A tree's last phase: the leaf values from the leaf stats and, under
-    quantization, their renewal from full-precision sums
-    (RenewIntGradTreeOutput) keyed by the final leaf assignment (kernel
-    Q); no value where the tree did not split."""
+    """A tree's last phase: the leaf values from the leaf stats (clipped to
+    the leaves' monotone bounds) and, under quantization, their renewal
+    from full-precision sums (RenewIntGradTreeOutput) keyed by the final
+    leaf assignment (kernel Q); no value where the tree did not split."""
     p = st.params
     sp = p.split
     L = p.num_leaves
     leaf_stats_ = st.leaf_stats[:L]
     leaf_values = leaf_output(leaf_stats_[:, 0], leaf_stats_[:, 1],
                               sp.lambda_l1, sp.lambda_l2, sp.max_delta_step)
+    if st.mono is not None:
+        # the monotone bounds' clip (:1742-1744); the renewal below does
+        # not clip, as the JAX package's does not (:1771-1798)
+        leaf_values = torch.minimum(torch.maximum(
+            leaf_values, st.leaf_min[:L]), st.leaf_max[:L])
     final = leaf_values
     if p.quantize:
         ex = leaf_stats(st.leaf_idx, st.grad_raw, st.hess_raw,

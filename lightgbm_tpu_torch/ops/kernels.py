@@ -52,9 +52,9 @@ _SIGNATURES = {
     "ltt_hist_masked": [_P, _I, _P, _P, _P, _P, _I, _P, _I64, _I, _I, _I,
                         _I, _I64, _I, _P, _P, _P],
     "ltt_hist_active_clusters": [_I, _I, _I],
-    "ltt_best_split": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                       _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _P],
+    "ltt_best_split": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I,
+                       _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P,
+                       _P, _P, _P, _P, _P, _P],
     "ltt_leaf_add": [_P, _I, _P, _I, _P, _I, _I64, _I, _I64, _P],
     "ltt_multi_hist": [_P, _I, _P, _P, _I, _I, _I64, _I, _I, _I, _I, _P,
                        _I, _I, _I64, _I, _P, _P, _P, _P],

@@ -15,7 +15,10 @@ Numerical features with missing values (both default directions),
 min_data_in_leaf, min_sum_hessian_in_leaf, lambda_l1/l2, max_delta_step
 and min_gain_to_split; categorical features with ``cat_l2``,
 ``cat_smooth``, ``max_cat_to_onehot``, ``max_cat_threshold`` and
-``min_data_per_group``.  Ties resolve first-max: lowest bin within a
+``min_data_per_group``; monotone constraints (each lane's output bounds
+and each feature's direction, ``_split_gain`` :100-116) and the feature
+penalty (``feature_contri``), in the plain versions and in kernel S's
+constrained mode.  Ties resolve first-max: lowest bin within a
 feature, then lowest feature.  With categorical features the numerical
 scan (kernel S on the card) skips them and the categorical scan takes
 them; one merge keeps the first-max order (:func:`merge_records`).  The
@@ -44,14 +47,25 @@ __all__ = ["EPS", "NEG_INF", "SplitParams", "leaf_output", "leaf_gain",
 EPS = 1e-15
 NEG_INF = -1e30
 
-# launches of kernel S through :func:`find_best_split`, one per call
-LAUNCHES = {"best_split": 0}
+# where a scan runs in the growth loop: the root, the exact loop's step, a
+# wave's children (the scans' ``site``, :data:`_CLIP_FUSION`)
+ROOT, LOOP, WAVE = "root", "loop", "wave"
+# kernel S's fusion operand under the clip: 0 as the root (default right
+# fuses its first product, default left its second), 1 as the exact loop
+# (both their first), 2 as a wave's children (both their second)
+_KERNEL_FUSION = {ROOT: 0, LOOP: 1, WAVE: 2}
+
+# launches of kernel S through :func:`find_best_split`, one per call: in
+# its constrained mode (any of monotone, penalty, bounds), or not
+LAUNCHES = {"best_split": 0, "best_split_constrained": 0}
 
 
 @dataclasses.dataclass(frozen=True)
 class SplitParams:
-    """Split-finding parameters (the JAX package's ``SplitParams``
-    without monotone constraints and feature penalties).  ``any_missing``
+    """Split-finding parameters (the JAX package's ``SplitParams``).
+    ``monotone`` and ``penalty`` are per-feature tuples padded to the
+    feature count (empty: no constraint, every multiplier 1), static as
+    there, so the unconstrained scans keep their code.  ``any_missing``
     and ``any_cat`` are dataset facts: with no missing bin anywhere only
     the default-right scan runs, and with no categorical feature no
     categorical scan.
@@ -77,6 +91,18 @@ class SplitParams:
     # feasibility is then the hessian test alone, with
     # msh = max(min_sum_hessian_in_leaf, EPS)
     counts_proxy: bool = False
+    # -1/0/+1 per feature (monotone_constraints)
+    monotone: tuple = ()
+    # gain multipliers per feature (feature_contri)
+    penalty: tuple = ()
+
+    @property
+    def has_monotone(self) -> bool:
+        return bool(self.monotone) and any(self.monotone)
+
+    @property
+    def has_penalty(self) -> bool:
+        return bool(self.penalty) and any(x != 1.0 for x in self.penalty)
 
 
 def threshold_l1(s, l1):
@@ -122,12 +148,24 @@ def leaf_gain(g, h, l1, l2, max_delta_step):
                               l1, l2)
 
 
-def _split_gain(gl, hl, gr, hr, l1, l2, mds, fuse_first=True):
-    """GetSplitGains (feature_histogram.hpp:456-465), unconstrained."""
+def _split_gain(gl, hl, gr, hr, l1, l2, mds, fuse_first=True, mn=None,
+                mx=None, mono=None):
+    """GetSplitGains (feature_histogram.hpp:456-465): with bounds, both
+    child outputs clipped to the leaf's ``[mn, mx]``; with ``mono``, a
+    candidate whose outputs break the feature's direction (left above
+    right for +1, below for -1) gets NEG_INF (the JAX package's
+    ``_split_gain``, :100-116)."""
     lo = leaf_output(gl, hl, l1, l2, mds)
     ro = leaf_output(gr, hr, l1, l2, mds)
-    return (_gain_given_output(gl, hl, lo, l1, l2, fuse_first) +
-            _gain_given_output(gr, hr, ro, l1, l2, fuse_first))
+    if mn is not None:
+        lo = torch.minimum(torch.maximum(lo, mn), mx)
+        ro = torch.minimum(torch.maximum(ro, mn), mx)
+    g = (_gain_given_output(gl, hl, lo, l1, l2, fuse_first) +
+         _gain_given_output(gr, hr, ro, l1, l2, fuse_first))
+    if mono is not None:
+        viol = ((mono > 0) & (lo > ro)) | ((mono < 0) & (lo < ro))
+        g = torch.where(viol, torch.full_like(g, NEG_INF), g)
+    return g
 
 
 def lane_scalars(parent: torch.Tensor, p: SplitParams) -> torch.Tensor:
@@ -138,6 +176,41 @@ def lane_scalars(parent: torch.Tensor, p: SplitParams) -> torch.Tensor:
                       p.max_delta_step)
     gshift = pgain + p.min_gain_to_split
     return torch.cat([parent[:, :3], gshift[:, None]], dim=1).contiguous()
+
+
+# Under the monotone clip the reference's CPU compile contracts other
+# products of a gain into the multiply-add (:func:`_gain_given_output`),
+# and which depends on the unit it compiles the scan in: the root's, the
+# exact loop's step, or the vmapped scan of a wave's children.  Probed
+# against the JAX package's trees on bit-identical quantized histograms
+# (``tests/test_torch_monotone_train.py``), each site's (numerical default
+# right, default left; categorical one-vs-other, sorted from the low end,
+# from the high end), True where the first product is fused.  Without the
+# clip every site fuses as :func:`_scan_both`, :func:`categorical_split`
+# and the c2f scans say.
+_CLIP_FUSION = {ROOT: (True, False, True, True, True),
+                LOOP: (True, True, False, True, True),
+                WAVE: (False, False, False, False, False)}
+
+
+def _lane_bounds(bounds):
+    """(mn, mx) of the lanes' output bounds (W, 2), each (W, 1, 1) beside
+    the candidates (the JAX package's lane slots 4-5, :713-735), or (None,
+    None) without bounds."""
+    if bounds is None:
+        return None, None
+    return bounds[:, 0, None, None], bounds[:, 1, None, None]
+
+
+def _penalize(gain: torch.Tensor, penalty) -> torch.Tensor:
+    """feature_contri: a real candidate's gain times its feature's
+    multiplier, after the default directions' max and before the feature
+    mask (``find_best_split``, :214-218, :303-309).  ``gain`` (W, F, K),
+    ``penalty`` (F,) or None."""
+    if penalty is None:
+        return gain
+    return torch.where(gain > 0.5 * NEG_INF, gain * penalty[None, :, None],
+                       gain)
 
 
 _CHUNK = 16
@@ -167,15 +240,18 @@ def prefix_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     return out.reshape(x.shape)[..., :n].movedim(-1, dim)
 
 
-def _scan_gains(L, pst, gshift, ok, p: SplitParams, fuse_first: bool):
+def _scan_gains(L, pst, gshift, ok, p: SplitParams, fuse_first: bool,
+                mn=None, mx=None, mono=None):
     """Net gains of the candidates whose left side is ``L`` (..., 3):
     ``parent - L`` on the right, NEG_INF where ``ok`` is false or a side
     fails min_data / min_sum_hessian.  ``fuse_first``: which product of
-    the gain the multiply-add takes (:func:`_gain_given_output`)."""
+    the gain the multiply-add takes (:func:`_gain_given_output`);
+    ``mn``/``mx``/``mono``: :func:`_split_gain`'s constraints."""
     R = pst - L
     g = _split_gain(L[..., 0], L[..., 1] + EPS, R[..., 0], R[..., 1] + EPS,
                     p.lambda_l1, p.lambda_l2, p.max_delta_step,
-                    fuse_first=fuse_first) - gshift
+                    fuse_first=fuse_first, mn=mn, mx=mx,
+                    mono=mono) - gshift
     msh = p.min_sum_hessian_in_leaf
     if p.counts_proxy:
         hmin = max(msh, EPS)
@@ -188,20 +264,27 @@ def _scan_gains(L, pst, gshift, ok, p: SplitParams, fuse_first: bool):
 
 
 def _scan_both(cum, miss, no_miss, pst, gshift, ok, p: SplitParams,
-               left_fuse_first: bool = False):
+               left_fuse_first: bool = False, mn=None, mx=None, mono=None,
+               right_fuse_first: bool = True):
     """Both default directions over prefix stats ``cum`` (W, F, K, 3)
     -> (gain, left stats, default left), each per candidate.  ``miss``
     (W, F, 3) holds the missing bin's stats (None without missing
     values); default left is scanned only where the leaf has missing
     rows (``~no_miss``) and wins only when strictly better.  The
-    default-right gains fuse their first product; the default-left ones
-    the first with ``left_fuse_first``, else the second — the
-    contractions of the reference's CPU compile of each scan."""
-    g_r = _scan_gains(cum, pst, gshift, ok, p, fuse_first=True)
+    default-right gains fuse their first product (the second with
+    ``right_fuse_first`` false); the default-left ones the first with
+    ``left_fuse_first``, else the second — the contractions of the
+    reference's CPU compile of each scan.
+    ``mn``/``mx`` (W, 1, 1) and ``mono`` (1, F, 1): the constraints of
+    :func:`_split_gain`, or None."""
+    cons = dict(mn=mn, mx=mx, mono=mono)
+    g_r = _scan_gains(cum, pst, gshift, ok, p, fuse_first=right_fuse_first,
+                      **cons)
     if miss is None:
         return g_r, cum, torch.zeros_like(g_r, dtype=torch.bool)
     L_l = cum + miss[:, :, None, :]
-    g_l = _scan_gains(L_l, pst, gshift, ok, p, fuse_first=left_fuse_first)
+    g_l = _scan_gains(L_l, pst, gshift, ok, p, fuse_first=left_fuse_first,
+                      **cons)
     g_l = torch.where(no_miss[..., None], torch.full_like(g_l, NEG_INF), g_l)
     dirl = g_l > g_r
     return (torch.where(dirl, g_l, g_r),
@@ -247,7 +330,8 @@ def find_best_split_plain(hist: torch.Tensor, parent: torch.Tensor,
                           num_bins: torch.Tensor, missing_type: torch.Tensor,
                           feature_mask: torch.Tensor, p: SplitParams,
                           depth=None, max_depth: int = 0,
-                          is_cat=None) -> dict:
+                          is_cat=None, monotone=None, penalty=None,
+                          bounds=None, site: str = ROOT) -> dict:
     """Best split for a batch of W leaves — plain PyTorch.
 
     hist (W, F, B, 3) float32; parent (W, 3) float32; num_bins /
@@ -259,20 +343,37 @@ def find_best_split_plain(hist: torch.Tensor, parent: torch.Tensor,
     depth has reached ``max_depth`` gets gain NEG_INF (the growth loop's
     depth limit).  With ``p.any_cat``, ``is_cat`` (F,) bool names the
     categorical features: the record also holds ``is_cat`` (W,) bool, and
-    a categorical split's left mask is its category set."""
+    a categorical split's left mask is its category set.
+
+    The constraints (``find_best_split``'s, :135-139): ``monotone`` (F,)
+    int32 directions, ``penalty`` (F,) float32 gain multipliers and
+    ``bounds`` (W, 2) float32, each lane's output bounds ``[mn, mx]``,
+    present exactly when ``monotone`` is (``p.has_monotone``); each None
+    where the parameters carry none.  Categorical splits clip to the
+    bounds and carry no direction.  ``site`` (:data:`ROOT`, :data:`LOOP` or
+    :data:`WAVE`): where the growth loop scans, which decides the fused
+    products under the clip."""
+    cons = dict(monotone=monotone, penalty=penalty, bounds=bounds, site=site)
     if p.any_cat:
         num = _numerical_split(hist, parent, num_bins, missing_type,
-                               feature_mask & ~is_cat, p)
+                               feature_mask & ~is_cat, p, **cons)
         rec = merge_records(num, categorical_split(
-            hist, parent, num_bins, missing_type, is_cat, feature_mask, p))
+            hist, parent, num_bins, missing_type, is_cat, feature_mask, p,
+            penalty, bounds, site))
     else:
         rec = _numerical_split(hist, parent, num_bins, missing_type,
-                               feature_mask, p)
+                               feature_mask, p, **cons)
     return depth_limit(rec, depth, max_depth)
 
 
+def _mono_col(monotone):
+    """(F,) directions as (1, F, 1) beside the candidates, or None."""
+    return None if monotone is None else monotone[None, :, None]
+
+
 def _numerical_split(hist, parent, num_bins, missing_type, feature_mask,
-                     p: SplitParams) -> dict:
+                     p: SplitParams, monotone=None, penalty=None,
+                     bounds=None, site: str = ROOT) -> dict:
     """The plain numerical scan: :func:`find_best_split_plain` over the
     features of ``feature_mask``, no depth limit."""
     W, F, B, _ = hist.shape
@@ -280,6 +381,7 @@ def _numerical_split(hist, parent, num_bins, missing_type, feature_mask,
     lane = lane_scalars(parent, p)
     pst = lane[:, None, None, :3]                          # (W,1,1,3)
     gshift = lane[:, 3][:, None, None]                     # (W,1,1)
+    mn, mx = _lane_bounds(bounds)
     nb = num_bins.to(torch.int64)
     jidx = torch.arange(B, device=dev)
     nv, has_missing = _nv_missing(num_bins, missing_type, p)
@@ -292,16 +394,21 @@ def _numerical_split(hist, parent, num_bins, missing_type, feature_mask,
         miss = hist[:, torch.arange(F, device=dev), nb - 1, :] * \
             has_missing[None, :, None].to(hist.dtype)        # (W, F, 3)
         no_miss = miss[..., 2] <= 0                          # (W, F)
+    right, left = _CLIP_FUSION[site][:2] if mn is not None else (True, False)
     gain, L_win, dirl = _scan_both(cum, miss, no_miss, pst, gshift, cand_ok,
-                                   p)
-    return _record(gain, L_win, dirl, jidx.expand(W, F, B), num_bins,
-                   has_missing, feature_mask, B)
+                                   p, left_fuse_first=left, mn=mn, mx=mx,
+                                   mono=_mono_col(monotone),
+                                   right_fuse_first=right)
+    return _record(_penalize(gain, penalty), L_win, dirl,
+                   jidx.expand(W, F, B), num_bins, has_missing, feature_mask,
+                   B)
 
 
 def categorical_split(hist: torch.Tensor, parent: torch.Tensor,
                       num_bins: torch.Tensor, missing_type: torch.Tensor,
                       is_cat: torch.Tensor, feature_mask: torch.Tensor,
-                      p: SplitParams) -> dict:
+                      p: SplitParams, penalty=None, bounds=None,
+                      site: str = ROOT) -> dict:
     """The best categorical split of each of W leaves over the features of
     ``is_cat & feature_mask`` (``find_best_split``, :206-302) -> the
     record of :func:`find_best_split_plain` with ``is_cat`` true.
@@ -315,12 +422,17 @@ def categorical_split(hist: torch.Tensor, parent: torch.Tensor,
     Bin 0, the "other" bin, never goes left; the missing bin is no
     category.  The prefix sums are :func:`prefix_sum`'s, as every scan's
     here.  The candidate index of a sorted split is its position in the
-    sort, as in the JAX package; the left mask holds its categories."""
+    sort, as in the JAX package; the left mask holds its categories.
+    With ``bounds`` (W, 2) both child outputs are clipped to the lane's
+    bounds, with no monotone direction (:249-254), and each scan fuses as
+    ``site`` says (:data:`_CLIP_FUSION`); ``penalty`` (F,) scales the
+    merged gains as :func:`_penalize` (:303-309)."""
     W, F, B, _ = hist.shape
     dev = hist.device
     lane = lane_scalars(parent, p)
     pst = lane[:, None, None, :3]
     gshift = lane[:, 3][:, None, None]
+    mn, mx = _lane_bounds(bounds)
     l1, l2c, mds = p.lambda_l1, p.lambda_l2 + p.cat_l2, p.max_delta_step
     nv, _ = _nv_missing(num_bins, missing_type, p)
     jidx = torch.arange(B, device=dev)
@@ -356,8 +468,15 @@ def categorical_split(hist: torch.Tensor, parent: torch.Tensor,
     ok = torch.stack([onehot_ok[None].expand(W, F, B), ok_lo & many_ok,
                       ok_hi & many_ok])
     R = pst - L
-    g = _split_gain(L[..., 0], L[..., 1] + EPS, R[..., 0], R[..., 1] + EPS,
-                    l1, l2c, mds) - gshift
+    if mn is None:
+        g = _split_gain(L[..., 0], L[..., 1] + EPS, R[..., 0],
+                        R[..., 1] + EPS, l1, l2c, mds)
+    else:
+        g = torch.stack([
+            _split_gain(L[i, ..., 0], L[i, ..., 1] + EPS, R[i, ..., 0],
+                        R[i, ..., 1] + EPS, l1, l2c, mds, first, mn, mx)
+            for i, first in enumerate(_CLIP_FUSION[site][2:])])
+    g = g - gshift
     md = max(p.min_data_in_leaf, 1)
     msh = p.min_sum_hessian_in_leaf
     # (made on the device: a captured graph holds no host copy)
@@ -369,7 +488,7 @@ def categorical_split(hist: torch.Tensor, parent: torch.Tensor,
     cat1, g_lo, g_hi = torch.where(ok, g, torch.full_like(g, NEG_INF))
     many = torch.maximum(g_lo, g_hi)
     from_low = g_lo >= g_hi
-    gain = torch.maximum(cat1, many)
+    gain = _penalize(torch.maximum(cat1, many), penalty)
     onehot = cat1 >= many
     gain = torch.where((is_cat & feature_mask)[None, :, None], gain,
                        torch.full_like(gain, NEG_INF))
@@ -493,32 +612,45 @@ def _nv_missing(num_bins, missing_type, p: SplitParams):
 
 
 def _c2f_coarse_scan(coarse, parent, num_bins, missing_type,
-                     p: SplitParams, shift: int):
+                     p: SplitParams, shift: int, monotone=None, bounds=None,
+                     site=None):
     """Gains at the coarse boundaries (``_c2f_coarse_scan``, :391-432) ->
     (gains (W, F, Bcv), left stats (W, F, Bcv, 3), fine thresholds
     (Bcv,), default left (W, F, Bcv)); boundary ``c`` is the fine
-    threshold ``((c + 1) << shift) - 1``."""
+    threshold ``((c + 1) << shift) - 1``.  ``monotone``/``bounds``/``site``:
+    as :func:`find_best_split_plain`'s.  The first products are fused, as
+    in :func:`choose_window`'s scan (``site`` None) at every site; under
+    the clip the split search's own coarse scan fuses the second products
+    at a wave's children, the default-left one's at the root."""
     lane = lane_scalars(parent, p)
     pst = lane[:, None, None, :3]
     gshift = lane[:, 3][:, None, None]
+    mn, mx = _lane_bounds(bounds)
     vals, miss, no_miss = _c2f_miss(coarse, missing_type, p)
     Bcv = vals.shape[2]
     nv, _ = _nv_missing(num_bins, missing_type, p)
     thr = ((torch.arange(Bcv, device=coarse.device) + 1) << shift) - 1
     ok = (thr[None, :] <= nv[:, None] - 2)[None]
+    right, left = True, True
+    if mn is not None and site is not None:
+        right, left = _CLIP_FUSION[site][:2]
     g, L, dirl = _scan_both(prefix_sum(vals, dim=2), miss, no_miss, pst,
-                            gshift, ok, p, left_fuse_first=True)
+                            gshift, ok, p, left_fuse_first=left, mn=mn,
+                            mx=mx, mono=_mono_col(monotone),
+                            right_fuse_first=right)
     return g, L, thr, dirl
 
 
 def choose_window(coarse: torch.Tensor, parent: torch.Tensor,
                   num_bins: torch.Tensor, missing_type: torch.Tensor,
-                  p: SplitParams, shift: int) -> torch.Tensor:
+                  p: SplitParams, shift: int, monotone=None,
+                  bounds=None) -> torch.Tensor:
     """Refine-window starts (W, F) int32, fine-bin ids aligned to coarse
     bins: the two coarse bins straddling each feature's best coarse
-    boundary (``choose_window``, :435-447)."""
+    boundary (``choose_window``, :435-447), under the monotone
+    constraints and bounds when given (no penalty)."""
     g, _, _, _ = _c2f_coarse_scan(coarse, parent, num_bins, missing_type, p,
-                                  shift)
+                                  shift, monotone, bounds)
     c_star = torch.argmax(g, dim=2)                        # first max
     win_c = c_star.clamp(0, max(g.shape[2] - 2, 0))
     return (win_c << shift).to(torch.int32)
@@ -528,7 +660,8 @@ def find_best_split_c2f(coarse: torch.Tensor, win: torch.Tensor,
                         win_lo: torch.Tensor, parent: torch.Tensor,
                         num_bins: torch.Tensor, missing_type: torch.Tensor,
                         feature_mask: torch.Tensor, p: SplitParams,
-                        shift: int) -> dict:
+                        shift: int, monotone=None, penalty=None,
+                        bounds=None, site: str = ROOT) -> dict:
     """Best split of each of a batch of W leaves from its coarse
     histogram and refine window (``find_best_split_c2f``, :450-550).
 
@@ -538,13 +671,17 @@ def find_best_split_c2f(coarse: torch.Tensor, win: torch.Tensor,
     plus the window's own prefix; the candidates are the coarse
     boundaries, then the window's thresholds, and the first maximum wins,
     so a threshold in both halves is taken from the coarse one on a tie.
+    The constraints are :func:`find_best_split_plain`'s; the penalty
+    scales the coarse and the fine gains alike.
     """
     W, F, R, _ = win.shape
     g_c, L_c, thr_c, dirl_c = _c2f_coarse_scan(coarse, parent, num_bins,
-                                               missing_type, p, shift)
+                                               missing_type, p, shift,
+                                               monotone, bounds, site)
     lane = lane_scalars(parent, p)
     pst = lane[:, None, None, :3]
     gshift = lane[:, 3][:, None, None]
+    mn, mx = _lane_bounds(bounds)
     vals_c, miss, no_miss = _c2f_miss(coarse, missing_type, p)
     nv, has_missing = _nv_missing(num_bins, missing_type, p)
     cum_c = prefix_sum(vals_c, dim=2)
@@ -555,11 +692,14 @@ def find_best_split_c2f(coarse: torch.Tensor, win: torch.Tensor,
     thr_f = win_lo.to(torch.int64)[..., None] + \
         torch.arange(R, device=win.device)                  # (W, F, R)
     ok_f = thr_f <= nv[None, :, None] - 2
+    right, left = (True, not (p.counts_proxy and R > _CHUNK)) if mn is None \
+        else _CLIP_FUSION[site][:2]
     g_f, L_f, dirl_f = _scan_both(
-        Lf_base, miss, no_miss, pst, gshift, ok_f, p,
-        left_fuse_first=not (p.counts_proxy and R > _CHUNK))
+        Lf_base, miss, no_miss, pst, gshift, ok_f, p, left_fuse_first=left,
+        mn=mn, mx=mx, mono=_mono_col(monotone), right_fuse_first=right)
     Bcv = g_c.shape[2]
-    return _record(torch.cat([g_c, g_f], dim=2), torch.cat([L_c, L_f], dim=2),
+    return _record(_penalize(torch.cat([g_c, g_f], dim=2), penalty),
+                   torch.cat([L_c, L_f], dim=2),
                    torch.cat([dirl_c, dirl_f], dim=2),
                    torch.cat([thr_c.expand(W, F, Bcv), thr_f], dim=2),
                    num_bins, has_missing, feature_mask, p.max_bin)
@@ -568,7 +708,9 @@ def find_best_split_c2f(coarse: torch.Tensor, win: torch.Tensor,
 def find_best_split(hist: torch.Tensor, parent: torch.Tensor,
                     num_bins: torch.Tensor, missing_type: torch.Tensor,
                     feature_mask: torch.Tensor, p: SplitParams,
-                    depth=None, max_depth: int = 0, is_cat=None) -> dict:
+                    depth=None, max_depth: int = 0, is_cat=None,
+                    monotone=None, penalty=None, bounds=None,
+                    site: str = ROOT) -> dict:
     """Best split for a batch of W leaves, as :func:`find_best_split_plain`.
     CUDA tensors go to kernel S: one launch for the batch, which computes
     the lane scalars and the depth limit itself, into one buffer (calls on
@@ -576,37 +718,50 @@ def find_best_split(hist: torch.Tensor, parent: torch.Tensor,
     order); CPU tensors to the plain version.  With ``p.any_cat`` kernel S
     scans the numerical features, :func:`categorical_split` the
     categorical ones, and :func:`merge_records` joins them, then the
-    depth limit."""
+    depth limit.  ``monotone``, ``penalty``, ``bounds`` and ``site`` (the
+    constraints of :func:`find_best_split_plain`) reach kernel S's
+    constrained mode."""
+    cons = dict(monotone=monotone, penalty=penalty, bounds=bounds, site=site)
     if hist.device.type == "cpu":
         return find_best_split_plain(hist, parent, num_bins, missing_type,
                                      feature_mask, p, depth, max_depth,
-                                     is_cat)
+                                     is_cat, **cons)
     if p.any_cat:
         if is_cat is None or is_cat.shape != feature_mask.shape or \
                 is_cat.dtype != torch.bool:
             raise ValueError("any_cat needs is_cat, bool like feature_mask")
         num = _best_split_kernel(hist, parent, num_bins, missing_type,
-                                 feature_mask & ~is_cat, p, None, 0)
+                                 feature_mask & ~is_cat, p, None, 0, **cons)
         rec = merge_records(num, categorical_split(
-            hist, parent, num_bins, missing_type, is_cat, feature_mask, p))
+            hist, parent, num_bins, missing_type, is_cat, feature_mask, p,
+            penalty, bounds, site))
         return depth_limit(rec, depth, max_depth)
     return _best_split_kernel(hist, parent, num_bins, missing_type,
-                              feature_mask, p, depth, max_depth)
+                              feature_mask, p, depth, max_depth, **cons)
 
 
 def _best_split_kernel(hist, parent, num_bins, missing_type, feature_mask,
-                       p: SplitParams, depth, max_depth: int) -> dict:
-    """Kernel S's launch for :func:`find_best_split`."""
+                       p: SplitParams, depth, max_depth: int, monotone=None,
+                       penalty=None, bounds=None, site: str = ROOT) -> dict:
+    """Kernel S's launch for :func:`find_best_split`; each constraint given
+    turns on its part of the kernel's constrained mode."""
     W, F, B, C = hist.shape
     if C != 3 or hist.dtype != torch.float32 or not hist.is_contiguous():
         raise ValueError("hist must be contiguous float32 (W, F, B, 3)")
     if parent.shape != (W, 3) or parent.dtype != torch.float32 or \
             not parent.is_contiguous():
         raise ValueError("parent must be contiguous float32 (W, 3)")
-    for name, t in (("num_bins", num_bins), ("missing_type", missing_type)):
-        if t.shape != (F,) or t.dtype != torch.int32 or \
-                not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous int32 ({F},)")
+    for name, t, shape, dtype in (
+            ("num_bins", num_bins, (F,), torch.int32),
+            ("missing_type", missing_type, (F,), torch.int32),
+            ("monotone", monotone, (F,), torch.int32),
+            ("penalty", penalty, (F,), torch.float32),
+            ("bounds", bounds, (W, 2), torch.float32)):
+        if t is not None and (t.shape != shape or t.dtype != dtype or
+                              not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous {dtype} {shape}")
+    if (monotone is None) != (bounds is None):
+        raise ValueError("monotone and bounds come together")
     if feature_mask.shape != (F,) or feature_mask.dtype != torch.bool:
         raise ValueError(f"feature_mask must be bool ({F},)")
     if depth is not None and (depth.dim() != 1 or
@@ -615,18 +770,23 @@ def _best_split_kernel(hist, parent, num_bins, missing_type, feature_mask,
         raise ValueError(f"depth must be int32 ({W},) or (1,)")
     dev = hist.device
     if any(t is not None and t.device != dev for t in
-           (parent, num_bins, missing_type, feature_mask, depth)):
+           (parent, num_bins, missing_type, feature_mask, depth, monotone,
+            penalty, bounds)):
         raise ValueError("all inputs must be on one device")
     lib = kernels.load()
     fmask = feature_mask.contiguous()
     rec, part = _record_views(W, F, B, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     rc = lib.ltt_best_split(
         hist.data_ptr(), parent.data_ptr(), num_bins.data_ptr(),
-        missing_type.data_ptr(), fmask.data_ptr(),
-        None if depth is None else depth.data_ptr(),
+        missing_type.data_ptr(), fmask.data_ptr(), ptr(depth),
         0 if depth is None or depth.shape[0] == 1 else depth.stride(0),
-        max_depth, W, F, B,
+        max_depth, ptr(monotone), ptr(penalty), ptr(bounds),
+        _KERNEL_FUSION[site], W, F, B,
         p.lambda_l1, p.lambda_l2, p.max_delta_step,
         float(max(p.min_data_in_leaf, 1)),
         max(p.min_sum_hessian_in_leaf, EPS) if p.counts_proxy
@@ -637,5 +797,6 @@ def _best_split_kernel(hist, parent, num_bins, missing_type, feature_mask,
         rec["threshold"].data_ptr(), rec["default_left"].data_ptr(),
         rec["left_mask"].data_ptr(), stream)
     kernels.check(rc, "kernel S (ltt_best_split)")
-    LAUNCHES["best_split"] += 1
+    constrained = monotone is not None or penalty is not None
+    LAUNCHES["best_split_constrained" if constrained else "best_split"] += 1
     return rec

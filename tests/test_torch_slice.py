@@ -184,6 +184,23 @@ def test_cuda_default_raises_without_a_card():
     {"tree_learner": "data"}, {"monotone_constraints": [1, 0, 0, 0, 0, 0]},
 ])
 def test_unimplemented_parameters_raise(params):
+    """Forced splits, speculative arming and parallel learners raise.  The
+    feature penalty and monotone constraints, which raised here until the
+    port had them, train and give the JAX package's trees."""
+    if "feature_contri" in params or "monotone_constraints" in params:
+        X, y = _data(6, "binary", True, n=2000)
+        p = {"objective": "binary", "verbose": -1, "num_leaves": 15,
+             "max_bin": 63, "metric": "None", **params}
+        bj = lgb.train(p, lgb.Dataset(X, label=y, params=p),
+                       num_boost_round=2, verbose_eval=False)
+        pt = dict(p, device_type="cpu")
+        bt = ltt.train(pt, ltt.Dataset(X, label=y, params=pt),
+                       num_boost_round=2)
+        sp = bt._gbdt.grow_params.split
+        assert sp.has_penalty or sp.has_monotone
+        from test_torch_objectives import hold_to_jax
+        assert hold_to_jax(bj, bt, X, y) is None
+        return
     X, y = _data(6, "binary", False, n=200)
     p = {"objective": "binary", "device_type": "cpu", "verbose": -1,
          **params}
