@@ -283,8 +283,23 @@ drives the port only (nothing of JAX or of ``lightgbm_tpu``):
    constrained mode (random directions, multipliers in [0.5, 1.5], finite
    bounds a lane) against its plain version bit for bit at W = 2, 2W =
    128 and the bundled (84, 652, 25, 3), each at the three fusion sites,
-   with its times beside the unconstrained rows.  Each phase prints its
-   seconds.
+   with its times beside the unconstrained rows.
+17. (run after phase 16, on phase 3's data) the numerical-health checks:
+   on exact255, wave255-noc2f and wave255, graphed, 2 clean iterations,
+   then 1 label in 1,000 NaN in place (the binary objective's sign
+   labels): ``NumericalHealthError`` at iteration 2 (phase "tree") with
+   the iteration, trees, training score and tree ids of before the call;
+   the labels restored, 3 more iterations profiled: the health
+   reductions' device time a tree (kernels by name) against an
+   iteration's busy time;
+   wave255 at fused_iters=4, depth 1: a rewind, the poisoned block's error
+   at iteration 2 (phase "superstep"), the queued block dropped; an
+   infinite label on exact255 at iteration 0 (the bias back out of the
+   score); a ``fobj`` whose gradients turn NaN at iteration 1; a no-split
+   stop (``min_data_in_leaf`` = N + 1) graphed and fused: 1 tree,
+   iteration 0; then H, S, L, M, R, Q, V and V-lanes on NaN-bearing
+   inputs at full width against their plain versions
+   (``phase_health_kernels``).  Each phase prints its seconds.
 
 Every phase passes or the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
@@ -5215,6 +5230,432 @@ def monotone_reduced_cells():
     return cells
 
 
+# ---- phase 17: the numerical-health checks at full width ---------------
+# phase 3's data and the three paths' parameters; the fused cell is wave255
+# at fused_iters 4, pipeline depth 1
+HEALTH_CELLS = {
+    "exact255": TRAIN_PARAMS,
+    "wave255-noc2f": dict(TRAIN_PARAMS, **WAVE_PARAMS),
+    "wave255": dict(TRAIN_PARAMS, **WAVE255_PARAMS),
+}
+HEALTH_EVERY = 1000          # 1 label in 1,000 NaN
+HEALTH_FUSED = 4
+# the health words' reduction (torch.aminmax) by its CUDA kernel's name
+HEALTH_NAMES = ("MinMaxOps",)
+
+
+def _health_state(torch, booster):
+    g = booster._gbdt
+    return (booster.current_iteration(), booster.num_trees(),
+            g.train_score_tensor().clone(), g._trees_dispatched)
+
+
+def expect_health_error(torch, booster, step, want, what, queued=False):
+    """``step()`` must raise ``NumericalHealthError`` at ``want``
+    (iteration, phase) and leave the booster at its served boundary: the
+    iteration, the trees and the training score (bit for bit) of before
+    the call, and the tree ids unless blocks were ``queued`` ahead.  ->
+    the failing call's seconds."""
+    from lightgbm_tpu_torch.utils.health import NumericalHealthError
+    before = _health_state(torch, booster)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        step()
+    except NumericalHealthError as e:
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if (e.iteration, e.phase) != want:
+            fail(f"{what}: NumericalHealthError at iteration {e.iteration} "
+                 f"({e.phase}), not {want}")
+    else:
+        fail(f"{what}: trained on non-finite state without an error")
+    after = _health_state(torch, booster)
+    if after[:2] != before[:2] or not torch.equal(after[2], before[2]) or (
+            not queued and after[3] != before[3]):
+        fail(f"{what}: the booster is not at its served boundary after the "
+             f"error: iteration, trees {after[:2]} against {before[:2]}, "
+             f"tree ids {after[3]} against {before[3]}")
+    return secs
+
+
+def poison_labels(torch, booster, value=float("nan"), every=HEALTH_EVERY,
+                  rows=None):
+    """The binary objective's sign labels, which its gradients read, set
+    to ``value`` in place (1 row in ``every``, or ``rows``); -> the
+    labels before."""
+    lab = booster._gbdt.objective.sign_label
+    saved = lab.clone()
+    lab[rows if rows is not None else slice(None, None, every)] = value
+    return saved
+
+
+def health_profile(torch, booster, want=4, iters=3, tries=5):
+    """``iters`` more iterations under ``torch.profiler``: the device time
+    of the health words' reductions a tree (kernels named
+    ``HEALTH_NAMES``, ``want`` a tree) and the busy device time an
+    iteration.  The profiler can drop a window's first kernels
+    (:func:`profile_calls`; in a long process it dropped the first
+    tree's first 2 reductions of every window), so the time a tree is
+    taken over the last whole trees' reductions, and a window that
+    recorded fewer than ``iters - 1`` trees' worth is profiled again, up
+    to ``tries`` times."""
+    from lightgbm_tpu_torch.tools.prof_iteration import kernel_table
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    seen = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            time.sleep(0.02)
+            for _ in range(iters):
+                booster.update()
+            torch.cuda.synchronize()
+        spans = sorted(
+            (e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and any(
+                k in e.name for k in HEALTH_NAMES))
+        busy_us, launches, _ = kernel_table(prof, torch)
+        trees = min(len(spans) // want, iters)
+        if trees >= iters - 1 and len(spans) <= want * iters and busy_us:
+            us = sum(e - s for s, e in spans[len(spans) - trees * want:])
+            return {"flags_device_ms": us / 1e3 / trees,
+                    "flags_kernels": want, "flags_recorded": len(spans),
+                    "busy_device_ms": busy_us / 1e3 / iters,
+                    "cuda_kernels": launches / iters,
+                    "flags_share": us / trees / (busy_us / iters),
+                    "profiled_iterations": iters}
+        seen.append(len(spans))
+    fail(f"phase 17: no profiled window of {iters} iterations recorded "
+         f"{want} health reductions a tree in {tries} tries (seen: {seen})")
+
+
+def phase_health(torch, ltt, data):
+    """Phase 17 on phase 3's data (10.5M x 28, 255 leaves): the
+    numerical-health checks on the card.  Each path of ``HEALTH_CELLS``
+    on the graphs: 2 clean iterations, 1 label in 1,000 NaN in place, the
+    error at iteration 2 (phase "tree") with the booster at its served
+    boundary; the labels restored, 3 more iterations profiled: the
+    health reductions' device time a tree against an iteration's busy
+    time.
+    wave255 at ``fused_iters`` 4, depth 1: 2 clean iterations, a rewind
+    to the served boundary, the poisoned block's error at iteration 2
+    (phase "superstep"), the queued block dropped.  An infinite label on
+    the exact loop at iteration 0 (the bias taken back out of the score);
+    a ``fobj`` whose gradients turn NaN at iteration 1; a no-split stop
+    (``min_data_in_leaf`` = N + 1) graphed and fused: 1 tree, iteration
+    0.  Then each kernel of the paths on NaN-bearing inputs
+    (:func:`phase_health_kernels`)."""
+    from lightgbm_tpu_torch.ops import graphs
+    ds = data[0]
+    e2e = {"card": card_line()}
+    nan = float("nan")
+    for cell, params in HEALTH_CELLS.items():
+        b = ltt.Booster(params=dict(params, device_type=DEVICE,
+                                    num_iterations=100), train_set=ds)
+        for _ in range(2):
+            b.update()
+        saved = poison_labels(torch, b)
+        replays = graphs.REPLAYS["graph_replays"]
+        secs = expect_health_error(torch, b, b.update, (2, "tree"), cell)
+        if graphs.REPLAYS["graph_replays"] == replays:
+            fail(f"{cell}: the failing tree did not run on the graphs")
+        b._gbdt.objective.sign_label.copy_(saved)
+        prof = health_profile(torch, b)
+        if b.current_iteration() < 5 or not np.all(np.isfinite(
+                b._gbdt.train_score())):
+            fail(f"{cell}: the booster did not train on from its boundary")
+        prof["failing_update_s"] = secs
+        print(f"phase 17 {cell}: NumericalHealthError at iteration 2 "
+              f"(tree) in {secs:.3f} s, the booster at its boundary, then "
+              f"iterations 2-4 on clean labels, profiled; health reductions "
+              f"{prof['flags_kernels']} a tree ({prof['flags_recorded']} "
+              f"recorded in the window), "
+              f"{prof['flags_device_ms']:.4f} device ms of the iteration's "
+              f"{prof['busy_device_ms']:.3f} busy ms (share "
+              f"{prof['flags_share']:.5f}); {e2e['card']}",
+              flush=True)
+        e2e[cell] = prof
+        del b
+    # the fused cell: a rewind, then a poisoned block and a queued one
+    b = ltt.Booster(params=dict(HEALTH_CELLS["wave255"], device_type=DEVICE,
+                                num_iterations=100, fused_iters=HEALTH_FUSED,
+                                superstep_pipeline_depth=1), train_set=ds)
+    for _ in range(2):
+        b.update()
+    g = b._gbdt
+    g._fused_rewind()
+    poison_labels(torch, b)
+    secs = expect_health_error(torch, b, b.update, (2, "superstep"),
+                               "wave255 fused_iters=4 depth 1")
+    if g._sq or g._fused_block is not None or len(g.block_sizes) < 3:
+        fail("wave255 fused: the poisoned block and the queued one were not "
+             "dropped")
+    print(f"phase 17 wave255 fused_iters={HEALTH_FUSED} depth 1: "
+          f"NumericalHealthError at iteration 2 (superstep) in {secs:.3f} s, "
+          f"blocks dropped, the booster at its boundary", flush=True)
+    e2e["wave255-fused"] = {"failing_update_s": secs}
+    del b, g
+    # an infinite label at iteration 0: the bias goes back out
+    b = ltt.Booster(params=dict(TRAIN_PARAMS, device_type=DEVICE),
+                    train_set=ds)
+    poison_labels(torch, b, float("inf"), rows=[7])
+    expect_health_error(torch, b, b.update, (0, "tree"), "exact255 inf label")
+    if float(b._gbdt.train_score_tensor().abs().max()) != 0.0:
+        fail("exact255 inf label: the bias stayed in the training score")
+    print("phase 17 exact255: an infinite label raises at iteration 0 "
+          "(tree), the score back at 0", flush=True)
+    del b
+    # fobj: NaN gradients from iteration 1
+    p = dict(TRAIN_PARAMS, **WAVE_PARAMS, device_type=DEVICE, metric="None")
+    p["objective"] = "none"
+    b = ltt.Booster(params=p, train_set=ds)
+
+    def fobj(score, dataset):
+        gr, he = logloss_fobj(score, dataset)
+        if b.current_iteration() >= 1:
+            gr[::HEALTH_EVERY] = nan
+        return gr, he
+
+    b.update(fobj=fobj)
+    secs = expect_health_error(torch, b, lambda: b.update(fobj=fobj),
+                               (1, "tree"), "wave255-noc2f fobj")
+    print(f"phase 17 wave255-noc2f fobj: NaN gradients raise at iteration 1 "
+          f"(tree) in {secs:.3f} s", flush=True)
+    del b
+    # a no-split stop at full width, graphed and fused
+    stop = dict(TRAIN_PARAMS, device_type=DEVICE, num_iterations=8,
+                min_data_in_leaf=N_ROWS + 1)
+    for what, extra in (("graphed", {}), ("fused", {
+            "fused_iters": HEALTH_FUSED, "superstep_pipeline_depth": 1,
+            "boost_from_average": False})):
+        b = ltt.Booster(params=dict(stop, **extra), train_set=ds)
+        for _ in range(3):
+            if b.update():
+                break
+        if (b.num_trees(), b.current_iteration()) != (1, 0) or \
+                not b._gbdt._stop_flag:
+            fail(f"no-split stop {what}: {b.num_trees()} trees, iteration "
+                 f"{b.current_iteration()}, not 1 and 0")
+        print(f"phase 17 no-split stop ({what}): 1 tree, iteration 0",
+              flush=True)
+        del b
+    torch.cuda.empty_cache()
+    e2e["kernels"] = phase_health_kernels(torch, ds)
+    return e2e
+
+
+def _nan_same(torch, k, q, rel, name, ctx):
+    """``k`` against ``q``: NaN at the same places, the same infinities,
+    finite values equal (``rel`` 0) or within ``rel``.  -> NaN count."""
+    k, q = k.double(), q.double()
+    if not torch.equal(torch.isnan(k), torch.isnan(q)):
+        fail(f"kernel {name} ({ctx}): NaN at {int(torch.isnan(k).sum())} "
+             f"places, plain at {int(torch.isnan(q).sum())}, not the same")
+    fin = ~torch.isnan(k)
+    kf, qf = k[fin], q[fin]
+    if not torch.equal(torch.isinf(kf), torch.isinf(qf)) or not torch.equal(
+            kf[torch.isinf(kf)], qf[torch.isinf(qf)]):
+        fail(f"kernel {name} ({ctx}): infinities differ from plain")
+    both = torch.isfinite(kf)
+    diff = (kf[both] - qf[both]).abs()
+    worst = float((diff / qf[both].abs().clamp_min(1e-30)).max()) \
+        if diff.numel() else 0.0
+    if (rel == 0 and diff.numel() and float(diff.max()) != 0.0) or \
+            worst > rel:
+        fail(f"kernel {name} ({ctx}): finite values differ from plain "
+             f"(max rel {worst})")
+    return int(torch.isnan(k).sum())
+
+
+def _same_record(torch, k, q, ctx):
+    """Kernel S's record against the plain scan's, NaN for NaN."""
+    for key in ("feature", "threshold", "default_left", "left_mask"):
+        if not torch.equal(k[key].to(q[key].dtype), q[key]):
+            fail(f"kernel S ({ctx}): {key} {k[key].tolist()[:4]} against "
+                 f"plain {q[key].tolist()[:4]}")
+    _nan_same(torch, k["gain"], q["gain"], 0, "S", ctx + ", gain")
+    _nan_same(torch, k["left_stats"], q["left_stats"], 0, "S",
+              ctx + ", left stats")
+
+
+def phase_health_kernels(torch, ds):
+    """Phase 17: every kernel of the three paths on NaN-bearing inputs at
+    full width (the dataset's 28 x 10.5M bins), one launch against its
+    plain version.  Float kernels (H; L; Q's grad column) must give NaN at
+    the same places and the same finite values; kernel S the same record
+    NaN for NaN; the quantized passes (M, R, V, V-lanes) get the int8
+    operand of NaN gradients (its scale NaN: the integers a NaN rounds to
+    are never an index) and must be exact.  Where a fixed-point float sum
+    (Q; M on float values, the float waves' root pass) takes a NaN, every
+    cell of that column is NaN, where the plain sum has NaN only in the
+    cells holding the row: the phase checks that, the other columns, and
+    that the scans choose no split on either output (a tree whose
+    gradients hold a NaN splits nowhere, so nothing reads the column
+    beyond)."""
+    from lightgbm_tpu_torch.ops import histogram as th
+    from lightgbm_tpu_torch.ops import lookup as tl
+    from lightgbm_tpu_torch.ops import split as ts
+    from types import SimpleNamespace
+    from lightgbm_tpu_torch.ops.grow import _value_operand, quantize_gradients
+    from lightgbm_tpu_torch.utils import prng
+    dev = torch.device(DEVICE, 0)
+    bins = ds._constructed.binned.to(dev)
+    F, N = bins.shape
+    B = 256
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(17)
+    grad = torch.randn(N, generator=g, device=dev)
+    hess = torch.rand(N, generator=g, device=dev) + 0.05
+    mask = torch.ones(N, device=dev)
+    nan_rows = grad.clone()
+    nan_rows[::HEALTH_EVERY] = float("nan")
+    one_row = grad.clone()
+    one_row[7] = float("nan")
+    one_row[11] = float("inf")
+    lid0 = torch.zeros(N, dtype=torch.uint8, device=dev)
+    leaf0 = torch.zeros((), dtype=torch.int32, device=dev)
+
+    # H: the root pass
+    for ctx, gv in (("1 row in 1,000 NaN", nan_rows),
+                    ("one NaN and one inf row", one_row)):
+        args = (bins, gv, hess, mask, lid0, leaf0, B)
+        k = th.masked_histogram(*args)
+        q = th.masked_histogram_plain(*args)
+        out[f"H, {ctx}"] = _nan_same(torch, k, q, 1e-5, "H", ctx)
+    # S: lane 0 the NaN row's root (its parent NaN), lane 1 a clean leaf
+    # with one NaN cell (its parent finite)
+    clean = th.masked_histogram(bins, grad, hess, mask, lid0, leaf0, B)
+    hist = torch.stack([k, clean]).contiguous()
+    parent = hist[:, 0].sum(dim=1).contiguous()
+    hist[1, 3, 10, 0] = float("nan")
+    nb = torch.full((F,), B - 1, dtype=torch.int32, device=dev)
+    mt = torch.zeros(F, dtype=torch.int32, device=dev)
+    mt[::4] = 2
+    fm = torch.ones(F, dtype=torch.bool, device=dev)
+    p = ts.SplitParams(max_bin=B, min_data_in_leaf=20,
+                       min_sum_hessian_in_leaf=100.0, any_missing=True)
+    kr = ts.find_best_split(hist, parent, nb, mt, fm, p)
+    kr = {key: v.clone() for key, v in kr.items()}
+    qr = ts.find_best_split_plain(hist, parent, nb, mt, fm, p)
+    _same_record(torch, kr, qr, "W=2, a NaN root and a NaN cell")
+    if bool((kr["gain"] > 0).any()):
+        fail("kernel S splits a leaf with a NaN histogram cell")
+    out["S"] = {"gain": kr["gain"].tolist(), "feature": kr["feature"].tolist()}
+    # L: NaN and infinite leaf values
+    score = torch.randn(N, generator=g, device=dev)
+    vals = torch.randn(255, generator=g, device=dev)
+    vals[3], vals[5], vals[6] = float("nan"), float("inf"), -float("inf")
+    idx = torch.randint(0, 255, (N,), generator=g, device=dev,
+                        dtype=torch.int32).to(torch.uint8)
+    ks, qs = score.clone(), score.clone()
+    tl.take_small_add(ks, vals, idx)
+    tl.take_small_add_plain(qs, vals, idx)
+    out["L"] = _nan_same(torch, ks, qs, 0, "L", "NaN and inf leaf values")
+    del ks, qs, score
+
+    # the quantized operand of NaN gradients
+    gp = SimpleNamespace(quantize=120, two_col=True)   # wave255's
+    gq, hq, scale = quantize_gradients(nan_rows, hess, mask, 120, True,
+                                       prng.prng_key(0))
+    qv = _value_operand(gq, hq, mask, gp)
+    cpu_q = _value_operand(gq.cpu(), hq.cpu(), mask.cpu(), gp)
+    at_nan = qv[::HEALTH_EVERY, 0]
+    out["quantized"] = {
+        "scale": scale.tolist(),
+        "int8_at_nan_rows": torch.unique(at_nan).tolist(),
+        "int8_at_nan_rows_cpu": torch.unique(cpu_q[::HEALTH_EVERY, 0])
+        .tolist(),
+        "int8_elsewhere": torch.unique(qv[1:HEALTH_EVERY, 0]).tolist()}
+    if not bool(torch.isnan(scale[0])):
+        fail("the quantization scale of NaN gradients is finite")
+    # M, full and coarse root passes; R a wave; V the root's window;
+    # V-lanes the wave's children: int8 values, exact
+    sel0 = torch.zeros(N, dtype=torch.int8, device=dev)
+    check_multi(torch, th, bins, qv, sel0, 1, B, True, True,
+                "NaN gradients' int8 operand, root")
+    shift = 4
+    Bc = ((B - 1) >> shift) + 2
+    R = 2 << shift
+    miss_bin = torch.full((F,), -1, dtype=torch.int32, device=dev)
+    miss_bin[::4] = B - 2
+    check_multi(torch, th, bins, qv, sel0, 1, Bc, True, True,
+                "NaN gradients' int8 operand, coarse root", shift, miss_bin)
+    W = 64
+    li = torch.randint(0, 127, (N,), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.uint8)
+    ids = torch.randperm(127, generator=g, device=dev)[:W].to(torch.int32)
+    ids[60:] = 127
+    tbl = torch.stack([
+        ids,
+        torch.randint(0, F, (W,), generator=g, device=dev, dtype=torch.int32),
+        torch.randint(0, B - 3, (W,), generator=g, device=dev,
+                      dtype=torch.int32),
+        torch.arange(127, 127 + W, device=dev, dtype=torch.int32),
+        torch.randint(0, 2, (W,), generator=g, device=dev, dtype=torch.int32),
+        torch.randint(0, 2, (W,), generator=g, device=dev,
+                      dtype=torch.int32)]).contiguous()
+    check_routed(torch, th, (bins, qv, li, tbl, B, W, True),
+                 {"miss_bin": miss_bin, "shift": 0},
+                 True, "NaN gradients' int8 operand, W=64")
+    kl = th.routed_histogram(bins, qv, li, tbl, Bc, W, True, miss_bin,
+                             shift=shift)[1]
+    lo0 = _lanes_windows(torch, g, dev, 1, F, Bc, shift)
+    args = (bins, qv, sel0, lo0, R, 1, True, miss_bin)
+    check_against(torch, lambda: th.window_histogram(*args),
+                  lambda: th.window_histogram_plain(*args), True, "V",
+                  "NaN gradients' int8 operand, the root's window")
+    lanes = torch.cat([tbl[0, :30], tbl[3, :30],
+                       torch.full((4,), 256, dtype=torch.int32,
+                                  device=dev)]).contiguous()
+    lo = _lanes_windows(torch, g, dev, W, F, Bc, shift)
+    args = (bins, qv, kl, lanes, lo, R, W, True, miss_bin)
+    check_against(torch, lambda: th.lanes_window_histogram(*args),
+                  lambda: th.lanes_window_histogram_plain(*args), True,
+                  "V-lanes", "NaN gradients' int8 operand, W=64")
+    del li, kl
+    # Q and M on float values: a NaN column is NaN in every cell
+    lq = torch.randint(0, 255, (N,), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.uint8)
+    for ctx, gv in (("1 row in 1,000 NaN", nan_rows),
+                    ("one NaN and one inf row", one_row)):
+        kq = th.leaf_stats(lq, gv, hess, mask, 255)
+        pq = th.leaf_stats_plain(lq, gv, hess, mask, 255)
+        _nan_same(torch, kq[:, 1:], pq[:, 1:], 1e-6, "Q", ctx + ", hess, count")
+        if kq.is_cuda and not bool(torch.isnan(kq[:, 0]).all()):
+            fail(f"kernel Q ({ctx}): a NaN-bearing grad column is not NaN "
+                 f"in every leaf")
+        out[f"Q, {ctx}"] = {
+            "plain_nan_leaves": int(torch.isnan(pq[:, 0]).sum()),
+            "kernel_nan_leaves": int(torch.isnan(kq[:, 0]).sum())}
+        fv = torch.stack([gv, hess, mask], -1).contiguous()
+        km = th.multi_histogram(bins, fv, sel0, B, 1, False)
+        pm = th.multi_histogram_plain(bins, fv, sel0, B, 1, False)
+        _nan_same(torch, km[..., 1:], pm[..., 1:], 1e-5, "M",
+                  ctx + ", float values, hess and count")
+        if km.is_cuda and not bool(torch.isnan(km[..., 0]).all()):
+            fail(f"kernel M ({ctx}): a NaN-bearing float column is not NaN "
+                 f"in every cell")
+        for which, h in (("kernel", km[0]), ("plain", pm[0])):
+            r = ts.find_best_split_plain(h[None].contiguous(),
+                                         h[0].sum(0)[None].contiguous(),
+                                         nb, mt, fm, p)
+            if bool((r["gain"] > 0).any()):
+                fail(f"M float ({ctx}): the scan splits the {which} "
+                     f"histogram")
+        out[f"M float, {ctx}"] = {
+            "plain_nan_cells": int(torch.isnan(pm[..., 0]).sum()),
+            "kernel_nan_cells": int(torch.isnan(km[..., 0]).sum())}
+    print(f"phase 17 kernels on NaN input: H, S, L as plain NaN for NaN; "
+          f"M, R, V, V-lanes exact on the int8 operand of NaN gradients "
+          f"(scale {out['quantized']['scale']}, int8 at NaN rows "
+          f"{out['quantized']['int8_at_nan_rows']} on the card, "
+          f"{out['quantized']['int8_at_nan_rows_cpu']} on the CPU); Q and "
+          f"float M NaN in the whole column, no split either way: {out}",
+          flush=True)
+    return out
+
+
 def _phase_done(name, t0):
     """Print a phase's seconds; the clock for the next."""
     print(f"{name}: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -5319,6 +5760,9 @@ def main():
         torch, ltt, data, {"exact": e2e, "wave": e2e_wave, "c2f": e2e_c2f})
     t_phase = _phase_done("phase 16 (monotone constraints, penalty)",
                           t_phase)
+    # ---- phase 17: the numerical-health checks ------------------------
+    e2e_health = phase_health(torch, ltt, data)
+    t_phase = _phase_done("phase 17 (numerical health)", t_phase)
     del data
     torch.cuda.empty_cache()
     # ---- phase 15: bench.py's sparse one-hot row, bundled -------------
@@ -5489,6 +5933,7 @@ def main():
                       "e2e_categorical": e2e_categorical,
                       "e2e_allstate": e2e_allstate,
                       "e2e_monotone": e2e_monotone,
+                      "e2e_health": e2e_health,
                       "expand": {k: v for k, v in stats["efb"].items()
                                  if k.startswith("expand")},
                       "categorical_scan": stats["categorical_scan"]}),

@@ -176,9 +176,15 @@ struct Cand {
   float lg, lh, lc;
 };
 
-// `o` wins over `a` when better, or equal at a lower index `k`
+// `o` wins over `a` when better, or equal at a lower index `k`.  A NaN
+// gain ranks above every number, the first NaN above the later ones, as
+// in the plain version's `torch.max` and `torch.argmax` (and the JAX
+// package's `jnp.argmax`): non-finite gradients give the same record.
+// Branch-free, so that the NaN tests cost the 2W = 128 call under 1% (a
+// branch on them cost 14%: tools/split_ab.py, PERF.md).
 __device__ __forceinline__ bool beats(float go, int ko, float ga, int ka) {
-  return go > ga || (go == ga && ko < ka);
+  const bool on = go != go, an = ga != ga, lower = ko < ka;
+  return (go > ga) | ((go == ga) & lower) | (on & (!an | lower));
 }
 
 __device__ __forceinline__ Cand shfl_cand(const Cand& a, int off) {
@@ -339,7 +345,8 @@ __global__ void best_split_kernel(const float* __restrict__ hist,
     if ((kMode & kPen) && gain > 0.5f * kNegInf) gain = gain * pf;
     if (!fm) gain = kNegInf;
     // a thread's bins ascend: a later one wins only when better
-    if (mine.j == B || gain > mine.gain) mine = Cand{gain, j, dl, wg, wh, wc};
+    if (mine.j == B || beats(gain, j, mine.gain, mine.j))
+      mine = Cand{gain, j, dl, wg, wh, wc};
   }
   // the feature's first maximum (lowest bin on ties) into the scratch
   const Cand best = block_first_max(mine, red);
@@ -364,7 +371,8 @@ __global__ void best_split_kernel(const float* __restrict__ hist,
   Cand fb{-INFINITY, F, false, 0.f, 0.f, 0.f};
   for (int q = t; q < F; q += blockDim.x) {
     const float g = __ldcg(pw + q * kPart);
-    if (fb.j == F || g > fb.gain) fb = Cand{g, q, false, 0.f, 0.f, 0.f};
+    if (fb.j == F || beats(g, q, fb.gain, fb.j))
+      fb = Cand{g, q, false, 0.f, 0.f, 0.f};
   }
   __syncthreads();                     // `red` is reused
   fb = block_first_max(fb, red);

@@ -36,6 +36,7 @@ from ..ops import sample
 from ..ops.lookup import take_small_add
 from ..ops.predict import flatten_forest, predict_raw
 from ..utils import prng
+from ..utils.health import NumericalHealthError
 from ..utils.log import Log
 from .gbdt import _KEPS, GBDT, ValidSet, _class_row
 
@@ -232,7 +233,16 @@ class DART(GBDT):
         pre_valid = [vs.score.clone() for vs in self.valid_sets]
         pre_weights = (list(self.tree_weight), self.sum_weight)
         self._drop()
-        stop = super().train_one_iter(grad, hess)
+        try:
+            stop = super().train_one_iter(grad, hess)
+        except NumericalHealthError:
+            # the JAX package raises here with the drops still out of its
+            # score (:283); the port puts them back: its served boundary
+            self._score.copy_(pre_score)
+            for vs, snap in zip(self.valid_sets, pre_valid):
+                vs.score.copy_(snap)
+            self._drop_index = []
+            raise
         if stop:
             # no tree was added: the dropped trees go back in
             for i in self._drop_index:
@@ -345,6 +355,9 @@ class RF(GBDT):
     (``lightgbm_tpu/models/boosting.py:394-448``)."""
 
     _per_tree_host = True       # averaged-score updates
+    # a forest goes on past a tree that cannot split: its iteration checks
+    # each tree's leaf values, and no stop (:417-439)
+    _stop_health = False
 
     def __init__(self, config: Config, *args, **kwargs):
         if not (config.bagging_freq > 0 and 0 < config.bagging_fraction < 1):
@@ -386,6 +399,7 @@ class RF(GBDT):
         if grad is not None:
             Log.fatal("rf does not support a custom objective")
         # the scores before the iteration, for a rollback (:407-409)
+        last_undo = self._rf_undo
         self._rf_undo = (self._score.clone(),
                          [vs.score.clone() for vs in self.valid_sets])
         # score <- (score * m + tree + bias) / (m + 1), :411-436
@@ -394,7 +408,16 @@ class RF(GBDT):
                                       device=self.device))
         for vs in self.valid_sets:
             vs.score.mul_(self._m)
-        return super().train_one_iter()
+        try:
+            return super().train_one_iter()
+        except NumericalHealthError:
+            # back to the scores before the iteration's multiply
+            score, valid = self._rf_undo
+            self._score.copy_(score)
+            for vs, snap in zip(self.valid_sets, valid):
+                vs.score.copy_(snap)
+            self._rf_undo = last_undo
+            raise
 
     def _landed(self, blk: dict) -> None:
         """Each class tree's float32 values into its class's row of the

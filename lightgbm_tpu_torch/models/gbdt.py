@@ -95,6 +95,15 @@ there: such an iteration is a block of its own, without boost_from_average;
 a head captured for the other kind of gradients is captured anew.  The
 metrics get each set's query boundaries (ranking: ``ndcg@k``,
 ``map@k``).
+
+The numerical-health checks (``utils/health.py``, the JAX package's
+``_check_tree_health``, ``_check_stop_health`` and the super-step's
+``nonfinite`` flag, :1363-1373, :1684-1702, :2215-2240) read what the
+host fetches anyway: each tree's record row carries the minimum and
+maximum of its gradients, hessians, leaf values and score row, computed
+in the tree's graphs, and a landed block is checked before it is served.
+A failing block is dropped with every block after it and the booster put
+back at its served boundary before ``NumericalHealthError`` is raised.
 """
 from __future__ import annotations
 
@@ -117,6 +126,7 @@ from ..ops.lookup import take_small_add
 from ..ops.predict import flatten_forest, predict_raw
 from ..ops.split import SplitParams
 from ..utils import prng
+from ..utils.health import abort_nonfinite
 from ..utils.log import Log
 from .tree import Tree, cat_bitset
 
@@ -128,6 +138,10 @@ _KEPS = 1e-15
 # count and, under quantization, the renewal sums
 _HOST_RECORDS = ("leaf", "feature", "threshold", "default_left", "gain",
                  "left_stats", "right_stats", "valid")
+# the ``health`` record's (8,) float32 words: the minimum and maximum of the
+# tree's gradients, hessians, final leaf values and score row
+_H_GRAD, _H_HESS, _H_VALS, _H_SCORE = (slice(0, 2), slice(2, 4),
+                                       slice(4, 6), slice(6, 8))
 
 
 def class_rows(num_class: int, n: int, dtype: torch.dtype,
@@ -323,6 +337,9 @@ class GBDT:
     # instead of in its tail graph.  An instance also needs it when its
     # objective refits leaves (set in __init__)
     _per_tree_host = False
+    # whether a stop iteration's gradients are checked (random forests'
+    # iteration has no stop, lightgbm_tpu/models/boosting.py:417-439)
+    _stop_health = True
 
     def __init__(self, config: Config, train_set: TorchDataset,
                  objective: Objective, metrics=(), eager: bool = False):
@@ -458,7 +475,10 @@ class GBDT:
         self._lr = torch.full((), self.shrinkage_rate, dtype=torch.float32,
                               device=dev)
         self._lr_host = self.shrinkage_rate
-        self._layout = record_layout(host_records(st))
+        # the numerical-health words, written in the tree's graphs
+        # (:meth:`_minmax`) and packed with its records
+        self._health = torch.zeros(8, dtype=torch.float32, device=dev)
+        self._layout = record_layout(self._host_records())
         self._row = torch.zeros(sum(int(np.prod(s)) if s else 1
                                     for _, s, _ in self._layout),
                                 dtype=torch.float64, device=dev)
@@ -551,17 +571,27 @@ class GBDT:
         iteration's sample, which class 0's head draws from all K rows of
         them (the JAX package's one ``bag`` an iteration, :2526-2530).
         Custom gradients are read from the static buffers they were
-        copied to."""
+        copied to.  The health words take the gradients' and hessians'
+        range before the sample weighs them: all K rows at class 0's head
+        (the JAX package's stop check reads the iteration's K rows,
+        :2536), which the iteration's other class trees carry on."""
         C = self.num_tree_per_iteration
         if self._custom:
             grad, hess = self._grad_all[k], self._hess_all[k]
+            if k == 0:
+                self._minmax(self._grad_all, _H_GRAD)
+                self._minmax(self._hess_all, _H_HESS)
         elif C == 1:
             grad, hess = self._gradients()
+            self._minmax(grad, _H_GRAD)
+            self._minmax(hess, _H_HESS)
         else:
             if k == 0:
                 g, h = self._gradients()
                 self._grad_all.copy_(g)
                 self._hess_all.copy_(h)
+                self._minmax(self._grad_all, _H_GRAD)
+                self._minmax(self._hess_all, _H_HESS)
             grad, hess = self._grad_all[k], self._hess_all[k]
         if self._sampled:
             if C == 1:
@@ -578,12 +608,30 @@ class GBDT:
         tree_head(self._state, grad, hess)
 
     def _tree_tail(self, k: int = 0) -> None:
+        """The leaf values, the score add where the tail makes it, the
+        health words of both (the JAX super-step's flag reads the values
+        and the new score, :1370-1373) and the packed records."""
         st = self._state
         tree_tail(st)
+        self._minmax(st.leaf_values_final, _H_VALS)
         if not self._per_tree_host:
             torch.mul(st.leaf_values_final, self._lr, out=self._vals)
-            take_small_add(_class_row(self._score, k), self._vals, st.leaf_idx)
-        pack_records(host_records(st), self._layout, self._row)
+            row = _class_row(self._score, k)
+            take_small_add(row, self._vals, st.leaf_idx)
+            self._minmax(row, _H_SCORE)
+        pack_records(self._host_records(), self._layout, self._row)
+
+    def _minmax(self, x: torch.Tensor, words: slice) -> None:
+        """``x``'s minimum and maximum into two health words: one
+        reduction on the device, non-finite exactly when some element is
+        (both reductions propagate NaN), read with the tree's records."""
+        h = self._health[words]
+        torch.aminmax(x, out=(h[0], h[1]))
+
+    def _host_records(self) -> dict:
+        """What the host fetches of a tree: :func:`host_records` and the
+        health words."""
+        return dict(host_records(self._state), health=self._health)
 
     def _feature_fraction_mask(self) -> np.ndarray:
         F = self.num_features
@@ -830,7 +878,7 @@ class GBDT:
         i0 = self._sq[-1]["i0"] + self._sq[-1]["k"] if self._sq \
             else self.iter
         C = self.num_tree_per_iteration
-        K, init_score = 1, [0.0] * C
+        K, init_score, undo = 1, [0.0] * C, None
         if fused:
             K = int(cfg.fused_iters)
             remaining = cfg.num_iterations - i0
@@ -839,6 +887,7 @@ class GBDT:
             if 0 < remaining < K:
                 K = remaining           # the tail block
         else:
+            undo = self._undo_state()
             init_score = self._boost_from_average()
         # the dispatch fence: the host state a block consumes before its
         # records land, restored when the block is dropped
@@ -885,8 +934,19 @@ class GBDT:
         self._sq.append({"slot": slot, "i0": i0, "k": K, "fence": fence,
                          "init_score": init_score, "waves": waves,
                          "event": event, "lr": self.shrinkage_rate,
-                         "fused": fused})
+                         "fused": fused, "undo": undo})
         return True
+
+    def _undo_state(self):
+        """What a block of one iteration changes that its start copy does
+        not restore: iteration 0's training score before the
+        boost_from_average bias, and each validation set's score (its
+        scorer adds in the tree's graph); None when neither applies."""
+        first = self.iter == 0 and not self.models
+        if not first and not self.valid_sets:
+            return None
+        return (self._score.clone() if first else None,
+                [vs.score.clone() for vs in self.valid_sets])
 
     def _discard_queue(self) -> None:
         """Drop every dispatched block not landed and restore what their
@@ -923,7 +983,16 @@ class GBDT:
         first iteration's trees take the bias of a boost_from_average
         iteration after :meth:`_landed`, which sees the trees as the
         scores add them.  A refitting objective renews each tree's leaves
-        before its shrinkage (blocks of one tree)."""
+        before its shrinkage (blocks of one tree).
+
+        The numerical-health checks read the fetched rows, and raise
+        :class:`NumericalHealthError` after :meth:`_restore_boundary`:
+        a fused block by the JAX super-step's rule (:meth:`_fused_health`,
+        phase ``"superstep"``); a block of one iteration by the JAX
+        per-iteration path's (:2536, :2582, phase ``"tree"``): each host
+        tree's leaf values as it is made, before its renewal, and, when
+        every class tree of the iteration is constant, the gradients and
+        hessians of all K rows."""
         entry = self._sq.pop(0)
         slot, K = entry["slot"], entry["k"]
         C = self.num_tree_per_iteration
@@ -932,6 +1001,9 @@ class GBDT:
         host = fetch_records(slot["host"][:K * C], self._layout)
         self.records_fetches += 1
         self.block_sizes.append(K)
+        health = host.pop("health")
+        if entry["fused"]:
+            self._fused_health(entry, health, host["n_leaves"][:K])
         inits = entry["init_score"]
         const = host["n_leaves"][:K * C] <= 1
         trees, stop_idx = [], None
@@ -946,6 +1018,8 @@ class GBDT:
                 tree = records_to_tree({n: v[t] for n, v in host.items()},
                                        self.config, self.train_set,
                                        counts_proxy=self._counts_proxy)
+                if not entry["fused"]:
+                    self._tree_health(entry, tree)
                 if self.objective is not None and self.objective.renews:
                     self.objective.renew_tree_output(
                         tree, slot["start"],
@@ -957,6 +1031,15 @@ class GBDT:
                 # the stop iteration: every class tree constant
                 stop_idx = t // C
                 break
+        if stop_idx is not None and not entry["fused"] and \
+                self._stop_health and not np.isfinite(
+                    health[0, _H_GRAD.start:_H_HESS.stop]).all():
+            # non-finite gradients make every gain NaN and pass for a tree
+            # that cannot split
+            self._restore_boundary(entry)
+            abort_nonfinite(entry["i0"], "tree",
+                            "non-finite gradients at the stop boundary "
+                            "(bad labels/scores, not an exhausted tree)")
         self._fused_block = {"slot": slot, "trees": trees,
                              "stop_idx": stop_idx, "served": 0,
                              "waves": entry["waves"], "lr": entry["lr"],
@@ -985,6 +1068,56 @@ class GBDT:
             if not const[k] and abs(init) > _KEPS:
                 trees[k].add_bias(init)
         return self._serve_fused()
+
+    def _fused_health(self, entry: dict, health: np.ndarray,
+                      n_leaves: np.ndarray) -> None:
+        """The JAX super-step's rule (:1684-1702): an iteration is bad
+        where its gradients, leaf values or new score are not all finite;
+        at the first bad iteration ``j`` the block is dropped and the
+        error raised at ``i0 + j``, unless a stop tree (which a finite
+        tree ends training at) comes before it."""
+        words = np.concatenate([health[:, _H_GRAD], health[:, _H_VALS],
+                                health[:, _H_SCORE]], axis=1)
+        bad = ~np.isfinite(words).all(axis=1)
+        if not bad.any():
+            return
+        j = int(np.argmax(bad))
+        stops = np.nonzero(n_leaves <= 1)[0]
+        if stops.size and int(stops[0]) < j:
+            return
+        self._restore_boundary(entry)
+        abort_nonfinite(entry["i0"] + j, "superstep",
+                        f"fused block of {entry['k']} starting at "
+                        f"iteration {entry['i0']}")
+
+    def _tree_health(self, entry: dict, tree: Tree) -> None:
+        """A host tree's leaf values, after ``records_to_tree`` and before
+        the renewal and the shrinkage (``_check_tree_health``, :2215)."""
+        vals = tree.leaf_value[:max(tree.num_leaves, 1)]
+        bad = ~np.isfinite(vals)
+        if bad.any():
+            self._restore_boundary(entry)
+            abort_nonfinite(entry["i0"], "tree",
+                            f"{int(bad.sum())} non-finite leaf value(s)")
+
+    def _restore_boundary(self, entry: dict) -> None:
+        """Put the booster back at its served boundary before a landed
+        block that failed a health check: the block and every block
+        dispatched after it dropped (the training score from its start
+        copy, the feature-fraction draws and tree ids from its fence),
+        then what the start copy does not hold (:meth:`_undo_state`).
+        The iteration count and the served trees never moved.  The last
+        served block's buffers may have been reused, so it can no longer
+        be rolled back."""
+        self._sq.insert(0, entry)
+        self._discard_queue()
+        if entry["undo"] is not None:
+            score, valid = entry["undo"]
+            if score is not None:
+                self._score.copy_(score)
+            for vs, saved in zip(self.valid_sets, valid):
+                vs.score.copy_(saved)
+        self._fused_block = None
 
     def _landed(self, blk: dict) -> None:
         """What a boosting mode does with a landed block before it is
@@ -1015,7 +1148,17 @@ class GBDT:
 
     def _serve_fused(self) -> bool:
         """Append the next iteration's trees of the landed block: one
-        boosting iteration from the caller's point of view."""
+        boosting iteration from the caller's point of view.
+
+        At a stop (an iteration whose every class tree is constant) the
+        served list is the JAX package's per-iteration path's
+        (:2520-2540): the constant trees are appended, ``iter`` does not
+        advance, training ends.  That path is the oracle at a stop: every
+        configuration can take it (valid sets, renewal, K > 1, DART, RF,
+        custom gradients), and the JAX package's pipelined path, its
+        default for K = 1 without valid sets, gains one more constant tree
+        and an iteration from its one-tree lag, as its docstring states
+        (:2245-2252)."""
         blk = self._fused_block
         C = self.num_tree_per_iteration
         t = blk["served"]

@@ -3,7 +3,8 @@
 Run on a machine with the CUDA toolkit:
 
     python3 -m lightgbm_tpu_torch.tools.sass_same OTHER.cu \\
-        --source split.cu --kernel best_split_kernel --instance ILi0ELi0E
+        --source split.cu --kernel best_split_kernel --instance ILi0ELi0E \\
+        [--other-instance ILi0ELi0E]
 
 It compiles ``csrc/SOURCE`` of the checkout and ``OTHER.cu`` (another
 version of it, for example the parent commit's, ``git show
@@ -11,7 +12,8 @@ PARENT:lightgbm_tpu_torch/csrc/split.cu``) to cubins with the kernels'
 flags (``ops/kernels.py``), dumps their SASS with ``cuobjdump -sass`` and
 compares the instruction sequences of the functions whose names hold
 ``--kernel`` (and, in the checkout's build, ``--instance``: one template
-instance), without addresses, encodings, branch-target labels or the
+instance; in the other build ``--other-instance``, where it holds several),
+without addresses, encodings, branch-target labels or the
 offsets of the kernel's parameters in constant bank 0 (a parameter added
 to the signature moves the ones after it).  The JSON on the last line of
 standard output names the functions, their instruction counts, whether
@@ -70,13 +72,14 @@ def main(argv=None) -> int:
     ap.add_argument("--source", default="split.cu")
     ap.add_argument("--kernel", default="best_split_kernel")
     ap.add_argument("--instance", default="")
+    ap.add_argument("--other-instance", default="")
     args = ap.parse_args(argv)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory() as tmp:
         new = _sass(nvcc, CSRC / args.source, Path(tmp) / "new.cubin")
         old = _sass(nvcc, args.other, Path(tmp) / "old.cubin")
     fn_new = _pick(new, args.kernel, args.instance)
-    fn_old = _pick(old, args.kernel, "")
+    fn_old = _pick(old, args.kernel, args.other_instance)
     a, b = old[fn_old], new[fn_new]
     first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
                  None if len(a) == len(b) else min(len(a), len(b)))
